@@ -6,8 +6,8 @@
 // _forward_tiles). The Pallas kernels get their backward by applying
 // jax.vjp to that math; a CUDA kernel has no autodiff, so the adjoints are
 // written out here. Every function is __host__ __device__: the same code
-// runs in the CUDA kernels (fused_unrolled.cu) and, compiled with a host C++
-// compiler, in the CPU test of the adjoints
+// runs in the CUDA kernels (fused_unrolled.cu, fused_train.cu) and, compiled
+// with a host C++ compiler, in the CPU test of the adjoints
 // (tests/test_torch_port_frame_math.py).
 //
 // Conventions (row-vector, as in the JAX package):
@@ -62,6 +62,18 @@ struct ModelArgs {
 __host__ __device__ __forceinline__ int model_out_dim(const ModelArgs& m) {
   return m.n_layers ? m.dims[m.n_layers] : m.n_feat;
 }
+
+// Entries of the flat gradient vector [ref_x | W0 | b0 | W1 | b1 ...].
+__host__ __device__ __forceinline__ int model_grad_size(const ModelArgs& m) {
+  int n = 3 * m.n_align;
+  for (int L = 0; L < m.n_layers; ++L) n += m.dims[L + 1] * (m.dims[L] + 1);
+  return n;
+}
+
+// Frames per block of every kernel: 128 while the block's [F, 3n] input
+// slab fits the default 48 KB of shared memory, else 64 (3n <= 192 always
+// fits at 64).
+inline int frames_per_block(int n3) { return n3 <= 96 ? 128 : 64; }
 
 // ---------------------------------------------------------------------------
 // Forward-mode dual numbers with 9 tangents: one per entry of H. Running the
@@ -477,97 +489,149 @@ __host__ __device__ __forceinline__ const float* mlp_fwd(const ModelArgs& m,
   return in;
 }
 
-// Shared forward: alignment (values), features, permutation, MLP.
+// What the backward needs from a frame's forward.
+struct FrameFwd {
+  bool aligned;
+  float c[3];
+  float R[3][3];
+  float dR[3][3][9];  // dR[i][j][3p+q] = dR_ij / dH_pq (filled when with_dR)
+  float cols[MOLANN_MAX_COLS];  // the MLP's input, in feature-list order
+  float h[MOLANN_MAX_LAYERS][MOLANN_MAX_WIDTH];
+};
+
+// Shared forward: alignment, features, permutation, MLP. with_dR runs the
+// last QCP steps on Dual9 to get dR/dH, which only the adjoint of the
+// position features needs. Returns a pointer to the model output.
+__host__ __device__ __forceinline__ const float* frame_fwd(const ModelArgs& m,
+                                                           const float* xs,
+                                                           bool with_dR, FrameFwd& st) {
+  st.aligned = needs_alignment(m);
+  for (int i = 0; i < 3; ++i) st.c[i] = 0.f;
+  if (st.aligned) {
+    float Hf[3][3];
+    align_covariance(m, xs, st.c, Hf);
+    if (with_dR) {
+      Dual9 H[3][3], Rd[3][3];
+      for (int p = 0; p < 3; ++p)
+        for (int q = 0; q < 3; ++q) {
+          H[p][q] = Dual9(Hf[p][q]);
+          H[p][q].d[3 * p + q] = 1.0f;
+        }
+      qcp_rotation(H, Rd);
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+          st.R[i][j] = Rd[i][j].v;
+          for (int k = 0; k < 9; ++k) st.dR[i][j][k] = Rd[i][j].d[k];
+        }
+    } else {
+      qcp_rotation(Hf, st.R);
+    }
+  }
+  float feat[MOLANN_MAX_COLS];
+  features_fwd(m, xs, st.aligned, st.c, st.R, feat);
+  for (int k = 0; k < m.n_feat; ++k) st.cols[k] = m.has_perm ? feat[m.perm[k]] : feat[k];
+  return mlp_fwd(m, st.cols, st.h);
+}
+
 __host__ __device__ __forceinline__ void frame_forward(const ModelArgs& m, const float* xs,
                                                        float* y) {
-  float c[3] = {0.f, 0.f, 0.f};
-  float R[3][3];
-  const bool aligned = needs_alignment(m);
-  if (aligned) {
-    float H[3][3];
-    align_covariance(m, xs, c, H);
-    qcp_rotation(H, R);
-  }
-  float feat[MOLANN_MAX_COLS], cols[MOLANN_MAX_COLS];
-  features_fwd(m, xs, aligned, c, R, feat);
-  for (int k = 0; k < m.n_feat; ++k) cols[k] = m.has_perm ? feat[m.perm[k]] : feat[k];
-  float h[MOLANN_MAX_LAYERS][MOLANN_MAX_WIDTH];
-  const float* out = mlp_fwd(m, cols, h);
+  FrameFwd st;
+  const float* out = frame_fwd(m, xs, false, st);
   const int d_out = model_out_dim(m);
   for (int j = 0; j < d_out; ++j) y[j] = out[j];
 }
 
-// Values y and gx = d(sum_j ct_j y_j)/dx with ct all ones (component < 0)
-// or one-hot at `component` (molann_tpu/ops/fused.py:1116-1172).
-__host__ __device__ __forceinline__ void frame_cv_forces(const ModelArgs& m,
-                                                         const float* xs, float* y,
-                                                         float* gx, int component) {
-  const bool aligned = needs_alignment(m);
-  float c[3] = {0.f, 0.f, 0.f};
-  float R[3][3];
-  float dR[3][3][9];  // dR[i][j][3p+q] = dR_ij / dH_pq
-  if (aligned) {
-    float Hf[3][3];
-    align_covariance(m, xs, c, Hf);
-    Dual9 H[3][3], Rd[3][3];
-    for (int p = 0; p < 3; ++p)
-      for (int q = 0; q < 3; ++q) {
-        H[p][q] = Dual9(Hf[p][q]);
-        H[p][q].d[3 * p + q] = 1.0f;
-      }
-    qcp_rotation(H, Rd);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        R[i][j] = Rd[i][j].v;
-        for (int k = 0; k < 9; ++k) dR[i][j][k] = Rd[i][j].d[k];
-      }
+// The cotangent of loss = sum_j (y_j - t_j)^2 * inv_count into ga[d];
+// returns the frame's term of the loss (molann_tpu/ops/fused.py:946-954).
+__host__ __device__ __forceinline__ float mse_cotangent(const float* y, const float* t,
+                                                        int d, float inv_count, float* ga) {
+  float e2 = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const float e = y[j] - t[j];
+    e2 += e * e;
+    ga[j] = 2.0f * e * inv_count;
   }
-  float feat[MOLANN_MAX_COLS], cols[MOLANN_MAX_COLS];
-  features_fwd(m, xs, aligned, c, R, feat);
-  for (int k = 0; k < m.n_feat; ++k) cols[k] = m.has_perm ? feat[m.perm[k]] : feat[k];
-  float h[MOLANN_MAX_LAYERS][MOLANN_MAX_WIDTH];
-  const float* out = mlp_fwd(m, cols, h);
-  const int d_out = model_out_dim(m);
-  for (int j = 0; j < d_out; ++j) y[j] = out[j];
+  return e2 * inv_count;
+}
 
-  // MLP adjoint: cotangent of the output, then back through each layer
-  float ga[MOLANN_MAX_COLS], gb[MOLANN_MAX_COLS];
-  for (int j = 0; j < d_out; ++j) ga[j] = (component < 0 || j == component) ? 1.0f : 0.0f;
+// A sink that drops every gradient: the cv+forces kernel wants gx only.
+struct NullSink {
+  __host__ __device__ void operator()(int, float) const {}
+};
+
+// The VJP of one frame (molann_tpu/ops/fused.py:586-621 per frame): given
+// the forward state `st` and the cotangent ga[d_out] of the output (used
+// as scratch), hands the frame's term of each gradient to sink(index,
+// value) and writes gx[3n] unless gx is null. `index` points into the flat
+// gradient vector G = [ref_x (3 * n_align) | W0 [d1 * d0] | b0 [d1] | W1 |
+// b1 ...], the layout of the kernels' float arguments. With want_ref, also
+// the terms of the ref_x gradient
+//   g_ref[n][j] = sum_i gH[i][j] * (x[a_n][i] - c_i).
+// With neither gx nor want_ref only the MLP's backward runs: no adjoint of
+// the features or of QCP (the point of _train_kernel, :902-913); st then
+// needs no dR. Control flow depends on the model only, so every thread of
+// a warp calls the sink with the same indices in the same order.
+template <class Sink>
+__host__ __device__ __forceinline__ void frame_vjp(const ModelArgs& m, const float* xs,
+                                                   const FrameFwd& st, float* ga, float* gx,
+                                                   bool want_ref, Sink& sink) {
+  const bool ref_adj = want_ref && st.aligned;
+  const bool input_adj = gx != nullptr || ref_adj;
+  // MLP adjoint: ga holds d/dz of layer L's output, in_L its input
+  float gb[MOLANN_MAX_COLS];
   if (m.n_layers) {
     const float* wl[MOLANN_MAX_LAYERS];
+    int off[MOLANN_MAX_LAYERS];
     const float* w = m.params;
+    int o = 3 * m.n_align;
     for (int L = 0; L < m.n_layers; ++L) {
       wl[L] = w;
-      w += m.dims[L + 1] * (m.dims[L] + 1);
+      off[L] = o;
+      const int size = m.dims[L + 1] * (m.dims[L] + 1);
+      w += size;
+      o += size;
     }
     for (int L = m.n_layers - 1; L >= 0; --L) {
       const int d_in = m.dims[L], d_o = m.dims[L + 1];
+      const float* in = L > 0 ? st.h[L - 1] : st.cols;
+      for (int j = 0; j < d_o; ++j) {
+        for (int k = 0; k < d_in; ++k) sink(off[L] + j * d_in + k, ga[j] * in[k]);
+        sink(off[L] + d_o * d_in + j, ga[j]);
+      }
+      if (L == 0 && !input_adj) return;
       for (int k = 0; k < d_in; ++k) {
         float acc = 0.f;
         for (int j = 0; j < d_o; ++j) acc += wl[L][j * d_in + k] * ga[j];
-        gb[k] = (L > 0) ? acc * act_grad(m.activation, h[L - 1][k]) : acc;
+        gb[k] = (L > 0) ? acc * act_grad(m.activation, st.h[L - 1][k]) : acc;
       }
       for (int k = 0; k < d_in; ++k) ga[k] = gb[k];
     }
   }
+  if (!input_adj) return;
   // undo the permutation: ga holds d/dcols; gb gets d/dfeat
   for (int k = 0; k < m.n_feat; ++k) gb[m.has_perm ? m.perm[k] : k] = ga[k];
 
-  for (int k = 0; k < 3 * m.n_atoms; ++k) gx[k] = 0.f;
   int row = 0;
-  for (int i = 0; i < m.n_angles; ++i)
-    angle_bwd(xs, m.angle_idx + 3 * i, m.use_angle_value, gb[row++], gx);
-  for (int i = 0; i < m.n_bonds; ++i) bond_bwd(xs, m.bond_idx + 2 * i, gb[row++], gx);
-  for (int i = 0; i < m.n_dihedrals; ++i) {
-    dihedral_bwd(xs, m.dihedral_idx + 4 * i, m.use_angle_value, gb + row, gx);
-    row += m.use_angle_value ? 1 : 2;
+  if (gx != nullptr) {
+    for (int k = 0; k < 3 * m.n_atoms; ++k) gx[k] = 0.f;
+    for (int i = 0; i < m.n_angles; ++i)
+      angle_bwd(xs, m.angle_idx + 3 * i, m.use_angle_value, gb[row++], gx);
+    for (int i = 0; i < m.n_bonds; ++i) bond_bwd(xs, m.bond_idx + 2 * i, gb[row++], gx);
+    for (int i = 0; i < m.n_dihedrals; ++i) {
+      dihedral_bwd(xs, m.dihedral_idx + 4 * i, m.use_angle_value, gb + row, gx);
+      row += m.use_angle_value ? 1 : 2;
+    }
+  } else {
+    row = m.n_angles + m.n_bonds + m.n_dihedrals * (m.use_angle_value ? 1 : 2);
   }
-  if (!aligned) {
+  if (!st.aligned) {
     for (int p = 0; p < m.n_pos; ++p, row += 3)
       acc_atom(gx, m.pos_idx[p], V3{gb[row], gb[row + 1], gb[row + 2]});
-    return;
+    return;  // only reached with gx: ref_adj needs the alignment
   }
   // aligned_i = sum_j (x_j - c_j) R[j][i]: into x, c and R
+  const float (&c)[3] = st.c;
+  const float (&R)[3][3] = st.R;
   float gc[3] = {0.f, 0.f, 0.f};
   float gR[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
   for (int p = 0; p < m.n_pos; ++p, row += 3) {
@@ -575,9 +639,11 @@ __host__ __device__ __forceinline__ void frame_cv_forces(const ModelArgs& m,
     const float v[3] = {xs[3 * a] - c[0], xs[3 * a + 1] - c[1], xs[3 * a + 2] - c[2]};
     const float* g = gb + row;
     for (int j = 0; j < 3; ++j) {
-      float gv = R[j][0] * g[0] + R[j][1] * g[1] + R[j][2] * g[2];
-      gx[3 * a + j] += gv;
-      gc[j] -= gv;
+      if (gx != nullptr) {
+        float gv = R[j][0] * g[0] + R[j][1] * g[1] + R[j][2] * g[2];
+        gx[3 * a + j] += gv;
+        gc[j] -= gv;
+      }
       for (int i = 0; i < 3; ++i) gR[j][i] += v[j] * g[i];
     }
   }
@@ -586,10 +652,20 @@ __host__ __device__ __forceinline__ void frame_cv_forces(const ModelArgs& m,
   for (int k = 0; k < 9; ++k) {
     float acc = 0.f;
     for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) acc += gR[i][j] * dR[i][j][k];
+      for (int j = 0; j < 3; ++j) acc += gR[i][j] * st.dR[i][j][k];
     gH[k] = acc;
   }
-  // H[i][j] = sum_n (x[a_n][i] - c[i]) ref[n][j]
+  // H[i][j] = sum_n (x[a_n][i] - c[i]) ref[n][j]: into ref ...
+  if (ref_adj)
+    for (int n = 0; n < m.n_align; ++n) {
+      const int a = m.align_idx[n];
+      for (int j = 0; j < 3; ++j)
+        sink(3 * n + j,
+             gH[j] * (xs[3 * a] - c[0]) + gH[3 + j] * (xs[3 * a + 1] - c[1]) +
+                 gH[6 + j] * (xs[3 * a + 2] - c[2]));
+    }
+  if (gx == nullptr) return;
+  // ... and into x and c
   for (int n = 0; n < m.n_align; ++n) {
     const int a = m.align_idx[n];
     for (int i = 0; i < 3; ++i) {
@@ -603,4 +679,21 @@ __host__ __device__ __forceinline__ void frame_cv_forces(const ModelArgs& m,
   const float inv_n = 1.0f / (float)m.n_align;
   for (int n = 0; n < m.n_align; ++n)
     for (int i = 0; i < 3; ++i) gx[3 * m.align_idx[n] + i] += gc[i] * inv_n;
+}
+
+// Values y and gx = d(sum_j ct_j y_j)/dx with ct all ones (component < 0)
+// or one-hot at `component` (molann_tpu/ops/fused.py:1116-1172).
+__host__ __device__ __forceinline__ void frame_cv_forces(const ModelArgs& m,
+                                                         const float* xs, float* y,
+                                                         float* gx, int component) {
+  FrameFwd st;
+  const float* out = frame_fwd(m, xs, true, st);
+  const int d_out = model_out_dim(m);
+  float ga[MOLANN_MAX_COLS];
+  for (int j = 0; j < d_out; ++j) {
+    y[j] = out[j];
+    ga[j] = (component < 0 || j == component) ? 1.0f : 0.0f;
+  }
+  NullSink sink;
+  frame_vjp(m, xs, st, ga, gx, false, sink);
 }

@@ -39,10 +39,6 @@ namespace {
 
 constexpr int kMaxOut = MOLANN_MAX_COLS;  // widest model output (no MLP)
 
-// frames per block: 128 while the [F, 3n] slab fits the default 48 KB of
-// shared memory, else 64 (3n <= 192 always fits at 64)
-inline int frames_per_block(int n3) { return n3 <= 96 ? 128 : 64; }
-
 template <bool kForces>
 __global__ void __launch_bounds__(128)
 fused_unrolled_kernel(const ModelArgs m, const float* __restrict__ x,

@@ -1,12 +1,12 @@
-"""Load models saved by the JAX package's ``molann_tpu.io.save_model``.
+"""Save and load models in the JAX package's ``.npz`` format.
 
-The ``.npz`` artifact (format v1, ``molann_tpu/io/serialize.py:286-309``)
-holds a JSON structure description under ``__meta__`` plus numpy arrays.
-It is read here with numpy and JSON only, so weights cross from the JAX
-package to the port without JAX installed:
+The artifact (format v1, ``molann_tpu/io/serialize.py:286-309``) holds a
+JSON structure description under ``__meta__`` plus numpy arrays. It is
+read and written here with numpy and JSON only, so weights cross between
+the JAX package and the port both ways without JAX installed:
 
 - ``SequentialNN`` weights ``w [d_in, d_out]`` become
-  ``nn.Linear.weight [d_out, d_in]`` (transposed);
+  ``nn.Linear.weight [d_out, d_in]`` (transposed), and back on saving;
 - ``ref_x`` and the compiled feature spec are taken as they are.
 
 Atom groups come back as :class:`~molann_tpu_torch.topology.FrozenAtomGroup`
@@ -35,7 +35,8 @@ from ..models.ann import (
 from ..spec import CompiledFeatures
 from ..topology import FrozenAtomGroup
 
-__all__ = ["load_model", "model_from_arrays", "FORMAT_VERSION"]
+__all__ = ["save_model", "load_model", "model_from_arrays",
+           "FORMAT_VERSION"]
 
 FORMAT_VERSION = 1
 
@@ -140,6 +141,107 @@ def _from_dict(d, arrays, device):
             raise ValueError(f"unknown activation {d['activation']!r}")
         return SequentialNN(layers, d["activation"])
     raise TypeError(f"cannot load kind {kind!r}")
+
+
+class _Saver:
+    def __init__(self):
+        self.arrays = {}
+
+    def array(self, a):
+        key = f"a{len(self.arrays)}"
+        if torch.is_tensor(a):
+            a = a.detach().cpu().numpy()
+        self.arrays[key] = np.asarray(a)
+        return key
+
+
+def _feature_to_dict(f, saver):
+    ag = f.atom_group
+    d = {"name": f.name, "type": f.type_name, "ix": [int(i) for i in ag.ix]}
+    if f.type_name == "coordination":
+        n_a, r0, nn_, mm = f.get_coordination_params()
+        d["coord"] = {"n_a": int(n_a), "r0": float(r0), "nn": int(nn_),
+                      "mm": int(mm)}
+        if f.pbc_box is not None:
+            d["coord"]["box"] = [[float(v) for v in row] for row in f.pbc_box]
+        if f.d_max is not None:
+            d["coord"]["d_max"] = float(f.d_max)
+    pos = getattr(ag, "positions", None)
+    if pos is not None:
+        d["positions"] = saver.array(np.asarray(pos, dtype=np.float32))
+    return d
+
+
+def _spec_to_dict(spec: CompiledFeatures):
+    return {
+        "n_input_atoms": spec.n_input_atoms,
+        "use_angle_value": spec.use_angle_value,
+        "out_dim": spec.out_dim,
+        "angle_idx": [list(t) for t in spec.angle_idx],
+        "bond_idx": [list(t) for t in spec.bond_idx],
+        "dihedral_idx": [list(t) for t in spec.dihedral_idx],
+        "position_idx": list(spec.position_idx),
+        "perm": list(spec.perm) if spec.perm is not None else None,
+        "feature_dims": list(spec.feature_dims),
+        "coord_pairs": [list(t) for t in spec.coord_pairs],
+        "coord_slices": [list(t) for t in spec.coord_slices],
+        "coord_params": [list(t) for t in spec.coord_params],
+        "coord_boxes": [None if b is None else [list(row) for row in b]
+                        for b in spec.coord_boxes],
+        "coord_dmax": [None if v is None else float(v)
+                       for v in (spec.coord_dmax
+                                 or (None,) * len(spec.coord_slices))],
+    }
+
+
+def _to_dict(obj, saver):
+    if isinstance(obj, MolANN):
+        return {"kind": "MolANN",
+                "preprocessing_layer": _to_dict(obj.preprocessing_layer, saver),
+                "ann_layers": _to_dict(obj.ann_layers, saver)}
+    if isinstance(obj, PreprocessingANN):
+        return {"kind": "PreprocessingANN",
+                "align_layer": _to_dict(obj.align_layer, saver),
+                "feature_layer": _to_dict(obj.feature_layer, saver)}
+    if isinstance(obj, Identity):
+        return {"kind": "Identity"}
+    if isinstance(obj, AlignmentLayer):
+        return {"kind": "AlignmentLayer",
+                "align_atom_indices": list(obj.align_atom_indices),
+                "input_atom_indices": list(obj.input_atom_indices),
+                "input_atom_num": obj.input_atom_num,
+                "local_align_atom_indices": list(
+                    obj._local_align_atom_indices),
+                "method": obj.method,
+                "ref_x": saver.array(obj.ref_x)}
+    if isinstance(obj, FeatureLayer):
+        return {"kind": "FeatureLayer",
+                "features": [_feature_to_dict(f, saver)
+                             for f in obj.feature_list],
+                "use_angle_value": obj.use_angle_value,
+                "input_atom_num": obj.input_atom_num,
+                "input_atom_indices": [list(fm._local_atom_indices)
+                                       for fm in obj.feature_map_list],
+                "spec": _spec_to_dict(obj.spec)}
+    if isinstance(obj, SequentialNN):
+        return {"kind": "SequentialNN",
+                "layer_dims": list(obj.layer_dims),
+                "activation": obj.activation,
+                "params": [[saver.array(lin.weight.T), saver.array(lin.bias)]
+                           for lin in obj.layers]}
+    raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def save_model(path, model):
+    """Save a port model (MolANN or any of its layers) as format v1, which
+    ``molann_tpu.io.load_model`` and :func:`load_model` read. Returns
+    ``path``."""
+    saver = _Saver()
+    structure = _to_dict(model, saver)
+    meta = json.dumps({"format_version": FORMAT_VERSION, "model": structure})
+    np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8),
+             **saver.arrays)
+    return path
 
 
 def model_from_arrays(structure, arrays, *, device="cpu"):

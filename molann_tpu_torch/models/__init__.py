@@ -11,4 +11,5 @@ from .ann import (  # noqa: F401
     SequentialNN,
     create_sequential_nn,
     model_dims,
+    named_tensors,
 )

@@ -47,6 +47,7 @@ __all__ = [
     "MolANN",
     "Identity",
     "model_dims",
+    "named_tensors",
 ]
 
 # Activations by name, the names ``molann_tpu.io.serialize`` writes
@@ -75,6 +76,12 @@ def model_dims(model):
     if isinstance(model, FeatureLayer):
         return model.spec.n_input_atoms, model.output_dimension()
     raise TypeError(f"cannot evaluate a {type(model).__name__}")
+
+
+def named_tensors(model):
+    """``[(name, tensor)]`` of a model's parameters, then its buffers (the
+    alignment ``ref_x``): the leaves a JAX model's pytree holds."""
+    return [*model.named_parameters(), *model.named_buffers()]
 
 
 def _check_input(x, n_atoms):

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources under ``molann_tpu_torch/csrc/`` are compiled by ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-library goes to ``molann_tpu_torch/_build/`` under a name keyed by a hash
-of the sources and flags, so an edited source builds anew and an unchanged
-one is reused. Nothing is built at import: the CPU tests import every
-module without ``nvcc``.
+The sources under ``molann_tpu_torch/csrc/`` are compiled by ``nvcc``, one
+process per ``.cu`` file, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library goes
+to ``molann_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so an edited source builds anew and an unchanged one is reused.
+Nothing is built at import: the CPU tests import every module without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ __all__ = ["load_library", "nvcc_path", "BUILD_INFO"]
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v"]
 
 # What the last build (or cache hit) in this process did: library path,
-# seconds spent in nvcc (0.0 on a cache hit) and nvcc's -Xptxas -v report.
+# seconds spent in nvcc (0.0 on a cache hit) and nvcc's -Xptxas -v report,
+# one "== <source>" section per file.
 BUILD_INFO: dict = {}
 
 _lock = threading.Lock()
@@ -73,7 +76,51 @@ def _bind(lib):
     lib.molann_fused_cv_forces.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                            i32, vp]
     lib.molann_fused_cv_forces.restype = i32
+    lib.molann_partial_rows.argtypes = [i32, i64]
+    lib.molann_partial_rows.restype = i64
+    lib.molann_fused_backward.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                          vp]
+    lib.molann_fused_backward.restype = i32
+    lib.molann_fused_train.argtypes = [vp, vp, vp, vp, vp, i64, i32,
+                                       ctypes.c_float, i32, i32, vp]
+    lib.molann_fused_train.restype = i32
     return lib
+
+
+def _compile(files, out):
+    """Compile each ``.cu`` of ``files`` in its own ``nvcc``, all at once,
+    and link the objects into ``out``. Returns nvcc's combined report."""
+    nvcc = nvcc_path()
+    objs = out.with_suffix(f".{os.getpid()}.obj")
+    objs.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = []
+        for src in (p for p in files if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                   str(objs / (src.stem + ".o"))]
+            jobs.append((src, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for src, cmd, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *GENCODE, "-shared", "-o", str(tmp),
+               *(str(objs / (src.stem + ".o")) for src, _, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        return "".join(log)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
 
 
 def load_library():
@@ -88,17 +135,9 @@ def load_library():
         seconds, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(p) for p in files if p.suffix == ".cu")]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = _compile(files, out)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-            os.replace(tmp, out)
         _lib = _bind(ctypes.CDLL(str(out)))
         BUILD_INFO.update(path=str(out), seconds=seconds, log=log)
         return _lib

@@ -1,16 +1,23 @@
-"""Fused align+feature+MLP serving ops: CUDA kernels and their plain versions.
+"""Fused align+feature+MLP ops: CUDA kernels and their plain versions.
 
 Port of the unrolled family of ``molann_tpu/ops/fused.py``:
 
-- :func:`fused_model_forward` — values only; on a CUDA tensor it launches
-  the CUDA kernel that replaces the Pallas ``_fwd_kernel`` (K1);
+- :func:`fused_model_forward` — values, differentiable with respect to x,
+  the MLP parameters and ``ref_x``; on a CUDA tensor it launches the CUDA
+  kernel that replaces the Pallas ``_fwd_kernel`` (K1), and its backward
+  launches the one that replaces ``_bwd_kernel`` (K2);
 - :func:`fused_cv_forces` — values and coordinate gradients in one pass
   (the biased-MD serving op); on a CUDA tensor it launches the CUDA kernel
-  that replaces ``_cv_forces_kernel`` (K4).
+  that replaces ``_cv_forces_kernel`` (K4);
+- :func:`fused_train_grads` — the MSE loss and its parameter gradients in
+  one pass (the training op); on a CUDA tensor it launches the CUDA kernel
+  that replaces ``_train_kernel`` (K3).
 
-Both kernels live in ``molann_tpu_torch/csrc/`` and are built by ``nvcc``
-at first use (:mod:`._build`). Each has a plain PyTorch version beside it
-here (:func:`forward_plain`, :func:`cv_forces_plain`): a wrapper takes the
+The kernels live in ``molann_tpu_torch/csrc/`` (K1 and K4 in
+``fused_unrolled.cu``, K2 and K3 in ``fused_train.cu``) and are built by
+``nvcc`` at first use (:mod:`._build`). Each has a plain PyTorch version
+beside it here (:func:`forward_plain`, :func:`backward_plain`,
+:func:`train_grads_plain`, :func:`cv_forces_plain`): a wrapper takes the
 plain version only when its input lies on the CPU. On a CUDA tensor it
 launches the kernel or raises; it never falls back. ``KERNEL_LAUNCHES``
 counts the launches of each kernel.
@@ -28,6 +35,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..spec import CompiledFeatures
 from .alignment import kabsch_covariance, rotation_qcp
@@ -41,7 +49,10 @@ from .features import (
 __all__ = [
     "fused_model_forward",
     "fused_cv_forces",
+    "fused_train_grads",
     "forward_plain",
+    "backward_plain",
+    "train_grads_plain",
     "cv_forces_plain",
     "select_mode",
     "resolve_precision",
@@ -58,7 +69,7 @@ KERNEL_MAX_LAYERS = 4
 KERNEL_ACTIVATIONS = {"identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3}
 
 # Launches of each CUDA kernel, counted by the wrappers where they launch.
-KERNEL_LAUNCHES = {"forward": 0, "cv_forces": 0}
+KERNEL_LAUNCHES = {"forward": 0, "cv_forces": 0, "backward": 0, "train": 0}
 
 _BLOCKED_TODO = ("the blocked formulation (mode='blocked') is not ported to "
                  "molann_tpu_torch yet (ROADMAP.md, queue 1: kernels "
@@ -128,7 +139,7 @@ def _extract_model(model):
     return flayer.spec, align_idx, ref_x, params, activation
 
 
-def _resolve_mode(spec, mode):
+def _resolve_mode(spec, mode, c_mat):
     if mode == "auto":
         mode = select_mode(spec, spec.n_input_atoms)
     if mode == "blocked":
@@ -136,6 +147,10 @@ def _resolve_mode(spec, mode):
     if mode != "unrolled":
         raise ValueError(f"unknown mode {mode!r}: choose 'auto', 'unrolled' "
                          "or 'blocked'")
+    if c_mat is not None:
+        raise ValueError("c_mat applies to the blocked formulation only "
+                         "(mode='blocked'; auto selected 'unrolled' for this "
+                         "system)")
 
 
 def _check_envelope(spec, params, activation):
@@ -211,6 +226,64 @@ def forward_plain(spec: CompiledFeatures, align_idx, ref_x, params, activation,
         if i < len(params) - 1:
             rows = act(rows)
     return rows
+
+
+def _plain_grads(spec, align_idx, ref_x, params, activation, x, objective,
+                 want_x, want_ref):
+    """Autograd of ``objective(forward_plain(...))`` with respect to x (if
+    ``want_x``), the parameters and ``ref_x`` (if ``want_ref``). Returns
+    ``(value, gx or None, gparams, g_ref)``: ``gparams`` holds ``(gW
+    [d_out, d_in], gb [d_out])`` per layer; ``g_ref`` is None without
+    alignment and zeros unless ``want_ref``."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(want_x)
+        rr = None
+        if align_idx is not None:
+            rr = ref_x.detach().to(x.dtype).requires_grad_(want_ref)
+        pp = tuple((w.detach().requires_grad_(True),
+                    b.detach().requires_grad_(True)) for w, b in params)
+        value = objective(forward_plain(spec, align_idx, rr, pp, activation,
+                                        xx))
+        leaves = [t for wb in pp for t in wb]
+        if want_x:
+            leaves.append(xx)
+        if rr is not None and want_ref:
+            leaves.append(rr)
+        grads = list(torch.autograd.grad(value, leaves, allow_unused=True))
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, leaves)]
+    gparams = tuple(zip(grads[0:2 * len(pp):2], grads[1:2 * len(pp):2]))
+    rest = grads[2 * len(pp):]
+    gx = rest.pop(0) if want_x else None
+    g_ref = None
+    if rr is not None:
+        g_ref = rest.pop(0) if want_ref else torch.zeros_like(rr)
+    return value.detach(), gx, gparams, g_ref
+
+
+def backward_plain(spec, align_idx, ref_x, params, activation, x, gy):
+    """The plain version of the backward kernel: autograd of
+    :func:`forward_plain` given the cotangent ``gy [l, d_out]``. Returns
+    ``(gx [l, n, 3], gparams, g_ref)``, summed over the frames;
+    ``gparams`` holds ``(gW [d_out, d_in], gb [d_out])`` per layer and
+    ``g_ref`` is None without alignment."""
+    _, gx, gparams, g_ref = _plain_grads(
+        spec, align_idx, ref_x, params, activation, x,
+        lambda y: (y * gy.to(y.dtype)).sum(), True, True)
+    return gx, gparams, g_ref
+
+
+def train_grads_plain(spec, align_idx, ref_x, params, activation, x,
+                      y_target, train_ref=False):
+    """The plain version of the train kernel: ``loss = mean((forward_plain(x)
+    - y_target)**2)`` over ``x [l, n, 3]`` and ``y_target [l, d_out]``, and
+    autograd of it with respect to the parameters, and ``ref_x`` when
+    ``train_ref``. Returns ``(loss, gparams, g_ref)`` as
+    :func:`backward_plain` does (``g_ref`` zeros unless ``train_ref``)."""
+    loss, _, gparams, g_ref = _plain_grads(
+        spec, align_idx, ref_x, params, activation, x,
+        lambda y: ((y - y_target.to(y.dtype)) ** 2).mean(), False, train_ref)
+    return loss, gparams, g_ref
 
 
 def cv_forces_plain(spec, align_idx, ref_x, params, activation, x,
@@ -380,6 +453,102 @@ def _launch(kind, spec, align_idx, ref_x, params, activation, xm, l, in_t,
     return y, gx
 
 
+def _grad_width(align_idx, params):
+    """Entries of the kernels' flat gradient vector ``[ref_x | W0 | b0 | W1
+    | b1 ...]`` (``model_grad_size`` in ``csrc/frame_math.cuh``)."""
+    n_ref = 3 * len(align_idx) if align_idx is not None else 0
+    return n_ref + sum(w.numel() + b.numel() for w, b in params)
+
+
+def _launch_grads(kind, spec, align_idx, ref_x, params, activation, xm, l,
+                  aux, *, in_t=0, want_gx=False, want_ref=False,
+                  inv_count=0.0):
+    """Launch the backward (``aux`` = gy) or train (``aux`` = y_target)
+    kernel on the current stream and count it. Returns ``(out, gx)``:
+    ``out [1 + G]`` holds the loss (0 for the backward) and the flat
+    gradients summed over the frames; ``gx [l, 3n]`` or None."""
+    lib = _library()
+    dev = xm.device
+    n3 = 3 * spec.n_input_atoms
+    width = 1 + _grad_width(align_idx, params)
+    gx = (torch.empty((l, n3), dtype=torch.float32, device=dev) if want_gx
+          else None)
+    if l == 0:
+        return torch.zeros(width, dtype=torch.float32, device=dev), gx
+    out = torch.empty(width, dtype=torch.float32, device=dev)
+    partials = torch.empty(
+        (lib.molann_partial_rows(spec.n_input_atoms, l), width),
+        dtype=torch.float32, device=dev)
+    args, keep = model_args(spec, align_idx, ref_x, params, activation, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kind == "backward":
+        rc = lib.molann_fused_backward(
+            ctypes.addressof(args), xm.data_ptr(), aux.data_ptr(),
+            None if gx is None else gx.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), l, int(want_ref), dev.index, stream)
+    else:
+        rc = lib.molann_fused_train(
+            ctypes.addressof(args), xm.data_ptr(), aux.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), l, in_t, inv_count,
+            int(want_ref), dev.index, stream)
+    del keep, partials  # the caching allocator orders reuse on this stream
+    if rc != 0:
+        raise RuntimeError(f"CUDA {kind} kernel launch failed: cudaError {rc}")
+    KERNEL_LAUNCHES[kind] += 1
+    return out, gx
+
+
+def _unpack_grads(g, align_idx, ref_x, params):
+    """The flat gradient vector → ``(gparams, g_ref)`` shaped like
+    ``params`` and ``ref_x`` (``g_ref`` None without alignment)."""
+    o, g_ref = 0, None
+    if align_idx is not None:
+        o = 3 * len(align_idx)
+        g_ref = g[:o].view(ref_x.shape)
+    gparams = []
+    for w, b in params:
+        gw = g[o:o + w.numel()].view(w.shape)
+        o += w.numel()
+        gparams.append((gw, g[o:o + b.numel()].view(b.shape)))
+        o += b.numel()
+    return tuple(gparams), g_ref
+
+
+class _FusedApply(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its VJP: the port of
+    the ``fused_apply`` custom VJP (``molann_tpu/ops/fused.py:743-782``).
+    Inputs are the packed frames ``[l, 3n]``, ``ref_x`` (or None) and each
+    ``W_i``, ``b_i`` on its own, so that autograd reaches the
+    ``nn.Parameter``s; outputs nobody asked for are not computed."""
+
+    @staticmethod
+    def forward(ctx, statics, xm, ref_x, *flat):
+        spec, align_idx, activation = statics
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        y, _ = _launch("forward", spec, align_idx, ref_x, params, activation,
+                       xm, xm.shape[0], 0, 0)
+        ctx.statics = statics
+        ctx.save_for_backward(xm, ref_x, *flat)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        spec, align_idx, activation = ctx.statics
+        xm, ref_x, *flat = ctx.saved_tensors
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        gy = gy.contiguous()
+        _check_cuda_input(gy)
+        want_ref = align_idx is not None and ctx.needs_input_grad[2]
+        out, gx = _launch_grads("backward", spec, align_idx, ref_x, params,
+                                activation, xm, xm.shape[0], gy,
+                                want_gx=ctx.needs_input_grad[1],
+                                want_ref=want_ref)
+        gparams, g_ref = _unpack_grads(out[1:], align_idx, ref_x, params)
+        return (None, gx, g_ref if want_ref else None,
+                *(g for wb in gparams for g in wb))
+
+
 def _as_packed(x, n_atoms):
     """``[l, n, 3]`` or packed ``[l, 3n]`` → ``([l, 3n], packed)``."""
     if x.ndim == 3:
@@ -402,19 +571,16 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
                         interpret=False, mode="auto", precision="exact",
                         c_mat=None):
     """``model(x)`` through the fused forward kernel: ``x [l, n, 3]`` or
-    packed ``[l, 3n]`` → ``[l, d_out]``.
+    packed ``[l, 3n]`` → ``[l, d_out]``, differentiable with respect to x,
+    the MLP parameters and ``ref_x``.
 
-    On a CUDA tensor this launches the CUDA kernel (K1). Its result has no
-    autograd graph: the backward kernel (K2) is not ported yet, so a
-    ``x`` that requires grad raises; use :func:`fused_cv_forces` for
-    coordinate gradients. On a CPU tensor it runs :func:`forward_plain`."""
+    On a CUDA tensor this launches the CUDA forward kernel (K1); autograd
+    then runs the backward kernel (K2), which computes only the gradients
+    asked for. Under ``torch.no_grad()`` only K1 runs. On a CPU tensor it
+    runs :func:`forward_plain`, which autograd differentiates."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    _resolve_mode(spec, mode)
-    if c_mat is not None:
-        raise ValueError("c_mat applies to the blocked formulation only "
-                         "(mode='blocked'; auto selected 'unrolled' for this "
-                         "system)")
+    _resolve_mode(spec, mode, c_mat)
     _check_envelope(spec, params, activation)
     _check_device(x)
     n = spec.n_input_atoms
@@ -423,15 +589,9 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     if x.device.type == "cpu":
         return forward_plain(spec, align_idx, ref_x, params, activation,
                              xm.reshape(l, n, 3))
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the CUDA forward kernel has no backward yet (ROADMAP.md, "
-            "queue 1: kernel K2); use fused_cv_forces for coordinate "
-            "gradients")
     _check_cuda_input(x)
-    y, _ = _launch("forward", spec, align_idx, ref_x, params, activation, xm,
-                   l, 0, 0)
-    return y
+    return _FusedApply.apply((spec, align_idx, activation), xm, ref_x,
+                             *(t for wb in params for t in wb))
 
 
 def fused_cv_forces(model, x, *, component=None, tile=None,
@@ -452,13 +612,9 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
     runs :func:`cv_forces_plain`."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    _resolve_mode(spec, mode)
+    _resolve_mode(spec, mode, c_mat)
     if compact_grads:
         raise ValueError("compact_grads requires the blocked formulation "
-                         "(mode='blocked'; auto selected 'unrolled' for this "
-                         "system)")
-    if c_mat is not None:
-        raise ValueError("c_mat applies to the blocked formulation only "
                          "(mode='blocked'; auto selected 'unrolled' for this "
                          "system)")
     _check_envelope(spec, params, activation)
@@ -492,3 +648,77 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
     if not transposed_outputs and not packed:
         gx = gx.reshape(l, n, 3)
     return y, gx
+
+
+def _grads_dict(model, params, gparams, ref_x, g_ref):
+    """Gradients keyed like :func:`~molann_tpu_torch.models.ann.named_tensors`
+    (parameters, then the ``ref_x`` buffer); zeros for any other tensor,
+    as ``_grads_like`` (``molann_tpu/ops/fused.py:971-993``)."""
+    from ..models.ann import named_tensors
+
+    by_id = {id(ref_x): g_ref} if ref_x is not None else {}
+    for (w, b), (gw, gb) in zip(params, gparams):
+        by_id[id(w)], by_id[id(b)] = gw, gb
+    return {name: by_id[id(t)] if id(t) in by_id else torch.zeros_like(t)
+            for name, t in named_tensors(model)}
+
+
+def fused_train_grads(model, x, y_target, *, tile=None, interpret=False,
+                      transposed_input=False, mode="auto",
+                      precision="auto", train_ref=False, c_mat=None):
+    """The MSE loss AND its parameter gradients in one fused kernel, with
+    no coordinate gradients computed or written.
+
+    x: ``[l, n, 3]``, packed ``[l, 3n]`` or, with ``transposed_input``,
+    ``[3n, l]``; y_target: ``[l, d_out]`` (``[d_out, l]`` transposed).
+    Returns ``(loss, grads)``: ``loss = mean((model(x) - y_target)**2)`` as
+    a 0-d tensor, and ``grads`` a dict keyed by the names of the model's
+    parameters and of its ``ref_x`` buffer, weights in torch's ``[d_out,
+    d_in]`` layout. ``train_ref=False`` treats ``ref_x`` as the frozen
+    buffer it is and gives zeros for it; ``train_ref=True`` computes its
+    gradient too.
+
+    On a CUDA tensor this launches the CUDA train kernel (K3); on a CPU
+    tensor it runs :func:`train_grads_plain`. ``precision`` is resolved
+    with ``training=True`` and otherwise ignored."""
+    resolve_precision(precision, training=True)
+    spec, align_idx, ref_x, params, activation = _extract_model(model)
+    _resolve_mode(spec, mode, c_mat)
+    _check_envelope(spec, params, activation)
+    _check_device(x)
+    n = spec.n_input_atoms
+    d_out = _out_dim(spec, params)
+    if transposed_input:
+        if x.ndim != 2 or x.shape[0] != 3 * n:
+            raise ValueError(f"transposed frames must be [{3 * n}, l], got "
+                             f"{tuple(x.shape)}")
+        xm, l = x, x.shape[1]
+        y_shape = (d_out, l)
+    else:
+        xm, _ = _as_packed(x, n)
+        l = xm.shape[0]
+        y_shape = (l, d_out)
+    if tuple(y_target.shape) != y_shape:
+        raise ValueError(f"y_target must be {list(y_shape)}, got "
+                         f"{list(y_target.shape)}")
+    if l == 0:
+        raise ValueError("fused_train_grads needs at least one frame")
+    if y_target.device != x.device:
+        raise ValueError(f"y_target is on {y_target.device}, x on {x.device}")
+
+    if x.device.type == "cpu":
+        x3 = (xm.T if transposed_input else xm).reshape(l, n, 3)
+        yt = y_target.T if transposed_input else y_target
+        loss, gparams, g_ref = train_grads_plain(
+            spec, align_idx, ref_x, params, activation, x3, yt, train_ref)
+    else:
+        _check_cuda_input(x)
+        _check_cuda_input(y_target)
+        out, _ = _launch_grads(
+            "train", spec, align_idx, ref_x, params, activation, xm, l,
+            y_target, in_t=int(transposed_input),
+            want_ref=train_ref and align_idx is not None,
+            inv_count=1.0 / (float(l) * float(d_out)))
+        loss = out[0]
+        gparams, g_ref = _unpack_grads(out[1:], align_idx, ref_x, params)
+    return loss, _grads_dict(model, params, gparams, ref_x, g_ref)

@@ -1,0 +1,95 @@
+"""Trajectory data: memory-mapped frame storage and batch iteration.
+
+The port of ``save_trajectory``, ``TrajectoryDataset`` and
+``batch_iterator`` of ``molann_tpu/train/data.py:31-110``, carried over
+rather than imported: they use numpy only, and importing any ``molann_tpu``
+module imports JAX. The same seed gives the same batches as the JAX
+package. Frames are ``.npy`` arrays ``[n_frames, n_atoms, 3]`` (float32),
+memory-mapped, so a trajectory larger than host memory streams batch by
+batch. ``lagged_pair_iterator`` and ``packed_batch_iterator`` are not
+ported yet (ROADMAP.md, queue 2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["TrajectoryDataset", "batch_iterator", "save_trajectory"]
+
+
+def save_trajectory(path, frames):
+    """Save ``[n_frames, n_atoms, 3]`` float32 frames as .npy."""
+    arr = np.ascontiguousarray(frames, dtype=np.float32)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"expected [n_frames, n_atoms, 3], got {arr.shape}")
+    np.save(path, arr)
+    return path
+
+
+class TrajectoryDataset:
+    """Memory-mapped trajectory of coordinate frames."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        self.frames = np.load(self.path, mmap_mode="r")
+        if self.frames.ndim != 3 or self.frames.shape[-1] != 3:
+            raise ValueError(
+                f"expected [n_frames, n_atoms, 3], got {self.frames.shape}")
+
+    @property
+    def n_frames(self):
+        return self.frames.shape[0]
+
+    @property
+    def n_atoms(self):
+        return self.frames.shape[1]
+
+    def __len__(self):
+        return self.n_frames
+
+    def __getitem__(self, item):
+        return np.asarray(self.frames[item], dtype=np.float32)
+
+
+def _effective_batch(batch_size, n, multiple_of, what="samples"):
+    """Round batch_size down to a multiple of ``multiple_of`` and clamp it
+    to the dataset size, so short trajectories train on whole-dataset
+    batches instead of the epoch loop silently yielding nothing."""
+    batch_size = max(multiple_of, (batch_size // multiple_of) * multiple_of)
+    if batch_size > n:
+        batch_size = (n // multiple_of) * multiple_of
+        if batch_size < 1:
+            raise ValueError(
+                f"dataset has only {n} {what}, fewer than "
+                f"multiple_of={multiple_of}; cannot form any batch")
+    return batch_size
+
+
+def batch_iterator(dataset, batch_size, *, shuffle=True, seed=0,
+                   epochs=None, drop_remainder=True, multiple_of=1,
+                   return_indices=False):
+    """Yield float32 frame batches ``[batch_size, n_atoms, 3]`` (numpy).
+
+    batch_size is rounded down to a multiple of ``multiple_of`` and
+    clamped to the dataset size. ``epochs=None`` iterates forever. With
+    ``return_indices``, yields ``(batch, idx)`` so per-frame side arrays
+    (targets, weights) can be gathered in step.
+    """
+    n = len(dataset)
+    batch_size = _effective_batch(batch_size, n, multiple_of, "frames")
+    rng = np.random.default_rng(seed)
+    epoch = 0
+
+    def emit(idx):
+        batch = dataset[idx]
+        return (batch, idx) if return_indices else batch
+
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        for start in range(0, n - batch_size + 1, batch_size):
+            yield emit(np.sort(order[start:start + batch_size]))
+        rem = (n % batch_size) // multiple_of * multiple_of
+        if not drop_remainder and rem:
+            # the tail is trimmed to multiple_of as well
+            yield emit(np.sort(order[n - n % batch_size:][:rem]))
+        epoch += 1

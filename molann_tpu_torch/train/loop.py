@@ -1,0 +1,203 @@
+"""Training loop on ``torch.optim``: the port of ``molann_tpu/train/loop.py``.
+
+optax becomes ``torch.optim``. An *optimizer* here is a callable from a list
+of tensors to a ``torch.optim.Optimizer`` (``torch.optim.Adam`` itself, or
+``functools.partial(torch.optim.Adam, lr=1e-3)``); :func:`masked_optimizer`
+builds it over the model's trainable tensors only, which is what the JAX
+package's ``optax.multi_transform`` mask does. The optimizer instance then
+travels through the step in the place of optax's ``opt_state``::
+
+    opt = masked_optimizer(torch.optim.Adam, trainable_mask(model))(model)
+    step = make_fused_train_step()
+    model, opt, loss = step(model, opt, (x, y))
+
+The alignment reference ``ref_x`` is a buffer, frozen by the default mask,
+as it is in the reference (molann/ann.py:137). A step updates the model in
+place. ``mesh=`` (data parallelism) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ..models.ann import named_tensors
+from ..ops.fused import fused_train_grads
+from .checkpoint import (
+    latest_checkpoint,
+    load_training_state,
+    save_training_state,
+)
+
+__all__ = [
+    "trainable_mask",
+    "masked_optimizer",
+    "make_train_step",
+    "make_fused_train_step",
+    "fit",
+    "TrainResult",
+]
+
+_MESH_TODO = ("mesh= (data-parallel training) is not ported to "
+              "molann_tpu_torch yet (ROADMAP.md, queue 2, item 5)")
+
+
+def _check_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
+
+
+def _model_device(model):
+    for _, t in named_tensors(model):
+        return t.device
+    return torch.device("cpu")
+
+
+def _to_device(batch, device):
+    return tuple(torch.as_tensor(b, device=device) for b in batch)
+
+
+def trainable_mask(model, predicate: Callable | None = None):
+    """``{name: bool}`` over :func:`named_tensors`, True where trainable.
+
+    Default policy: tensors reached through ``ann_layers`` or ``layers``
+    (the MLP weights) are trainable; everything else (the alignment
+    ``ref_x`` buffer) is frozen. ``predicate(name, tensor)`` overrides it.
+    """
+    if predicate is None:
+        def predicate(name, tensor):
+            return bool({"ann_layers", "layers"} & set(name.split(".")))
+
+    return {name: bool(predicate(name, t)) for name, t in named_tensors(model)}
+
+
+def masked_optimizer(optimizer, mask):
+    """``build(model) -> torch.optim.Optimizer``: ``optimizer`` over the
+    tensors that ``mask`` marks True; the rest stay as they are. A buffer
+    marked trainable (``ref_x``) is made to require grad."""
+
+    def build(model):
+        tensors = dict(named_tensors(model))
+        unknown = sorted(set(mask) - set(tensors))
+        if unknown:
+            raise ValueError(f"mask names tensors the model lacks: {unknown}")
+        chosen = []
+        for name, t in tensors.items():
+            if mask.get(name, False):
+                chosen.append(t.requires_grad_(True))
+        return optimizer(chosen)
+
+    return build
+
+
+def make_train_step(loss_fn, mesh=None):
+    """``step(model, opt, batch) -> (model, opt, loss)``: autograd of
+    ``loss_fn(model, batch)``, then ``opt.step()``. The batch's arrays
+    move to the model's device; ``loss`` is a detached 0-d tensor."""
+    _check_mesh(mesh)
+
+    def step(model, opt, batch):
+        batch = _to_device(batch, _model_device(model))
+        model.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return model, opt, loss.detach()
+
+    return step
+
+
+def make_fused_train_step(mesh=None, *, tile=None, transposed_input=False,
+                          interpret=False, mode="auto", precision="auto",
+                          train_ref=False):
+    """An MSE training step on the single-kernel fused path.
+
+    Like :func:`make_train_step` with ``loss_fn=mse_loss``, but the loss
+    AND the gradients come from :func:`~molann_tpu_torch.ops.fused.fused_train_grads`
+    (on the card: one launch of the train kernel, no coordinate
+    gradients). Batch = ``(x, y)``; with ``transposed_input``, ``x [3n, l]``
+    and ``y [d, l]``. ``precision`` is resolved for training and otherwise
+    ignored, as in the unrolled TPU kernels."""
+    _check_mesh(mesh)
+
+    def step(model, opt, batch):
+        x, y = _to_device(batch, _model_device(model))
+        loss, grads = fused_train_grads(
+            model, x, y, tile=tile, interpret=interpret,
+            transposed_input=transposed_input, mode=mode,
+            precision=precision, train_ref=train_ref)
+        names = {id(t): name for name, t in named_tensors(model)}
+        for group in opt.param_groups:
+            for p in group["params"]:
+                p.grad = grads[names[id(p)]].to(p.dtype)
+        opt.step()
+        return model, opt, loss.detach()
+
+    return step
+
+
+@dataclass
+class TrainResult:
+    model: Any
+    losses: list
+
+
+def fit(model, loss_fn, data_iter, *, optimizer=None, mesh=None,
+        num_steps=None, mask=None, log_every=0, checkpoint_dir=None,
+        checkpoint_every=0, resume=True):
+    """Train ``model`` with ``loss_fn(model, batch)`` over ``data_iter``.
+
+    ``optimizer``: a callable from tensors to a ``torch.optim.Optimizer``,
+    by default ``torch.optim.Adam`` with ``lr=1e-3`` (the update of
+    ``optax.adam(1e-3)``). It is built over the tensors that ``mask``
+    (default :func:`trainable_mask`) marks trainable. With
+    ``checkpoint_dir``, the model, the optimizer state and the step are
+    saved every ``checkpoint_every`` steps and, if ``resume``, training
+    continues from the newest checkpoint there, with ``data_iter``
+    fast-forwarded past the batches already seen. Returns
+    :class:`TrainResult` with the trained model (the checkpoint's model
+    after a resume) and the loss trace.
+    """
+    _check_mesh(mesh)
+    if optimizer is None:
+        optimizer = functools.partial(torch.optim.Adam, lr=1e-3)
+    if mask is None:
+        mask = trainable_mask(model)
+    build = masked_optimizer(optimizer, mask)
+    opt, start_step = None, 0
+
+    if checkpoint_dir is not None and resume:
+        latest = latest_checkpoint(checkpoint_dir)
+        if latest is not None:
+            model, opt, start_step = load_training_state(
+                latest, build, device=_model_device(model))
+    if opt is None:
+        opt = build(model)
+
+    step = make_train_step(loss_fn)
+    it = iter(data_iter)
+    # the iterator is deterministic in its seed: skipping start_step
+    # batches lands where the interrupted run stopped
+    for _ in range(start_step):
+        if next(it, None) is None:
+            break
+
+    losses = []
+    i = start_step
+    while num_steps is None or i < num_steps:
+        batch = next(it, None)
+        if batch is None:
+            break
+        model, opt, loss = step(model, opt, batch)
+        losses.append(loss)
+        i += 1
+        if log_every and i % log_every == 0:
+            print(f"step {i}: loss={float(loss):.6g}")
+        if (checkpoint_dir is not None and checkpoint_every
+                and i % checkpoint_every == 0):
+            save_training_state(checkpoint_dir, model, opt, i)
+    return TrainResult(model=model, losses=[float(v) for v in losses])

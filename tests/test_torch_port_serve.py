@@ -52,7 +52,8 @@ def test_forces_from_npy_into_memmaps(setup):
         tm, path, device="cpu", forces=True, batch_size=64, cvs_out=cvs_out,
         grads_out=grads_out, grads_transform=np.negative)
     assert cvs is cvs_out and forces is grads_out
-    assert F.KERNEL_LAUNCHES == {"forward": 0, "cv_forces": 0}
+    assert F.KERNEL_LAUNCHES == {"forward": 0, "cv_forces": 0, "backward": 0,
+                                 "train": 0}
     np.testing.assert_allclose(np.asarray(cvs), cvs_ref, atol=VAL_ATOL)
     scale = max(1.0, float(np.abs(forces_ref).max()))
     np.testing.assert_allclose(np.asarray(forces), forces_ref,
