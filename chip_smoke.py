@@ -27,7 +27,36 @@ Runs the port's serving path on the card and checks it, phase by phase:
    bit for bit; (e) CUDA-event times of both kernels and their plain
    versions on 65536 frames, and training steps per second.
 
-Tolerances: values 1e-5 abs; gradients 2e-4·max(1, max|g|)
+7. the blocked serving path: (a) the blocked forward and cv+forces kernels
+   against float64 plain versions on 8192 and 8191 frames of
+   ``peptide_model(60)`` (components None and 0; ``[l, n, 3]``,
+   ``[3, n, l]``, ``[3n, l]``), ``lj_fluid_model(5)`` (``c_mat`` given and
+   not), alanine through ``mode="blocked"`` (also against the unrolled
+   kernels) and a 2,000-atom peptide with four sparse features (full and
+   ``compact_grads``; inactive atoms exactly 0); (b) two launches of each
+   give the same bits; (c) ``evaluate_trajectory`` serves 131,072 peptide
+   frames (two batches of 65536) and 65,536 fluid frames from ``.npy``
+   files with and without forces, checked on sampled rows, with the launch
+   counts of each run; (d) CUDA-event times of both kernels on one
+   65536-frame batch of each model, the plain versions' times (the fluid's
+   at 4096 frames) and each kernel's bound.
+
+Each kernel's bound is the larger of its bytes (every staged input
+coordinate read once, every output written once) over 3.35 TB/s and the
+f32 operations the function needs (every feature, adjoint and pair once),
+counted from the model's sizes and this run's share of pairs inside
+``d_max``, over 67 TFLOP/s. What the blocked kernels do beyond that, by
+gathering where they could scatter, is printed beside it and enters no
+bound.
+
+Gradients of the fluid are compared on every frame and atom. Where a pair
+sits within 4e-6 of ``d_max`` or of half a box length, float32 and float64
+may take different sides and the gradient of its two atoms jumps; there,
+and only there, the comparison allows the jump the pair can make
+(``fused_blocked.gradient_jump_slack``).
+
+Tolerances: values 1e-5 abs (5e-5 for the fluid's sums over 7,750 pairs,
+tests/test_condensed.py:101-118); gradients 2e-4·max(1, max|g|)
 (tests/test_parity_torch.py:25,52); losses 1e-5 relative against float64
 (the per-frame float32 values differ from float64 by up to ~2e-7).
 Prints one JSON line describing the kernels, then as its last line
@@ -58,6 +87,30 @@ CKPT_EVERY = 20
 VAL_TOL = 1e-5
 GRAD_RTOL = 2e-4
 LOSS_RTOL = 1e-5
+BLK_CHECK_FRAMES = 8192
+PEPTIDE_FRAMES = 1 << 17
+LJ_FRAMES = 1 << 16
+LJ_PLAIN_FRAMES = 4096
+LJ_SIGMA = 0.5
+VAL_TOL_PAIRS = 5e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
+# f32 operations of one call of each per-feature function in
+# csrc/frame_math.cuh and csrc/blocked_math.cuh, counted by hand, a square
+# root or a division as one: forward and adjoint of an angle, a bond and a
+# dihedral; a pair up to the d_max test, and the rest of it without and
+# with the derivative.
+OPS = {"angle": 25, "bond": 9, "dihedral": 50, "angle_bwd": 70,
+       "bond_bwd": 20, "dihedral_bwd": 150, "pair_head": 22, "pair_tail": 9,
+       "pair_tail_bwd": 26}
+# f32 operations a frame of the unrolled kernels on the alanine model,
+# counted by hand from csrc/frame_math.cuh (QCP with 12 Newton steps, the
+# adjugate, for the adjoints its last steps on 9-tangent duals, 38 feature
+# columns, MLP 38 -> 5 -> 3).
+ALANINE_OPS = {"forward": 1500, "cv_forces": 5000, "backward": 6000,
+               "train": 2400}
+ALANINE_BYTES = {"forward": 276, "cv_forces": 540, "backward": 540,
+                 "train": 276}
 GOLDEN = np.array([-1.0, 0.0, 1.5296831, -0.33281142], np.float32)
 
 
@@ -72,7 +125,7 @@ def grad_tol(g_ref):
 def f64(parts):
     """The model's parts with float64 tensors, for a float64 plain version."""
     spec, align_idx, ref_x, params, act = parts
-    return (spec, align_idx, ref_x.double(),
+    return (spec, align_idx, None if ref_x is None else ref_x.double(),
             tuple((w.double(), b.double()) for w, b in params), act)
 
 
@@ -90,6 +143,19 @@ def worst(got, want, what):
             fail(f"{what}: error {e} > {grad_tol(r)}")
         err = max(err, e)
     return err
+
+
+def counts(**launched):
+    """The launch counts a run must show: the named kernels as given, every
+    other kernel 0."""
+    from molann_tpu_torch.ops.fused import KERNEL_LAUNCHES
+    return {**dict.fromkeys(KERNEL_LAUNCHES, 0), **launched}
+
+
+def reset_counts():
+    from molann_tpu_torch.ops.fused import KERNEL_LAUNCHES
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
 
 
 def cuda_ms(fn, reps):
@@ -113,6 +179,393 @@ def alternate(plain_fn, kernel_fn, reps_plain, reps_kernel):
     k2 = cuda_ms(kernel_fn, reps_kernel)
     p2 = cuda_ms(plain_fn, reps_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(n_bytes, n_ops):
+    """``(bound_ms, bound_by)``: the least time the card could take."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def as_layout(x, layout):
+    """``x [l, n, 3]`` in ``layout``."""
+    l, n = x.shape[:2]
+    if layout == "[3, n, l]":
+        return x.permute(2, 1, 0).contiguous()
+    if layout == "[3n, l]":
+        return x.reshape(l, 3 * n).T.contiguous()
+    return x
+
+
+def to_standard(y, g, layout, n):
+    """Outputs of ``layout`` back as ``y [l, d]``, ``g [l, n, 3]``."""
+    if layout == "[3, n, l]":
+        return y.T, g.permute(2, 1, 0)
+    if layout == "[3n, l]":
+        return y.T, g.T.reshape(-1, n, 3)
+    return y, g
+
+
+def blocked_work(F, FB, model, within, forces, frames):
+    """``(bytes, operations, operations as written)`` of one blocked kernel
+    call on ``frames`` frames. Bytes: the staged coordinates in, y (and the
+    gradient) out. Operations, for the bound: what the function needs, that
+    is every feature and the MLP once and, with forces, the MLP backwards,
+    every feature's adjoint once and every pair's ``s`` and ``s'`` in one
+    pass, with the adds into the gradient (3 per atom of a feature, 6 per
+    pair inside ``d_max``). The kernel as written gathers instead of
+    scattering: with forces it computes a feature's adjoint once per atom
+    of the feature and every pair once forward and once more from each of
+    its atoms; that larger count is the third value and enters no bound.
+    ``within``: per coordination feature, the share of this run's pairs
+    inside ``d_max``."""
+    spec, align_idx, _, params, _ = F._extract_model(model)
+    lay = FB.blocked_layout(spec, align_idx)
+    d_out = F._out_dim(spec, params)
+    n_bytes = 4 * (3 * lay.n_active + d_out
+                   + (3 * lay.n_atoms if forces else 0))
+    mlp = sum(2 * w.numel() for w, _ in params)
+    fwd = (spec.n_angles * OPS["angle"] + spec.n_bonds * OPS["bond"]
+           + spec.n_dihedrals * OPS["dihedral"] + mlp)
+    pair_fwd = sum(npairs * (OPS["pair_head"] + w * OPS["pair_tail"])
+                   for npairs, w in zip(lay.coord_npairs, within))
+    if not forces:
+        return frames * n_bytes, frames * (fwd + pair_fwd), \
+            frames * (fwd + pair_fwd)
+    pair_bwd = sum(npairs * (OPS["pair_head"] + w * OPS["pair_tail_bwd"])
+                   for npairs, w in zip(lay.coord_npairs, within))
+    pair_adds = sum(npairs * w * 6
+                    for npairs, w in zip(lay.coord_npairs, within))
+    needed = (fwd + mlp + spec.n_angles * (OPS["angle_bwd"] + 9)
+              + spec.n_bonds * (OPS["bond_bwd"] + 6)
+              + spec.n_dihedrals * (OPS["dihedral_bwd"] + 12)
+              + pair_bwd + pair_adds)
+    written = (fwd + pair_fwd + mlp + 3 * spec.n_angles * OPS["angle_bwd"]
+               + 2 * spec.n_bonds * OPS["bond_bwd"]
+               + 4 * spec.n_dihedrals * OPS["dihedral_bwd"] + 2 * pair_bwd)
+    return frames * n_bytes, frames * needed, frames * written
+
+
+def pairs_within(spec, x):
+    """Per coordination feature, the share of pairs of ``x [l, n, 3]``
+    whose minimum-image distance is inside the feature's ``d_max`` (1.0 for
+    a feature without one)."""
+    from molann_tpu_torch.ops.features import min_image_components
+
+    pairs = torch.as_tensor(spec.coord_pairs, device=x.device)
+    out = []
+    for (start, npairs), box, dmax in zip(spec.coord_slices, spec.coord_boxes,
+                                          spec.coord_dmax):
+        if dmax is None:
+            out.append(1.0)
+            continue
+        p = pairs[start:start + npairs]
+        d = x[:, p[:, 1]] - x[:, p[:, 0]]
+        comps = tuple(d[..., i] for i in range(3))
+        if box is not None:
+            comps = min_image_components(comps, box)
+        r = torch.sqrt(sum(c * c for c in comps))
+        out.append(float((r < dmax).float().mean()))
+    return out
+
+
+def sparse_peptide_model(n_residues, dev):
+    """A large peptide with four features on a handful of atoms (the
+    features of tests/test_fused_blocked.py:234-242): compaction engages."""
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import (
+        AlignmentLayer,
+        FeatureLayer,
+        MolANN,
+        PreprocessingANN,
+        create_sequential_nn,
+    )
+    from molann_tpu_torch.systems import synthetic_peptide
+
+    u = synthetic_peptide(n_residues)
+
+    def sel(name, resid):
+        return u.select_atoms(f"name {name} and resid {resid}")
+
+    feats = [
+        Feature("b1", "bond", sel("CA", 3) + sel("CA", 17)),
+        Feature("a1", "angle", sel("N", 9) + sel("CA", 9) + sel("C", 9)),
+        Feature("d1", "dihedral",
+                sel("C", 24) + sel("N", 25) + sel("CA", 25) + sel("C", 25)),
+        Feature("p1", "position", sel("CA", 30) + sel("CA", 31)),
+    ]
+    align = AlignmentLayer(u.select_atoms("name CA and resid 1:5"), u.atoms,
+                           device=dev)
+    pp = PreprocessingANN(align, FeatureLayer(feats, u.atoms))
+    head = create_sequential_nn([pp.output_dimension(), 8, 2],
+                                generator=torch.Generator().manual_seed(3),
+                                device=dev)
+    return MolANN(pp, head), u
+
+
+def noisy_frames(u, l, seed, sigma, dev, chunk=16384):
+    rng = np.random.default_rng(seed)
+    n = u.atoms.n_atoms
+    return torch.cat([torch.as_tensor(
+        (u.atoms.positions[None] + sigma * rng.normal(
+            size=(min(chunk, l - s), n, 3))).astype(np.float32), device=dev)
+        for s in range(0, l, chunk)])
+
+
+def blocked_phase(dev, card, alanine, x_alanine):
+    """Phase 7. Returns per blocked kernel its launches on the serving
+    runs, worst error, times and bounds."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.serve import evaluate_trajectory
+    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+
+    seed = torch.Generator().manual_seed(0)
+    peptide, pu = peptide_model(60, generator=seed, device=dev)
+    fluid, fu, _ = lj_fluid_model(5, generator=seed, device=dev)
+    sparse, su = sparse_peptide_model(400, dev)
+    if F.model_select_mode(peptide) != "blocked" or \
+            F.model_select_mode(fluid) != "blocked":
+        fail("mode='auto' does not select the blocked kernels")
+    c_fluid = torch.as_tensor(F.model_chunk_matrix(fluid), device=dev)
+    if F.model_chunk_matrix(peptide) is not None:
+        fail("peptide_model(60) has a pair operand")
+    err = {"blocked_forward": 0.0, "blocked_cv_forces": 0.0}
+    at_jump = {}
+    L = BLK_CHECK_FRAMES
+
+    def check(name, model, x, comps, layouts, val_tol, **kw):
+        """Both kernels against the float64 plain version, on L and L - 1
+        frames; then two launches of each must give the same bits."""
+        parts = F._extract_model(model)
+        n = x.shape[1]
+        slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+        at_jump[name] = [int((slack > 0).sum()), 0.0]
+        for comp in comps:
+            y_ref, g_ref = FB.blocked_cv_forces_plain(
+                *f64(parts), x.double(), comp)
+            for l in (L, L - 1):
+                for layout in layouts:
+                    xin = as_layout(x[:l], layout)
+                    t_in = layout == "[3n, l]"
+                    y, g = F.fused_cv_forces(model, xin, component=comp,
+                                             transposed_input=t_in, **kw)
+                    y, g = to_standard(y, g, layout, n)
+                    with torch.no_grad():
+                        y6 = F.fused_model_forward(model, xin, **kw)
+                    what = f"{name}, {layout}, {l} frames, component={comp}"
+                    e6 = float((y6 - y_ref[:l]).abs().max())
+                    ev = float((y - y_ref[:l]).abs().max())
+                    eg_all = (g - g_ref[:l]).abs().amax(dim=-1)
+                    eg = float(eg_all[slack[:l] == 0].max())
+                    over = float((eg_all - slack[:l]).max())
+                    if not (e6 <= val_tol and ev <= val_tol
+                            and over <= grad_tol(g_ref)):
+                        fail(f"blocked kernels vs float64 plain, {what}: "
+                             f"forward {e6}, values {ev}, gradients {eg}, "
+                             f"past the jump slack {over}")
+                    there = eg_all[slack[:l] > 0]
+                    if there.numel():
+                        at_jump[name][1] = max(at_jump[name][1],
+                                               float(there.max()))
+                    err["blocked_forward"] = max(err["blocked_forward"], e6)
+                    err["blocked_cv_forces"] = max(err["blocked_cv_forces"],
+                                                   ev, eg)
+        a = F.fused_cv_forces(model, x, **kw)
+        b = F.fused_cv_forces(model, x, **kw)
+        with torch.no_grad():
+            a6 = F.fused_model_forward(model, x, **kw)
+            b6 = F.fused_model_forward(model, x, **kw)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and torch.equal(a6, b6)):
+            fail(f"two launches of a blocked kernel differ: {name}")
+        return y_ref, g_ref
+
+    # (a), (b)
+    xp = noisy_frames(pu, L, 10, 0.05, dev)
+    check("peptide_model(60)", peptide, xp, (None, 0),
+          ("[l, n, 3]", "[3, n, l]", "[3n, l]"), VAL_TOL)
+    xf = noisy_frames(fu, L, 11, LJ_SIGMA, dev)
+    check("lj_fluid_model(5), c_mat given", fluid, xf, (None,),
+          ("[l, n, 3]", "[3, n, l]"), VAL_TOL_PAIRS, c_mat=c_fluid)
+    check("lj_fluid_model(5), c_mat=None", fluid, xf, (None,),
+          ("[l, n, 3]",), VAL_TOL_PAIRS)
+    check("alanine, mode='blocked'", alanine, x_alanine, (None, 0),
+          ("[l, n, 3]", "[3n, l]"), VAL_TOL, mode="blocked")
+    y4, g4 = F.fused_cv_forces(alanine, x_alanine)
+    y8, g8 = F.fused_cv_forces(alanine, x_alanine, mode="blocked")
+    e_k = max(float((y8 - y4).abs().max()), float((g8 - g4).abs().max()))
+    if not e_k <= grad_tol(g4):
+        fail(f"alanine: blocked against unrolled kernels: {e_k}")
+    xs = noisy_frames(su, L, 12, 0.05, dev)
+    _, gs_ref = check("2000-atom sparse peptide", sparse, xs, (None,),
+                      ("[l, n, 3]", "[3, n, l]"), VAL_TOL)
+    active = F.active_atom_indices(sparse)
+    inactive = np.setdiff1d(np.arange(su.atoms.n_atoms), active)
+    y_s, g_s = F.fused_cv_forces(sparse, xs)
+    y_c, g_c = F.fused_cv_forces(sparse, xs, compact_grads=True)
+    if g_s[:, torch.as_tensor(inactive, device=dev)].any():
+        fail("inactive atoms of the sparse model have non-zero gradients")
+    if not (tuple(g_c.shape) == (3, len(active), L) and torch.equal(y_c, y_s)
+            and torch.equal(g_c, g_s.permute(2, 1, 0)[
+                :, torch.as_tensor(active, device=dev)])):
+        fail("compact_grads differs from the gathered full gradient")
+    if F.KERNEL_LAUNCHES["blocked_cv_forces"] == 0:
+        fail("the blocked cv+forces kernel was never launched")
+    xg = xp[:8].clone().requires_grad_(True)
+    try:
+        F.fused_model_forward(peptide, xg)
+    except NotImplementedError as e:
+        if "K7" not in str(e):
+            fail(f"the grad refusal does not name K7: {e}")
+    else:
+        fail("fused_model_forward(mode='blocked') returned a result for an "
+             "input that requires grad")
+    torch.cuda.synchronize()
+    print(f"blocked kernels vs float64 plain on {L} and {L - 1} frames "
+          f"(peptide_model(60), lj_fluid_model(5), alanine, 2000-atom sparse "
+          f"peptide with {len(active)} active atoms): max abs err forward "
+          f"{err['blocked_forward']:.3g}, cv_forces "
+          f"{err['blocked_cv_forces']:.3g}; blocked vs unrolled on alanine "
+          f"{e_k:.3g}; repeated launches bit-identical; (atom, frame) entries "
+          f"with a pair within 4e-6 of d_max or of half a box length, where "
+          f"the gradient may jump and is held to the jump's size, and the "
+          f"worst error there: "
+          f"{ {k: v for k, v in at_jump.items() if v[0]} }")
+    del xs, y_s, g_s, y_c, g_c, gs_ref
+
+    # (c) serving from .npy files
+    launches = {"blocked_forward": 0, "blocked_cv_forces": 0}
+    served = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model, u, n_frames, sigma, tol, rows_n in (
+                ("peptide_model(60)", peptide, pu, PEPTIDE_FRAMES, 0.05,
+                 VAL_TOL, 2048),
+                ("lj_fluid_model(5)", fluid, fu, LJ_FRAMES, LJ_SIGMA,
+                 VAL_TOL_PAIRS, 512)):
+            n = u.atoms.n_atoms
+            path = os.path.join(tmp, "traj.npy")
+            frames = np.lib.format.open_memmap(
+                path, mode="w+", dtype=np.float32, shape=(n_frames, n, 3))
+            rng = np.random.default_rng(13)
+            for s0 in range(0, n_frames, 16384):
+                frames[s0:s0 + 16384] = (
+                    u.atoms.positions[None] + sigma * rng.normal(
+                        size=(16384, n, 3))).astype(np.float32)
+            frames.flush()
+            del frames
+            n_batches = n_frames // BATCH
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cvs, grads = evaluate_trajectory(model, path, forces=True,
+                                             batch_size=BATCH)
+            t_forces = time.perf_counter() - t0
+            got_forces = dict(F.KERNEL_LAUNCHES)
+            if got_forces != counts(blocked_cv_forces=n_batches):
+                fail(f"launch counts serving {name} with forces: "
+                     f"{got_forces}")
+            reset_counts()
+            t0 = time.perf_counter()
+            cvs_only = evaluate_trajectory(model, path, batch_size=BATCH)
+            t_values = time.perf_counter() - t0
+            got_values = dict(F.KERNEL_LAUNCHES)
+            if got_values != counts(blocked_forward=n_batches):
+                fail(f"launch counts serving {name} without forces: "
+                     f"{got_values}")
+            for kind in launches:
+                launches[kind] += got_forces[kind] + got_values[kind]
+            spec, _, _, params, _ = F._extract_model(model)
+            d_out = F._out_dim(spec, params)
+            if cvs.shape != (n_frames, d_out) or \
+                    grads.shape != (n_frames, n, 3):
+                fail(f"serving output shapes {cvs.shape}, {grads.shape}")
+            if not (np.isfinite(cvs).all() and np.isfinite(grads).all()
+                    and np.isfinite(cvs_only).all()):
+                fail(f"non-finite serving outputs for {name}")
+            rows = np.sort(np.random.default_rng(14).choice(
+                n_frames, rows_n, replace=False))
+            xr = torch.as_tensor(np.load(path, mmap_mode="r")[rows],
+                                 device=dev)
+            y_ref, g_ref = FB.blocked_cv_forces_plain(
+                *f64(F._extract_model(model)), xr.double())
+            slack = FB.gradient_jump_slack(spec, params,
+                                           xr.double()).cpu().numpy()
+            y_ref, g_ref = y_ref.cpu().numpy(), g_ref.cpu().numpy()
+            ev = max(float(np.abs(cvs[rows] - y_ref).max()),
+                     float(np.abs(cvs_only[rows] - y_ref).max()))
+            eg_all = np.abs(grads[rows] - g_ref).max(axis=-1)
+            eg = float(eg_all[slack == 0].max())
+            over = float((eg_all - slack).max())
+            if not (ev <= tol and over <= GRAD_RTOL * max(
+                    1.0, float(np.abs(g_ref).max()))):
+                fail(f"served rows of {name} vs float64 plain: values {ev}, "
+                     f"gradients {eg}, past the jump slack {over}")
+            served.append(
+                f"{name}: {n_frames} frames in {n_batches} batches of "
+                f"{BATCH}, cv+forces {n_frames / t_forces:.6g} frames/s "
+                f"(launches: blocked_cv_forces "
+                f"{got_forces['blocked_cv_forces']}, every other kernel 0), "
+                f"values only {n_frames / t_values:.6g} frames/s end to end "
+                f"(launches: blocked_forward "
+                f"{got_values['blocked_forward']}, every other kernel 0), "
+                f"{rows_n} sampled rows max err values {ev:.3g}, gradients "
+                f"{eg:.3g} ({int((slack > 0).sum())} (atom, row) entries "
+                f"held to a jump's size instead)")
+            del cvs, grads, cvs_only
+    print("blocked serving: " + "; ".join(served) + f"; card: {card}")
+
+    # (d) kernel times, plain times and bounds on one batch of each model
+    out = {}
+    timed = []
+    for name, model, u, sigma, plain_frames, reps in (
+            ("peptide_model(60)", peptide, pu, 0.05, BATCH, 20),
+            ("lj_fluid_model(5)", fluid, fu, LJ_SIGMA, LJ_PLAIN_FRAMES, 5)):
+        parts = F._extract_model(model)
+        xb = noisy_frames(u, BATCH, 15, sigma, dev)
+        xpl = xb[:plain_frames]
+        within = pairs_within(parts[0], xb[:256])
+        with torch.no_grad():
+            ms6, pl6 = alternate(
+                lambda: FB.blocked_forward_plain(*parts, xpl),
+                lambda: F.fused_model_forward(model, xb), 2, reps)
+        ms8, pl8 = alternate(
+            lambda: FB.blocked_cv_forces_plain(*parts, xpl),
+            lambda: F.fused_cv_forces(model, xb), 2, reps)
+        for kind, ms, pl, forces in (("blocked_forward", ms6, pl6, False),
+                                     ("blocked_cv_forces", ms8, pl8, True)):
+            n_bytes, n_ops, n_written = blocked_work(F, FB, model, within,
+                                                     forces, BATCH)
+            b_ms, b_by = bound(n_bytes, n_ops)
+            out.setdefault(kind, {})[name] = {
+                "ms": ms, "plain_ms": pl, "plain_frames": plain_frames,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bytes_per_frame": n_bytes // BATCH,
+                "operations_per_frame": round(n_ops / BATCH),
+                "operations_as_written_per_frame": round(n_written / BATCH)}
+            timed.append(f"{name} {kind} {ms:.4f} ms (bound {b_ms:.4f} ms by "
+                         f"{b_by}: {n_bytes // BATCH} B and "
+                         f"{n_ops / BATCH:.0f} operations a frame needed, "
+                         f"{n_written / BATCH:.0f} as written; plain "
+                         f"{pl:.4f} ms on {plain_frames} frames)")
+        if within != [1.0] * len(within):
+            timed.append(f"{name} pairs inside d_max: "
+                         f"{[round(w, 4) for w in within]}")
+        del xb, xpl
+    print(f"one {BATCH}-frame batch on the card: " + "; ".join(timed)
+          + f"; card: {card}")
+    return [{
+        "name": kind, "route": "cuda",
+        "source": "molann_tpu_torch/csrc/fused_blocked.cu",
+        "replaces": f"molann_tpu/ops/fused_blocked.py:{line}",
+        "launches": launches[kind], "max_abs_err": err[kind],
+        **{k: out[kind]["peptide_model(60)"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "model": "peptide_model(60)",
+        "also": {"lj_fluid_model(5)": out[kind]["lj_fluid_model(5)"]},
+    } for kind, line in (("blocked_forward", 1179),
+                         ("blocked_cv_forces", 1398))]
 
 
 def main():
@@ -231,8 +684,7 @@ def main():
         t_values = time.perf_counter() - t0
         launches = dict(F.KERNEL_LAUNCHES)
         n_batches = N_FRAMES // BATCH
-        if launches != {"forward": n_batches, "cv_forces": n_batches,
-                        "backward": 0, "train": 0}:
+        if launches != counts(forward=n_batches, cv_forces=n_batches):
             fail(f"launch counts over the serving run: {launches}, expected "
                  f"{n_batches} of each")
         if not (np.isfinite(cvs).all() and np.isfinite(grads).all()
@@ -375,8 +827,7 @@ def main():
         torch.cuda.synchronize()
         t_fit = time.perf_counter() - t0
         fit_launches = dict(F.KERNEL_LAUNCHES)
-        if fit_launches != {"forward": TRAIN_STEPS, "cv_forces": 0,
-                            "backward": TRAIN_STEPS, "train": 0}:
+        if fit_launches != counts(forward=TRAIN_STEPS, backward=TRAIN_STEPS):
             fail(f"launch counts over fit: {fit_launches}")
 
         student = seeded(0)
@@ -396,8 +847,7 @@ def main():
         torch.cuda.synchronize()
         t_fused = time.perf_counter() - t0
         fused_launches = dict(F.KERNEL_LAUNCHES)
-        if fused_launches != {"forward": 0, "cv_forces": 0, "backward": 0,
-                              "train": TRAIN_STEPS}:
+        if fused_launches != counts(train=TRAIN_STEPS):
             fail(f"launch counts over the fused trainer: {fused_launches}")
         fused_losses = [float(v) for v in fused_losses]
         for name, losses in (("fit", res.losses), ("fused", fused_losses)):
@@ -456,6 +906,14 @@ def main():
           f"[3n, l] {ms_k3:.4f} ms, [l, n, 3] {ms_k3f:.4f} ms (plain "
           f"{ms_p3:.4f} ms); card: {card}")
 
+    # 7. the blocked serving path
+    blocked_kernels = blocked_phase(dev, card, model, x)
+
+    def alanine_bound(kind):
+        b_ms, b_by = bound(BATCH * ALANINE_BYTES[kind],
+                           BATCH * ALANINE_OPS[kind])
+        return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
     src = "molann_tpu_torch/csrc/fused_unrolled.cu"
     src_train = "molann_tpu_torch/csrc/fused_train.cu"
     print(json.dumps({"kernels": [
@@ -463,22 +921,23 @@ def main():
          "replaces": "molann_tpu/ops/fused.py:1116",
          "launches": launches["cv_forces"],
          "max_abs_err": max_err["cv_forces"], "ms": ms_k4,
-         "plain_ms": ms_p4},
+         "plain_ms": ms_p4, **alanine_bound("cv_forces")},
         {"name": "forward", "route": "cuda", "source": src,
          "replaces": "molann_tpu/ops/fused.py:578",
          "launches": launches["forward"],
          "max_abs_err": max_err["forward"], "ms": ms_k1,
-         "plain_ms": ms_p1},
+         "plain_ms": ms_p1, **alanine_bound("forward")},
         {"name": "backward", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:586",
          "launches": fit_launches["backward"],
          "max_abs_err": max_err["backward"], "ms": ms_k2,
-         "plain_ms": ms_p2},
+         "plain_ms": ms_p2, **alanine_bound("backward")},
         {"name": "train", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:900",
          "launches": fused_launches["train"],
          "max_abs_err": max_err["train"], "ms": ms_k3,
-         "plain_ms": ms_p3},
+         "plain_ms": ms_p3, **alanine_bound("train")},
+        *blocked_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

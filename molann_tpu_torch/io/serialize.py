@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from ..feature import Feature
 from ..models.ann import (
     ACTIVATIONS,
@@ -244,15 +245,19 @@ def save_model(path, model):
     return path
 
 
-def model_from_arrays(structure, arrays, *, device="cpu"):
+def model_from_arrays(structure, arrays, *, device=None):
     """Build a port model from a checkpoint's JSON ``structure`` (the
-    ``"model"`` entry of ``__meta__``) and its ``arrays`` (name → numpy)."""
-    return _from_dict(structure, arrays, device)
+    ``"model"`` entry of ``__meta__``) and its ``arrays`` (name → numpy),
+    on ``device``: the card when ``None`` (an error without one), the host
+    for ``"cpu"``."""
+    return _from_dict(structure, arrays, resolve_device(device))
 
 
-def load_model(path, *, device="cpu"):
+def load_model(path, *, device=None):
     """Load a ``molann_tpu.io.save_model`` ``.npz`` into a port model on
-    ``device``."""
+    ``device``: the card when ``None`` (an error without one), the host
+    for ``"cpu"``."""
+    device = resolve_device(device)
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
         if meta.get("format_version") != FORMAT_VERSION:

@@ -84,6 +84,14 @@ def _bind(lib):
     lib.molann_fused_train.argtypes = [vp, vp, vp, vp, vp, i64, i32,
                                        ctypes.c_float, i32, i32, vp]
     lib.molann_fused_train.restype = i32
+    lib.molann_blocked_caps.argtypes = [vp]
+    lib.molann_blocked_caps.restype = i32
+    lib.molann_blocked_smem_bytes.argtypes = [vp, i32]
+    lib.molann_blocked_smem_bytes.restype = i64
+    lib.molann_blocked_forward.argtypes = [vp, vp, i32, vp]
+    lib.molann_blocked_forward.restype = i32
+    lib.molann_blocked_cv_forces.argtypes = [vp, vp, i32, vp]
+    lib.molann_blocked_cv_forces.restype = i32
     return lib
 
 

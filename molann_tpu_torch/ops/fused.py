@@ -1,5 +1,11 @@
 """Fused align+feature+MLP ops: CUDA kernels and their plain versions.
 
+The entry points, with the JAX signatures. ``mode="auto"`` picks the
+formulation by system size (:func:`select_mode`): the unrolled family
+below for systems of at most 64 atoms, 96 columns and 96 coordination
+pairs, the blocked family of :mod:`.fused_blocked` (kernels K6 and K8,
+serving only so far) for everything larger.
+
 Port of the unrolled family of ``molann_tpu/ops/fused.py``:
 
 - :func:`fused_model_forward` — values, differentiable with respect to x,
@@ -55,6 +61,9 @@ __all__ = [
     "train_grads_plain",
     "cv_forces_plain",
     "select_mode",
+    "model_select_mode",
+    "model_chunk_matrix",
+    "active_atom_indices",
     "resolve_precision",
     "KERNEL_LAUNCHES",
 ]
@@ -69,11 +78,12 @@ KERNEL_MAX_LAYERS = 4
 KERNEL_ACTIVATIONS = {"identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3}
 
 # Launches of each CUDA kernel, counted by the wrappers where they launch.
-KERNEL_LAUNCHES = {"forward": 0, "cv_forces": 0, "backward": 0, "train": 0}
+KERNEL_LAUNCHES = {"forward": 0, "cv_forces": 0, "backward": 0, "train": 0,
+                   "blocked_forward": 0, "blocked_cv_forces": 0}
 
-_BLOCKED_TODO = ("the blocked formulation (mode='blocked') is not ported to "
-                 "molann_tpu_torch yet (ROADMAP.md, queue 1: kernels "
-                 "K5-K8)")
+_BLOCKED_TRAIN_TODO = ("the blocked train kernel (K5) is not ported to "
+                       "molann_tpu_torch yet (ROADMAP.md, queue 1): "
+                       "fused_train_grads serves the unrolled envelope only")
 _COORD_TODO = ("coordination features are not in the CUDA unrolled kernels "
                "yet (ROADMAP.md, queue 1: coordination in K1/K4); the "
                "eager model computes them")
@@ -87,6 +97,40 @@ def select_mode(spec, n_atoms: int) -> str:
             and n_pairs <= UNROLLED_MAX_COORD_PAIRS):
         return "unrolled"
     return "blocked"
+
+
+def model_select_mode(model) -> str:
+    """:func:`select_mode` applied to a model: which fused formulation its
+    system size gets under ``mode="auto"``."""
+    spec = _extract_model(model)[0]
+    return select_mode(spec, spec.n_input_atoms)
+
+
+def model_chunk_matrix(model):
+    """The pair operand of a model's coordination features as an int32
+    numpy array, or None when no feature has more than 512 pairs (see
+    :func:`.fused_blocked.chunk_matrix`). Move it to the device once and
+    pass it to every call, so a large pair table is one device buffer::
+
+        c = torch.as_tensor(model_chunk_matrix(model), device="cuda")
+        y, g = fused_cv_forces(model, x, c_mat=c)
+    """
+    from .fused_blocked import chunk_matrix
+
+    spec, align_idx = _extract_model(model)[:2]
+    return chunk_matrix(spec, align_idx)
+
+
+def active_atom_indices(model):
+    """0-based input-group indices of the atoms any feature (or the align
+    subset) references: the rows of a ``compact_grads=True`` gradient from
+    :func:`fused_cv_forces`. All other atoms have exactly-zero gradients.
+    ``None`` means every atom is active (the gradient is full-width)."""
+    from .fused_blocked import blocked_layout
+
+    spec, align_idx = _extract_model(model)[:2]
+    lay = blocked_layout(spec, align_idx)
+    return None if lay.active_idx is None else lay.active_idx.copy()
 
 
 def resolve_precision(precision: str, *, training: bool) -> str:
@@ -140,10 +184,12 @@ def _extract_model(model):
 
 
 def _resolve_mode(spec, mode, c_mat):
+    """``"unrolled"`` or ``"blocked"`` for a call's ``mode``; ``c_mat`` is
+    refused outside the blocked formulation."""
     if mode == "auto":
         mode = select_mode(spec, spec.n_input_atoms)
     if mode == "blocked":
-        raise NotImplementedError(_BLOCKED_TODO)
+        return mode
     if mode != "unrolled":
         raise ValueError(f"unknown mode {mode!r}: choose 'auto', 'unrolled' "
                          "or 'blocked'")
@@ -151,6 +197,7 @@ def _resolve_mode(spec, mode, c_mat):
         raise ValueError("c_mat applies to the blocked formulation only "
                          "(mode='blocked'; auto selected 'unrolled' for this "
                          "system)")
+    return mode
 
 
 def _check_envelope(spec, params, activation):
@@ -577,10 +624,22 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     On a CUDA tensor this launches the CUDA forward kernel (K1); autograd
     then runs the backward kernel (K2), which computes only the gradients
     asked for. Under ``torch.no_grad()`` only K1 runs. On a CPU tensor it
-    runs :func:`forward_plain`, which autograd differentiates."""
+    runs :func:`forward_plain`, which autograd differentiates.
+
+    In the blocked formulation (``mode="blocked"``, or ``"auto"`` for a
+    large system) ``x`` may also be ``[3n, l]`` or ``[3, n, l]``, and
+    ``c_mat`` may carry the pair operand of :func:`model_chunk_matrix`. On
+    a CUDA tensor the blocked forward kernel (K6) runs and returns values
+    only: with gradients enabled and ``x``, a weight or ``ref_x`` requiring
+    grad it raises ``NotImplementedError`` (the blocked backward, K7, is
+    not ported)."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    _resolve_mode(spec, mode, c_mat)
+    if _resolve_mode(spec, mode, c_mat) == "blocked":
+        from .fused_blocked import blocked_apply
+
+        return blocked_apply(spec, align_idx, activation, params, ref_x, x,
+                             precision=precision, c_mat=c_mat)
     _check_envelope(spec, params, activation)
     _check_device(x)
     n = spec.n_input_atoms
@@ -609,10 +668,26 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
     g [3n, l])``. Forces are ``-g``.
 
     On a CUDA tensor this launches the CUDA kernel (K4); on a CPU tensor it
-    runs :func:`cv_forces_plain`."""
+    runs :func:`cv_forces_plain`.
+
+    In the blocked formulation (``mode="blocked"``, or ``"auto"`` for a
+    large system) the blocked cv+forces kernel (K8) runs instead
+    (:func:`.fused_blocked.blocked_cv_forces`): ``x`` may also be
+    component-major ``[3, n, l]`` (then ``y`` is ``[d_out, l]`` and ``g``
+    ``[3, n, l]``), ``compact_grads=True`` returns the gradient on the
+    active atoms only as ``[3, n_active, l]`` (row k = atom
+    ``active_atom_indices(model)[k]``), and ``c_mat`` may carry the pair
+    operand of :func:`model_chunk_matrix`."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    _resolve_mode(spec, mode, c_mat)
+    if _resolve_mode(spec, mode, c_mat) == "blocked":
+        from .fused_blocked import blocked_cv_forces
+
+        out_layout = "t" if (transposed_input or transposed_outputs) else None
+        return blocked_cv_forces(
+            spec, align_idx, activation, params, ref_x, x,
+            component=component, out_layout=out_layout, precision=precision,
+            compact_grads=compact_grads, c_mat=c_mat)
     if compact_grads:
         raise ValueError("compact_grads requires the blocked formulation "
                          "(mode='blocked'; auto selected 'unrolled' for this "
@@ -683,7 +758,8 @@ def fused_train_grads(model, x, y_target, *, tile=None, interpret=False,
     with ``training=True`` and otherwise ignored."""
     resolve_precision(precision, training=True)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    _resolve_mode(spec, mode, c_mat)
+    if _resolve_mode(spec, mode, c_mat) == "blocked":
+        raise NotImplementedError(_BLOCKED_TRAIN_TODO)
     _check_envelope(spec, params, activation)
     _check_device(x)
     n = spec.n_input_atoms

@@ -1,13 +1,25 @@
-"""Built-in alanine-dipeptide system for the port.
+"""Built-in systems of the port (``molann_tpu/systems.py``).
 
-The 22-atom ACE-ALA-NME structure (vacuum, idealised geometry) and the
-flagship model built on it — the port of the alanine part of
-``molann_tpu/systems.py`` (:65-105, :278-296). The synthetic peptide and
-Lennard-Jones fluid systems are still to be ported (ROADMAP.md).
+- the 22-atom ACE-ALA-NME alanine dipeptide (vacuum, idealised geometry)
+  and the flagship model on it (:65-105, :278-296);
+- a synthetic poly-alanine-like peptide of ``5 * n_residues`` atoms with
+  its backbone feature set and model (:108-184), the scaling system of the
+  blocked kernels;
+- a periodic Lennard-Jones-like fluid with two all-pairs coordination
+  shells and its model (:187-275), the condensed-phase system.
+
+The functions that return a model are entry points: they put the model on the card unless
+``device="cpu"`` is passed, and raise where no CUDA device is present.
+Weights come from an explicit ``torch.Generator`` (seeded with 0 when
+omitted).
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ._device import resolve_device
 from .ann import (
     AlignmentLayer,
     FeatureLayer,
@@ -24,6 +36,11 @@ __all__ = [
     "alanine_pdb_text",
     "alanine_histogram_features",
     "alanine_model",
+    "synthetic_peptide",
+    "peptide_backbone_features",
+    "peptide_model",
+    "lj_fluid",
+    "lj_fluid_model",
 ]
 
 # (name, resname, resid, x, y, z)
@@ -98,12 +115,14 @@ def alanine_histogram_features(u: Universe):
 
 def alanine_model(hidden_dims=(5, 3), method="qcp", use_angle_value=False,
                   include_position=True, *, generator=None, activation="tanh",
-                  device="cpu"):
+                  device=None):
     """The flagship serving model: AlignmentLayer('bynum 1 2 5') →
     FeatureLayer(position over resid 2 + the six histogram observables,
     38 columns) → MLP ``38 → 5 → 3``. Weights are drawn from
-    ``generator`` (seeded with 0 when omitted). Returns ``(model,
-    universe)``."""
+    ``generator`` (seeded with 0 when omitted). The model is built on
+    ``device``: the card when ``None`` (an error without one), the host for
+    ``"cpu"``. Returns ``(model, universe)``."""
+    device = resolve_device(device)
     u = alanine_universe()
     align = AlignmentLayer(u.select_atoms("bynum 1 2 5"), u.atoms,
                            method=method, device=device)
@@ -115,3 +134,140 @@ def alanine_model(hidden_dims=(5, 3), method="qcp", use_angle_value=False,
     nn = create_sequential_nn([pp.output_dimension(), *hidden_dims],
                               activation, generator=generator, device=device)
     return MolANN(pp, nn), u
+
+
+def synthetic_peptide(n_residues: int = 10, seed: int = 0) -> Universe:
+    """A synthetic poly-alanine-like chain with ``5*n_residues`` atoms
+    (N, CA, C, O, CB per residue) in an idealised helical geometry, the
+    same coordinates as ``molann_tpu.systems.synthetic_peptide``."""
+    rng = np.random.default_rng(seed)
+    offsets = {
+        "N": (-0.7, -0.6, -0.4),
+        "CA": (0.0, 0.0, 0.0),
+        "C": (0.9, 0.5, 0.4),
+        "O": (1.1, 1.6, 0.3),
+        "CB": (-0.5, 0.8, 0.8),
+    }
+    names, resids, resnames, coords = [], [], [], []
+    # crude helix: backbone advances along z, rotates in xy
+    for r in range(n_residues):
+        theta = 1.745 * r  # ~100 degrees per residue
+        cx, cy, cz = 2.3 * np.cos(theta), 2.3 * np.sin(theta), 1.5 * r
+        for name, (dx, dy, dz) in offsets.items():
+            jitter = 0.05 * rng.normal(size=3)
+            coords.append((cx + dx + jitter[0], cy + dy + jitter[1],
+                           cz + dz + jitter[2]))
+            names.append(name)
+            resids.append(r + 1)
+            resnames.append("ALA")
+    return Universe.from_arrays(coords, names=names, resids=resids,
+                                resnames=resnames)
+
+
+def peptide_backbone_features(u: Universe):
+    """Backbone φ/ψ dihedrals, CA-CA pseudo-bonds and N-CA-C angles of a
+    :func:`synthetic_peptide` universe (about 4 features per residue)."""
+    def sel(name, resid):
+        return u.select_atoms(f"name {name} and resid {resid}")
+
+    feats = []
+    resids = sorted(set(int(r) for r in u.atoms.resids))
+    for r in resids:
+        if r > min(resids):
+            feats.append(Feature(
+                f"phi{r}", "dihedral",
+                sel("C", r - 1) + sel("N", r) + sel("CA", r) + sel("C", r)))
+            feats.append(Feature(f"dCA{r}", "bond",
+                                 sel("CA", r - 1) + sel("CA", r)))
+        if r < max(resids):
+            feats.append(Feature(
+                f"psi{r}", "dihedral",
+                sel("N", r) + sel("CA", r) + sel("C", r) + sel("N", r + 1)))
+        feats.append(Feature(f"ang{r}", "angle",
+                             sel("N", r) + sel("CA", r) + sel("C", r)))
+    return feats
+
+
+def peptide_model(n_residues: int = 10, hidden_dims=(32, 2), method="qcp", *,
+                  generator=None, activation="tanh", device=None):
+    """The scaling model: synthetic peptide, alignment on the CA trace, the
+    full backbone feature set → MLP. At 60 residues: 300 atoms, 355 feature
+    columns, MLP ``355 → 32 → 2``. It has no position feature, so the fused
+    kernels run no alignment. Returns ``(model, universe)``, the model on
+    ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
+    u = synthetic_peptide(n_residues)
+    align = AlignmentLayer(u.select_atoms("name CA"), u.atoms, method=method,
+                           device=device)
+    flayer = FeatureLayer(peptide_backbone_features(u), u.atoms)
+    pp = PreprocessingANN(align, flayer)
+    nn = create_sequential_nn([pp.output_dimension(), *hidden_dims],
+                              activation, generator=generator, device=device)
+    return MolANN(pp, nn), u
+
+
+def lj_fluid(n_per_side: int = 5, spacing: float = 1.7, jitter: float = 0.05,
+             seed: int = 0):
+    """A periodic Lennard-Jones-like fluid: ``n_per_side**3`` atoms on a
+    jittered cubic lattice in a cubic box of side ``n_per_side * spacing``.
+    Returns ``(universe, box)`` with ``box`` the ``[3]`` float array of
+    orthorhombic box lengths, to pass as a coordination feature's
+    ``pbc_box``."""
+    rng = np.random.default_rng(seed)
+    n = int(n_per_side)
+    grid = np.stack(np.meshgrid(*(np.arange(n),) * 3, indexing="ij"),
+                    axis=-1).reshape(-1, 3).astype(np.float64)
+    coords = (grid + 0.5) * spacing + jitter * spacing * rng.normal(
+        size=grid.shape)
+    n_atoms = n**3
+    u = Universe.from_arrays(coords, names=["AR"] * n_atoms,
+                             resnames=["AR"] * n_atoms,
+                             resids=list(range(1, n_atoms + 1)))
+    return u, np.full((3,), n * spacing, dtype=np.float64)
+
+
+def lj_fluid_model(n_per_side: int = 5, spacing: float = 1.7,
+                   hidden_dims=(8, 1), seed: int = 0, d_max=True, *,
+                   generator=None, activation="tanh", device=None):
+    """The condensed-phase model: two all-pairs coordination shells (first
+    and second neighbour distance, minimum image under the periodic box)
+    over an :func:`lj_fluid` → MLP. At the default size: 125 atoms and
+    2 × 7,750 switching-function pairs, MLP ``2 → 8 → 1``.
+
+    ``d_max=True`` gives the shells stretch-truncation distances of 2.0 and
+    2.8 spacings, ``False`` keeps the untruncated tails, a 2-tuple sets
+    explicit distances. All-pairs contact counts are in the hundreds and
+    would saturate a tanh MLP, so the features are standardised over a
+    jittered-lattice sample and the ``(x − μ)/σ`` affine is folded into the
+    first Linear: the model stays a plain :class:`MolANN`. Returns
+    ``(model, universe, box)``, the model on ``device`` (the card when
+    ``None``)."""
+    device = resolve_device(device)
+    u, box = lj_fluid(n_per_side, spacing, seed=seed)
+    if d_max is True:
+        d_max = (2.0 * spacing, 2.8 * spacing)
+    elif d_max is False or d_max is None:
+        d_max = (None, None)
+    feats = [
+        Feature("shell1", "coordination", u.atoms, r0=1.35 * spacing,
+                pbc_box=box, d_max=d_max[0]),
+        Feature("shell2", "coordination", u.atoms, r0=2.2 * spacing,
+                nn=4, mm=8, pbc_box=box, d_max=d_max[1]),
+    ]
+    pp = PreprocessingANN(None, FeatureLayer(feats, u.atoms))
+    nn = create_sequential_nn([pp.output_dimension(), *hidden_dims],
+                              activation, generator=generator, device=device)
+    rng = np.random.default_rng(seed + 1)
+    xs = (u.atoms.positions[None]
+          + 0.15 * spacing * rng.normal(size=(16,) + u.atoms.positions.shape)
+          ).astype(np.float32)
+    with torch.no_grad():
+        f = pp(torch.from_numpy(xs)).numpy()
+        mu, sigma = f.mean(axis=0), f.std(axis=0) + 1e-3
+        first = nn.layers[0]
+        w0 = first.weight.cpu()  # [d_out, d_in]
+        scale = torch.as_tensor(sigma, dtype=w0.dtype)
+        shift = torch.as_tensor(mu / sigma, dtype=w0.dtype)
+        first.bias.copy_((first.bias.cpu() - w0 @ shift).to(device))
+        first.weight.copy_((w0 / scale[None, :]).to(device))
+    return MolANN(pp, nn), u, box

@@ -83,8 +83,10 @@ def _mismatch(what):
                       "optimizer configuration changed?")
 
 
-def load_training_state(path_prefix, optimizer, *, device="cpu"):
-    """Restore ``(model, opt, step)`` from a checkpoint prefix.
+def load_training_state(path_prefix, optimizer, *, device=None):
+    """Restore ``(model, opt, step)`` from a checkpoint prefix, the model on
+    ``device`` (the card when ``None``, an error without one; ``"cpu"`` for
+    the host).
 
     ``optimizer`` is ``build(model) -> torch.optim.Optimizer``, as
     :func:`~molann_tpu_torch.train.loop.masked_optimizer` returns, and

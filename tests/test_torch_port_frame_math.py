@@ -147,7 +147,7 @@ def _check(y1, y, g, y_ref, g_ref):
 
 @pytest.mark.parametrize("component", [None, 0, 2])
 def test_alanine_forward_and_adjoint(host_lib, component):
-    model, u = alanine_model(generator=torch.Generator().manual_seed(3))
+    model, u = alanine_model(generator=torch.Generator().manual_seed(3), device="cpu")
     _check(*_run(host_lib, model, _frames(u), component))
 
 
@@ -161,12 +161,12 @@ def test_alanine_forward_and_adjoint(host_lib, component):
 ])
 def test_model_variants(host_lib, case):
     model, u = alanine_model(generator=torch.Generator().manual_seed(5),
-                             **case)
+                             device="cpu", **case)
     _check(*_run(host_lib, model, _frames(u, seed=1), None))
 
 
 def test_feature_layer_only(host_lib):
-    model, u = alanine_model()
+    model, u = alanine_model(device="cpu")
     flayer = model.preprocessing_layer.feature_layer
     _check(*_run(host_lib, flayer, _frames(u, seed=2), None))
 
@@ -174,7 +174,7 @@ def test_feature_layer_only(host_lib):
 def test_uncentred_reference(host_lib):
     """A reference that is not centred: the covariance's dependence on the
     centroid no longer cancels, so that term of the adjoint is exercised."""
-    model, u = alanine_model(generator=torch.Generator().manual_seed(9))
+    model, u = alanine_model(generator=torch.Generator().manual_seed(9), device="cpu")
     align = model.preprocessing_layer.align_layer
     align.ref_x += torch.tensor([0.7, -1.3, 0.4])
     _check(*_run(host_lib, model, _frames(u, seed=5), None))
@@ -183,7 +183,7 @@ def test_uncentred_reference(host_lib):
 def test_qcp_adjoint_far_from_reference(host_lib):
     """Large rotations of the frames: the QCP Jacobian is exercised away
     from the near-identity rotations of thermal noise."""
-    model, u = alanine_model(generator=torch.Generator().manual_seed(7))
+    model, u = alanine_model(generator=torch.Generator().manual_seed(7), device="cpu")
     x = _frames(u, seed=3).double()
     rng = np.random.default_rng(4)
     q = rng.normal(size=(x.shape[0], 4))
@@ -206,7 +206,7 @@ def _close_grads(g, g_ref):
 def _grad_models():
     def seeded(seed, **kw):
         return alanine_model(generator=torch.Generator().manual_seed(seed),
-                             **kw)
+                             device="cpu", **kw)
 
     def uncentred():
         model, u = seeded(9)

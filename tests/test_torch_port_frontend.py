@@ -39,7 +39,7 @@ def _spec_dict(spec):
 ])
 def test_alanine_spec_matches_jax(kwargs):
     jm, _ = jsystems.alanine_model(**kwargs)
-    tm, _ = tsystems.alanine_model(**kwargs)
+    tm, _ = tsystems.alanine_model(device="cpu", **kwargs)
     js = jm.preprocessing_layer.feature_layer.spec
     ts = tm.preprocessing_layer.feature_layer.spec
     assert _spec_dict(ts) == _spec_dict(js)
@@ -125,7 +125,9 @@ def test_feature_docstring_examples():
 def test_import_needs_no_jax_or_pandas():
     code = ("import sys, molann_tpu_torch, molann_tpu_torch.serve, "
             "molann_tpu_torch.io, molann_tpu_torch.systems, "
-            "molann_tpu_torch.train, molann_tpu_torch.ops._build; "
+            "molann_tpu_torch.train, molann_tpu_torch.ops._build, "
+            "molann_tpu_torch.ops.fused_blocked, "
+            "molann_tpu_torch.probes.blocked_probe; "
             "bad = [m for m in ('jax', 'pandas', 'molann_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -135,7 +137,7 @@ def test_import_needs_no_jax_or_pandas():
 
 def test_port_sources_never_import_jax():
     pkg = REPO / "molann_tpu_torch"
-    for path in pkg.rglob("*.py"):
+    for path in [*pkg.rglob("*.py"), REPO / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from molann_tpu." not in text and "import molann_tpu\n" \

@@ -41,7 +41,7 @@ def _close_grads(g, g_ref):
 def setup(tmp_path_factory):
     jm, u = jalanine_model()
     path = save_model(str(tmp_path_factory.mktemp("m") / "m.npz"), jm)
-    tm = load_model(path)
+    tm = load_model(path, device="cpu")
     rng = np.random.default_rng(7)
     x = (u.atoms.positions[None]
          + 0.05 * rng.normal(size=(32, N, 3))).astype(np.float32)
@@ -132,11 +132,13 @@ def _big_model():
 
 
 def test_errors():
-    model, u = alanine_model()
+    model, u = alanine_model(device="cpu")
     x = torch.as_tensor(u.atoms.positions[None])
     for fn in (F.fused_model_forward, F.fused_cv_forces):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(model, x, mode="blocked")
+        # the blocked formulation serves any system, alanine included, and
+        # has no pair operand to take for a model without coordination
+        with pytest.raises(ValueError, match="c_mat"):
+            fn(model, x, mode="blocked", c_mat=np.zeros((2, 2)))
         with pytest.raises(ValueError, match="c_mat"):
             fn(model, x, c_mat=np.zeros((2, 2)))
         with pytest.raises(ValueError, match="mode"):
@@ -154,8 +156,11 @@ def test_errors():
     with pytest.raises(NotImplementedError, match="coordination"):
         F.fused_cv_forces(coord, torch.as_tensor(u.atoms.positions[None]))
     big, u = _big_model()
-    with pytest.raises(NotImplementedError, match="blocked"):
-        F.fused_model_forward(big, torch.as_tensor(u.atoms.positions[None]))
+    xb = torch.as_tensor(u.atoms.positions[None], dtype=torch.float32)
+    for mode in ("auto", "blocked"):  # 70 atoms: auto selects blocked
+        np.testing.assert_allclose(
+            F.fused_model_forward(big, xb, mode=mode).numpy(),
+            big(xb).numpy(), atol=VAL_ATOL)
     with pytest.raises(ValueError, match="envelope"):
         F.fused_model_forward(big, torch.as_tensor(u.atoms.positions[None]),
                               mode="unrolled")
@@ -178,8 +183,7 @@ def test_launch_counters_stay_zero_on_cpu(setup):
     F.fused_cv_forces(tm, xt)
     F.fused_cv_forces(PreprocessingANN(None, tm.preprocessing_layer
                                        .feature_layer), xt)
-    assert F.KERNEL_LAUNCHES == {"forward": 0, "cv_forces": 0, "backward": 0,
-                                 "train": 0}
+    assert F.KERNEL_LAUNCHES == dict.fromkeys(F.KERNEL_LAUNCHES, 0)
 
 
 def test_select_mode_matches_jax(setup):

@@ -150,7 +150,7 @@ def test_wrapper_checks(cuda):
         F.fused_cv_forces(model, x.reshape(8, 3 * N).T,
                           transposed_input=True)
     with pytest.raises(ValueError, match="model.to"):
-        F.fused_cv_forces(alanine_model()[0], x.detach())
+        F.fused_cv_forces(alanine_model(device="cpu")[0], x.detach())
     y, g = F.fused_cv_forces(model, x.detach()[:0])
     assert y.shape == (0, 3) and g.shape == (0, N, 3)
     with pytest.raises(TypeError, match="float32"):
@@ -236,3 +236,186 @@ def test_sums_over_frames_are_deterministic(cuda):
     g1 = torch.autograd.grad(y, leaves, yt, retain_graph=True)
     g2 = torch.autograd.grad(y, leaves, yt)
     assert all(torch.equal(p, q) for p, q in zip(g1, g2))
+
+
+# ---------------------------------------------------------------------------
+# The blocked kernels (K6, K8). Values 1e-5 (5e-5 for sums over thousands
+# of pairs); gradients 2e-4·max(1, max|g|), against float64 plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _assert_grads(g, g_ref, slack, atol):
+    """Every atom within ``atol`` of the float64 gradient; the two atoms of
+    a pair at ``d_max`` or at half a box length, where float32 and float64
+    may take different sides, within ``atol`` plus the jump that pair can
+    make (``fused_blocked.gradient_jump_slack``)."""
+    err = (g.double() - g_ref).abs().amax(dim=-1)
+    assert float((err - slack).max()) <= atol
+
+
+def _blocked_models(cuda):
+    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    return {
+        "peptide": lambda: peptide_model(12, generator=seeded(1),
+                                         device=cuda)[:2] + (0.05, VAL_ATOL),
+        "lj": lambda: lj_fluid_model(4, generator=seeded(2),
+                                     device=cuda)[:2] + (0.6, 5e-5),
+        "alanine": lambda: alanine_model(generator=seeded(3),
+                                         device=cuda) + (0.05, VAL_ATOL),
+        "alanine_angles": lambda: alanine_model(
+            generator=seeded(4), use_angle_value=True, activation="relu",
+            device=cuda) + (0.05, VAL_ATOL),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 33, 1000])
+@pytest.mark.parametrize("component", [None, -1])
+@pytest.mark.parametrize("name", ["peptide", "lj", "alanine",
+                                  "alanine_angles"])
+def test_blocked_kernels_match_plain(cuda, name, component, l):
+    """K6 and K8 on every layout, ragged last blocks, launches counted."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+
+    model, u, sigma, val_tol = _blocked_models(cuda)[name]()
+    n = u.atoms.n_atoms
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor((u.atoms.positions[None] + sigma * rng.normal(
+        size=(l, n, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    d_out = F._out_dim(parts[0], parts[3])
+    comp = None if component is None else component % d_out
+    y_ref, g_ref = FB.blocked_cv_forces_plain(*_f64(parts), x.double(), comp)
+    before = dict(F.KERNEL_LAUNCHES)
+    kw = dict(component=component, mode="blocked")
+    outs = [F.fused_cv_forces(model, x, **kw)]
+    y, g = F.fused_cv_forces(model, x.reshape(l, 3 * n), **kw)
+    outs.append((y, g.reshape(l, n, 3)))
+    y, g = F.fused_cv_forces(model, x.reshape(l, 3 * n).T.contiguous(),
+                             transposed_input=True, **kw)
+    outs.append((y.T, g.T.reshape(l, n, 3)))
+    if l != 3:
+        y, g = F.fused_cv_forces(model, x.permute(2, 1, 0).contiguous(), **kw)
+        outs.append((y.T, g.permute(2, 1, 0)))
+    with torch.no_grad():
+        y6 = F.fused_model_forward(model, x, mode="blocked")
+    torch.cuda.synchronize()
+    scale = max(1.0, float(g_ref.abs().max()))
+    slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+    for y, g in outs:
+        np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                                   atol=val_tol)
+        _assert_grads(g, g_ref, slack, GRAD_RTOL * scale)
+        assert torch.equal(y, outs[0][0]) and torch.equal(g, outs[0][1])
+    np.testing.assert_allclose(y6.cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=val_tol)
+    assert F.KERNEL_LAUNCHES["blocked_cv_forces"] == \
+        before["blocked_cv_forces"] + len(outs)
+    assert F.KERNEL_LAUNCHES["blocked_forward"] == \
+        before["blocked_forward"] + 1
+
+
+@pytest.mark.gpu
+def test_blocked_refuses_grad_and_bad_inputs(cuda):
+    from molann_tpu_torch.systems import peptide_model
+
+    model, u = peptide_model(14, device=cuda)
+    n = u.atoms.n_atoms
+    x = torch.as_tensor(u.atoms.positions[None], device=cuda)
+    before = dict(F.KERNEL_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="K7"):
+        F.fused_model_forward(model, x)  # the weights require grad
+    with pytest.raises(NotImplementedError, match="K7"):
+        with torch.no_grad():
+            xg = x.clone().requires_grad_(True)
+        F.fused_model_forward(model.requires_grad_(False), xg)
+    assert F.KERNEL_LAUNCHES == before
+    with torch.no_grad():
+        y = F.fused_model_forward(model, x)
+    assert y.shape == (1, 2) and not y.requires_grad
+    with pytest.raises(TypeError, match="float32"):
+        F.fused_cv_forces(model, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        F.fused_cv_forces(model, x.expand(4, n, 3).permute(2, 1, 0))
+    with pytest.raises(ValueError, match="model.to"):
+        F.fused_cv_forces(peptide_model(14, device="cpu")[0], x)
+    y, g = F.fused_cv_forces(model, x[:0])
+    assert y.shape == (0, 2) and g.shape == (0, n, 3)
+    with pytest.raises(NotImplementedError, match="K5"):
+        F.fused_train_grads(model, x, torch.zeros(1, 2, device=cuda))
+
+
+@pytest.mark.gpu
+def test_blocked_compaction_on_the_card(cuda):
+    """A 500-atom peptide with three features: inactive atoms exactly 0,
+    compact_grads equal to the gathered full gradient, bit for bit."""
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import FeatureLayer, PreprocessingANN
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import synthetic_peptide
+
+    u = synthetic_peptide(100)
+
+    def sel(name, resid):
+        return u.select_atoms(f"name {name} and resid {resid}")
+
+    pp = PreprocessingANN(None, FeatureLayer([
+        Feature("b", "bond", sel("CA", 2) + sel("CA", 12)),
+        Feature("d", "dihedral",
+                sel("C", 5) + sel("N", 6) + sel("CA", 6) + sel("C", 6)),
+        Feature("c", "coordination", u.select_atoms("name CA and resid 20:60"),
+                r0=6.0, nn=3, mm=7, d_max=14.0),
+    ], u.atoms))
+    active = F.active_atom_indices(pp)
+    assert active is not None
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor((u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(257, 500, 3))).astype(np.float32), device=cuda)
+    y_ref, g_ref = FB.blocked_cv_forces_plain(*_f64(F._extract_model(pp)),
+                                              x.double(), 2)
+    y, g = F.fused_cv_forces(pp, x, component=2)
+    y_c, g_c = F.fused_cv_forces(pp, x, component=2, compact_grads=True)
+    _check(y, g, y_ref, g_ref)
+    idx = torch.as_tensor(active, device=cuda)
+    mask = torch.ones(500, dtype=torch.bool, device=cuda)
+    mask[idx] = False
+    assert not g[:, mask].any()
+    assert torch.equal(y_c, y)
+    assert torch.equal(g_c, g.permute(2, 1, 0)[:, idx])
+
+
+@pytest.mark.gpu
+def test_blocked_serving_from_file(cuda, tmp_path):
+    """evaluate_trajectory with its default device and c_mat, tail batch."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.serve import evaluate_trajectory
+    from molann_tpu_torch.systems import lj_fluid_model
+
+    model, u, _ = lj_fluid_model(4)  # on the card by default
+    assert next(model.parameters()).device.type == "cuda"
+    rng = np.random.default_rng(7)
+    x = (u.atoms.positions[None] + 0.6 * rng.normal(
+        size=(300, 64, 3))).astype(np.float32)
+    path = str(tmp_path / "traj.npy")
+    np.save(path, x)
+    before = dict(F.KERNEL_LAUNCHES)
+    cvs, grads = evaluate_trajectory(model, path, forces=True, batch_size=128)
+    only = evaluate_trajectory(model, path, batch_size=128, c_mat=None)
+    assert F.KERNEL_LAUNCHES["blocked_cv_forces"] == \
+        before["blocked_cv_forces"] + 3
+    assert F.KERNEL_LAUNCHES["blocked_forward"] == \
+        before["blocked_forward"] + 3
+    y_ref, g_ref = FB.blocked_cv_forces_plain(
+        *_f64(F._extract_model(model)), torch.as_tensor(x, device=cuda).double())
+    np.testing.assert_allclose(cvs, y_ref.cpu().numpy(), atol=5e-5)
+    np.testing.assert_allclose(only, cvs, atol=0)
+    scale = max(1.0, float(g_ref.abs().max()))
+    parts = F._extract_model(model)
+    slack = FB.gradient_jump_slack(parts[0], parts[3],
+                                   torch.as_tensor(x, device=cuda).double())
+    _assert_grads(torch.as_tensor(grads, device=cuda), g_ref, slack,
+                  GRAD_RTOL * scale)

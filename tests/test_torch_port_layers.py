@@ -72,7 +72,7 @@ CASES = ["alanine", "no_position", "angle_value", "feature_layer", "tanh",
 def test_eager_model_matches_jax(case, tmp_path):
     jm, u = _jax_model(case)
     path = save_model(str(tmp_path / "m.npz"), jm)
-    tm = load_model(path)
+    tm = load_model(path, device="cpu")
     rng = np.random.default_rng(CASES.index(case))
     x = (u.atoms.positions[None]
          + 0.1 * rng.normal(size=(16, 22, 3))).astype(np.float32)
@@ -99,7 +99,7 @@ def test_model_from_arrays_in_memory(tmp_path):
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
         arrays = {k: data[k] for k in data.files if k != "__meta__"}
-    tm = model_from_arrays(meta["model"], arrays)
+    tm = model_from_arrays(meta["model"], arrays, device="cpu")
     assert isinstance(tm, MolANN)
     lin = tm.ann_layers.layers[0]
     np.testing.assert_array_equal(lin.weight.detach().numpy(),

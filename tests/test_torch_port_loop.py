@@ -101,7 +101,7 @@ def test_fit_matches_jax(setup):
     jres = jfit(jm, jmse_loss,
                 _batches(frames, targets, iterator=jbatch_iterator),
                 optimizer=optax.adam(1e-3), num_steps=5)
-    res = fit(load_model(path), mse_loss, _batches(frames, targets),
+    res = fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets),
               num_steps=5)
     np.testing.assert_allclose(res.losses, jres.losses, rtol=TOL, atol=TOL)
     for i, (w, b) in enumerate(jres.model.ann_layers.params):
@@ -120,7 +120,7 @@ def test_fused_and_autograd_trainers_agree(setup, transposed):
     _, path, frames, targets = setup
     traces, weights = [], []
     for fused in (False, True):
-        model = load_model(path)
+        model = load_model(path, device="cpu")
         build = masked_optimizer(functools.partial(torch.optim.Adam, lr=1e-3),
                                  trainable_mask(model))
         opt = build(model)
@@ -146,13 +146,13 @@ def test_checkpoint_resume_is_bit_identical(setup, tmp_path):
     uninterrupted steps bit for bit."""
     _, path, frames, targets = setup
 
-    full = fit(load_model(path), mse_loss, _batches(frames, targets, seed=4),
+    full = fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets, seed=4),
                num_steps=20)
     ckpt = str(tmp_path / "ckpt")
-    first = fit(load_model(path), mse_loss, _batches(frames, targets, seed=4),
+    first = fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets, seed=4),
                 num_steps=10, checkpoint_dir=ckpt, checkpoint_every=5)
     assert latest_checkpoint(ckpt).endswith("ckpt_0000000010")
-    resumed = fit(load_model(path), mse_loss,
+    resumed = fit(load_model(path, device="cpu"), mse_loss,
                   _batches(frames, targets, seed=4), num_steps=20,
                   checkpoint_dir=ckpt, checkpoint_every=5)
     assert first.losses + resumed.losses == full.losses
@@ -164,12 +164,12 @@ def test_checkpoint_resume_is_bit_identical(setup, tmp_path):
 def test_changed_optimizer_raises_on_resume(setup, tmp_path):
     _, path, frames, targets = setup
     ckpt = str(tmp_path / "ckpt")
-    fit(load_model(path), mse_loss, _batches(frames, targets), num_steps=2,
+    fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets), num_steps=2,
         checkpoint_dir=ckpt, checkpoint_every=2)
     for opt in (functools.partial(torch.optim.Adam, lr=1e-2),
                 functools.partial(torch.optim.SGD, lr=1e-3)):
         with pytest.raises(ValueError, match="optimizer state mismatch"):
-            fit(load_model(path), mse_loss, _batches(frames, targets),
+            fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets),
                 optimizer=opt, num_steps=4, checkpoint_dir=ckpt)
     # a model file without its optimizer state is not a checkpoint
     (tmp_path / "ckpt" / "ckpt_0000000009.model.npz").write_bytes(b"")
@@ -179,17 +179,17 @@ def test_changed_optimizer_raises_on_resume(setup, tmp_path):
 
 def test_saved_model_loads_in_jax(setup, tmp_path):
     _, path, frames, targets = setup
-    model = fit(load_model(path), mse_loss, _batches(frames, targets),
+    model = fit(load_model(path, device="cpu"), mse_loss, _batches(frames, targets),
                 num_steps=2).model
     out = save_model(str(tmp_path / "trained.npz"), model)
     jm = jload_model(out)
     with torch.no_grad():
         y = model(torch.from_numpy(frames)).numpy()
-        y_back = load_model(out)(torch.from_numpy(frames)).numpy()
+        y_back = load_model(out, device="cpu")(torch.from_numpy(frames)).numpy()
     np.testing.assert_allclose(np.asarray(jm(jnp.asarray(frames))), y,
                                atol=1e-6)
     np.testing.assert_array_equal(y_back, y)
-    flayer = alanine_model()[0].preprocessing_layer.feature_layer
+    flayer = alanine_model(device="cpu")[0].preprocessing_layer.feature_layer
     jf = jload_model(save_model(str(tmp_path / "f.npz"), flayer))
     with torch.no_grad():
         np.testing.assert_allclose(np.asarray(jf(jnp.asarray(frames))),
@@ -199,7 +199,7 @@ def test_saved_model_loads_in_jax(setup, tmp_path):
 
 def test_masks(setup):
     _, path, frames, targets = setup
-    model = load_model(path)
+    model = load_model(path, device="cpu")
     mask = trainable_mask(model)
     assert mask == {**{n: True for n, _ in model.named_parameters()},
                     REF: False}
@@ -210,7 +210,7 @@ def test_masks(setup):
     # ref_x marked trainable: both trainers move it, by the same step
     refs = []
     for fused in (False, True):
-        model = load_model(path)
+        model = load_model(path, device="cpu")
         mask = trainable_mask(model, lambda name, t: True)
         opt = masked_optimizer(functools.partial(torch.optim.Adam, lr=1e-3),
                                mask)(model)
@@ -219,6 +219,6 @@ def test_masks(setup):
         x, y = next(_batches(frames, targets))
         step(model, opt, (x, y))
         refs.append(model.preprocessing_layer.align_layer.ref_x.detach())
-    before = load_model(path).preprocessing_layer.align_layer.ref_x
+    before = load_model(path, device="cpu").preprocessing_layer.align_layer.ref_x
     assert not torch.equal(refs[0], before)
     np.testing.assert_allclose(refs[1].numpy(), refs[0].numpy(), atol=TOL)
