@@ -41,13 +41,36 @@ Runs the port's serving path on the card and checks it, phase by phase:
    65536-frame batch of each model, the plain versions' times (the fluid's
    at 4096 frames) and each kernel's bound.
 
+8. the blocked training path: (a) the blocked backward kernel (autograd
+   through ``fused_model_forward``: gx in the layout of x, every weight,
+   ``ref_x``) and the blocked train kernel (``train_ref`` False and, where
+   the model aligns, True) against float64 plain versions on 8192 and 8191
+   frames of the four models of phase 7 in each input layout; two launches
+   give the same bits; (b) ``fit(fused_mse_loss)`` and
+   ``make_fused_train_step`` train ``peptide_model(60)`` for 20 Adam steps
+   of 65536 frames from the ``.npy`` file of phase 7c and
+   ``lj_fluid_model(5)`` for 10, labelled by a teacher model, with the
+   launch counts of each run, a lower loss at the end and a resume from a
+   checkpoint that repeats the remaining steps bit for bit; where a step's
+   time goes (fetch, copy, kernels, optimizer); (c) CUDA-event times of both
+   kernels and their plain versions on one 65536-frame batch, and bounds.
+9. the edge-product probe: every body of ``edge_mm`` against its plain
+   version and float64; then the probe's own run (T = 512, 64 tiles) with
+   its launch count, times per body, the gather beside them, and
+   ``torch.matmul`` as the library yardstick.
+10. coordination features in the unrolled kernels: a 22-atom model with two
+   coordination features (one under a box with ``d_max``), a bond and an
+   aligned position through the forward, cv+forces, backward and train
+   kernels against float64 plain versions.
+
 Each kernel's bound is the larger of its bytes (every staged input
 coordinate read once, every output written once) over 3.35 TB/s and the
 f32 operations the function needs (every feature, adjoint and pair once),
 counted from the model's sizes and this run's share of pairs inside
 ``d_max``, over 67 TFLOP/s. What the blocked kernels do beyond that, by
 gathering where they could scatter, is printed beside it and enters no
-bound.
+bound; nor do the per-block partial sums of the backward and train kernels,
+which the function does not need and whose bytes are printed beside it.
 
 Gradients of the fluid are compared on every frame and atom. Where a pair
 sits within 4e-6 of ``d_max`` or of half a box length, float32 and float64
@@ -68,6 +91,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -91,6 +115,9 @@ BLK_CHECK_FRAMES = 8192
 PEPTIDE_FRAMES = 1 << 17
 LJ_FRAMES = 1 << 16
 LJ_PLAIN_FRAMES = 4096
+PEPTIDE_TRAIN_STEPS = 20
+LJ_TRAIN_STEPS = 10
+BF16_OPS_PER_S = 989e12    # dense bf16 on the tensor cores, same sheet
 LJ_SIGMA = 0.5
 VAL_TOL_PAIRS = 5e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -145,6 +172,24 @@ def worst(got, want, what):
     return err
 
 
+def rel_err(got, want):
+    """The largest error of a tensor as a fraction of max(1, max|ref|), the
+    scale the gradient tolerance is stated in."""
+    return max(float((g.double() - r).abs().max())
+               / max(1.0, float(r.abs().max())) for g, r in zip(got, want))
+
+
+def worst_gx(g, g_ref, slack, what):
+    """Max abs error of a coordinate gradient ``[l, n, 3]`` off the atoms
+    that carry a jump slack; fails where the error past the slack exceeds
+    2e-4·max(1, max|ref|)."""
+    err = (g.double() - g_ref).abs().amax(dim=-1)
+    over = float((err - slack).max())
+    if not over <= grad_tol(g_ref):
+        fail(f"{what}: error past the jump slack {over} > {grad_tol(g_ref)}")
+    return float(err[slack == 0].max())
+
+
 def counts(**launched):
     """The launch counts a run must show: the named kernels as given, every
     other kernel 0."""
@@ -181,6 +226,35 @@ def alternate(plain_fn, kernel_fn, reps_plain, reps_kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def kernel_resources(log):
+    """``nvcc -Xptxas -v``'s report as ``{kernel<template arguments>:
+    "R registers, S B stack, A/B B spill stores/loads"}``."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            sym = m.group(1)
+            at = re.search(r"(\d{2})(?=fused|blocked|edge_mm|reduce)", sym)
+            name = sym
+            if at:
+                end = at.end() + int(at.group(1))
+                args = re.match(r"I((?:L[bi]\d+E)+)E", sym[end:])
+                name = sym[at.end():end] + (
+                    "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1)))
+                    + ">" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} " \
+                        "B spill stores/loads"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+            name = None
+    return out
+
+
 def bound(n_bytes, n_ops):
     """``(bound_ms, bound_by)``: the least time the card could take."""
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
@@ -207,10 +281,14 @@ def to_standard(y, g, layout, n):
     return y, g
 
 
-def blocked_work(F, FB, model, within, forces, frames):
+def blocked_work(F, FB, model, within, forces, frames, grads=False):
     """``(bytes, operations, operations as written)`` of one blocked kernel
     call on ``frames`` frames. Bytes: the staged coordinates in, y (and the
-    gradient) out. Operations, for the bound: what the function needs, that
+    gradient) out; with ``grads`` (the backward and train kernels) gy or
+    the labels in, in the place of y out, and the parameter gradients out
+    once. With ``grads`` the operations gain each layer's parameter product
+    (as many as its forward) and, without forces (the train kernel with a
+    frozen reference), the MLP backwards above the first layer. Operations, for the bound: what the function needs, that
     is every feature and the MLP once and, with forces, the MLP backwards,
     every feature's adjoint once and every pair's ``s`` and ``s'`` in one
     pass, with the adds into the gradient (3 per atom of a feature, 6 per
@@ -230,9 +308,13 @@ def blocked_work(F, FB, model, within, forces, frames):
            + spec.n_dihedrals * OPS["dihedral"] + mlp)
     pair_fwd = sum(npairs * (OPS["pair_head"] + w * OPS["pair_tail"])
                    for npairs, w in zip(lay.coord_npairs, within))
+    g_bytes = 4 * (1 + F._grad_width(
+        lay.align_idx if lay.has_align else None, params)) if grads else 0
     if not forces:
-        return frames * n_bytes, frames * (fwd + pair_fwd), \
-            frames * (fwd + pair_fwd)
+        ops = fwd + pair_fwd
+        if grads:
+            ops += mlp + sum(2 * w.numel() for w, _ in params[1:])
+        return frames * n_bytes + g_bytes, frames * ops, frames * ops
     pair_bwd = sum(npairs * (OPS["pair_head"] + w * OPS["pair_tail_bwd"])
                    for npairs, w in zip(lay.coord_npairs, within))
     pair_adds = sum(npairs * w * 6
@@ -244,7 +326,9 @@ def blocked_work(F, FB, model, within, forces, frames):
     written = (fwd + pair_fwd + mlp + 3 * spec.n_angles * OPS["angle_bwd"]
                + 2 * spec.n_bonds * OPS["bond_bwd"]
                + 4 * spec.n_dihedrals * OPS["dihedral_bwd"] + 2 * pair_bwd)
-    return frames * n_bytes, frames * needed, frames * written
+    if grads:
+        needed, written = needed + mlp, written + mlp
+    return frames * n_bytes + g_bytes, frames * needed, frames * written
 
 
 def pairs_within(spec, x):
@@ -313,9 +397,10 @@ def noisy_frames(u, l, seed, sigma, dev, chunk=16384):
         for s in range(0, l, chunk)])
 
 
-def blocked_phase(dev, card, alanine, x_alanine):
+def blocked_phase(dev, card, alanine, x_alanine, tmp):
     """Phase 7. Returns per blocked kernel its launches on the serving
-    runs, worst error, times and bounds."""
+    runs, worst error, times and bounds, and the models with the ``.npy``
+    files written under ``tmp`` for phase 8."""
     from molann_tpu_torch.ops import fused as F
     from molann_tpu_torch.ops import fused_blocked as FB
     from molann_tpu_torch.serve import evaluate_trajectory
@@ -413,15 +498,6 @@ def blocked_phase(dev, card, alanine, x_alanine):
         fail("compact_grads differs from the gathered full gradient")
     if F.KERNEL_LAUNCHES["blocked_cv_forces"] == 0:
         fail("the blocked cv+forces kernel was never launched")
-    xg = xp[:8].clone().requires_grad_(True)
-    try:
-        F.fused_model_forward(peptide, xg)
-    except NotImplementedError as e:
-        if "K7" not in str(e):
-            fail(f"the grad refusal does not name K7: {e}")
-    else:
-        fail("fused_model_forward(mode='blocked') returned a result for an "
-             "input that requires grad")
     torch.cuda.synchronize()
     print(f"blocked kernels vs float64 plain on {L} and {L - 1} frames "
           f"(peptide_model(60), lj_fluid_model(5), alanine, 2000-atom sparse "
@@ -438,82 +514,83 @@ def blocked_phase(dev, card, alanine, x_alanine):
     # (c) serving from .npy files
     launches = {"blocked_forward": 0, "blocked_cv_forces": 0}
     served = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, model, u, n_frames, sigma, tol, rows_n in (
-                ("peptide_model(60)", peptide, pu, PEPTIDE_FRAMES, 0.05,
-                 VAL_TOL, 2048),
-                ("lj_fluid_model(5)", fluid, fu, LJ_FRAMES, LJ_SIGMA,
-                 VAL_TOL_PAIRS, 512)):
-            n = u.atoms.n_atoms
-            path = os.path.join(tmp, "traj.npy")
-            frames = np.lib.format.open_memmap(
-                path, mode="w+", dtype=np.float32, shape=(n_frames, n, 3))
-            rng = np.random.default_rng(13)
-            for s0 in range(0, n_frames, 16384):
-                frames[s0:s0 + 16384] = (
-                    u.atoms.positions[None] + sigma * rng.normal(
-                        size=(16384, n, 3))).astype(np.float32)
-            frames.flush()
-            del frames
-            n_batches = n_frames // BATCH
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cvs, grads = evaluate_trajectory(model, path, forces=True,
-                                             batch_size=BATCH)
-            t_forces = time.perf_counter() - t0
-            got_forces = dict(F.KERNEL_LAUNCHES)
-            if got_forces != counts(blocked_cv_forces=n_batches):
-                fail(f"launch counts serving {name} with forces: "
-                     f"{got_forces}")
-            reset_counts()
-            t0 = time.perf_counter()
-            cvs_only = evaluate_trajectory(model, path, batch_size=BATCH)
-            t_values = time.perf_counter() - t0
-            got_values = dict(F.KERNEL_LAUNCHES)
-            if got_values != counts(blocked_forward=n_batches):
-                fail(f"launch counts serving {name} without forces: "
-                     f"{got_values}")
-            for kind in launches:
-                launches[kind] += got_forces[kind] + got_values[kind]
-            spec, _, _, params, _ = F._extract_model(model)
-            d_out = F._out_dim(spec, params)
-            if cvs.shape != (n_frames, d_out) or \
-                    grads.shape != (n_frames, n, 3):
-                fail(f"serving output shapes {cvs.shape}, {grads.shape}")
-            if not (np.isfinite(cvs).all() and np.isfinite(grads).all()
-                    and np.isfinite(cvs_only).all()):
-                fail(f"non-finite serving outputs for {name}")
-            rows = np.sort(np.random.default_rng(14).choice(
-                n_frames, rows_n, replace=False))
-            xr = torch.as_tensor(np.load(path, mmap_mode="r")[rows],
-                                 device=dev)
-            y_ref, g_ref = FB.blocked_cv_forces_plain(
-                *f64(F._extract_model(model)), xr.double())
-            slack = FB.gradient_jump_slack(spec, params,
-                                           xr.double()).cpu().numpy()
-            y_ref, g_ref = y_ref.cpu().numpy(), g_ref.cpu().numpy()
-            ev = max(float(np.abs(cvs[rows] - y_ref).max()),
-                     float(np.abs(cvs_only[rows] - y_ref).max()))
-            eg_all = np.abs(grads[rows] - g_ref).max(axis=-1)
-            eg = float(eg_all[slack == 0].max())
-            over = float((eg_all - slack).max())
-            if not (ev <= tol and over <= GRAD_RTOL * max(
-                    1.0, float(np.abs(g_ref).max()))):
-                fail(f"served rows of {name} vs float64 plain: values {ev}, "
-                     f"gradients {eg}, past the jump slack {over}")
-            served.append(
-                f"{name}: {n_frames} frames in {n_batches} batches of "
-                f"{BATCH}, cv+forces {n_frames / t_forces:.6g} frames/s "
-                f"(launches: blocked_cv_forces "
-                f"{got_forces['blocked_cv_forces']}, every other kernel 0), "
-                f"values only {n_frames / t_values:.6g} frames/s end to end "
-                f"(launches: blocked_forward "
-                f"{got_values['blocked_forward']}, every other kernel 0), "
-                f"{rows_n} sampled rows max err values {ev:.3g}, gradients "
-                f"{eg:.3g} ({int((slack > 0).sum())} (atom, row) entries "
-                f"held to a jump's size instead)")
-            del cvs, grads, cvs_only
+    paths = {}
+    for name, model, u, n_frames, sigma, tol, rows_n in (
+            ("peptide_model(60)", peptide, pu, PEPTIDE_FRAMES, 0.05,
+             VAL_TOL, 2048),
+            ("lj_fluid_model(5)", fluid, fu, LJ_FRAMES, LJ_SIGMA,
+             VAL_TOL_PAIRS, 512)):
+        n = u.atoms.n_atoms
+        path = paths[name] = os.path.join(
+            tmp, name.split("_model")[0] + ".npy")
+        frames = np.lib.format.open_memmap(
+            path, mode="w+", dtype=np.float32, shape=(n_frames, n, 3))
+        rng = np.random.default_rng(13)
+        for s0 in range(0, n_frames, 16384):
+            frames[s0:s0 + 16384] = (
+                u.atoms.positions[None] + sigma * rng.normal(
+                    size=(16384, n, 3))).astype(np.float32)
+        frames.flush()
+        del frames
+        n_batches = n_frames // BATCH
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cvs, grads = evaluate_trajectory(model, path, forces=True,
+                                         batch_size=BATCH)
+        t_forces = time.perf_counter() - t0
+        got_forces = dict(F.KERNEL_LAUNCHES)
+        if got_forces != counts(blocked_cv_forces=n_batches):
+            fail(f"launch counts serving {name} with forces: "
+                 f"{got_forces}")
+        reset_counts()
+        t0 = time.perf_counter()
+        cvs_only = evaluate_trajectory(model, path, batch_size=BATCH)
+        t_values = time.perf_counter() - t0
+        got_values = dict(F.KERNEL_LAUNCHES)
+        if got_values != counts(blocked_forward=n_batches):
+            fail(f"launch counts serving {name} without forces: "
+                 f"{got_values}")
+        for kind in launches:
+            launches[kind] += got_forces[kind] + got_values[kind]
+        spec, _, _, params, _ = F._extract_model(model)
+        d_out = F._out_dim(spec, params)
+        if cvs.shape != (n_frames, d_out) or \
+                grads.shape != (n_frames, n, 3):
+            fail(f"serving output shapes {cvs.shape}, {grads.shape}")
+        if not (np.isfinite(cvs).all() and np.isfinite(grads).all()
+                and np.isfinite(cvs_only).all()):
+            fail(f"non-finite serving outputs for {name}")
+        rows = np.sort(np.random.default_rng(14).choice(
+            n_frames, rows_n, replace=False))
+        xr = torch.as_tensor(np.load(path, mmap_mode="r")[rows],
+                             device=dev)
+        y_ref, g_ref = FB.blocked_cv_forces_plain(
+            *f64(F._extract_model(model)), xr.double())
+        slack = FB.gradient_jump_slack(spec, params,
+                                       xr.double()).cpu().numpy()
+        y_ref, g_ref = y_ref.cpu().numpy(), g_ref.cpu().numpy()
+        ev = max(float(np.abs(cvs[rows] - y_ref).max()),
+                 float(np.abs(cvs_only[rows] - y_ref).max()))
+        eg_all = np.abs(grads[rows] - g_ref).max(axis=-1)
+        eg = float(eg_all[slack == 0].max())
+        over = float((eg_all - slack).max())
+        if not (ev <= tol and over <= GRAD_RTOL * max(
+                1.0, float(np.abs(g_ref).max()))):
+            fail(f"served rows of {name} vs float64 plain: values {ev}, "
+                 f"gradients {eg}, past the jump slack {over}")
+        served.append(
+            f"{name}: {n_frames} frames in {n_batches} batches of "
+            f"{BATCH}, cv+forces {n_frames / t_forces:.6g} frames/s "
+            f"(launches: blocked_cv_forces "
+            f"{got_forces['blocked_cv_forces']}, every other kernel 0), "
+            f"values only {n_frames / t_values:.6g} frames/s end to end "
+            f"(launches: blocked_forward "
+            f"{got_values['blocked_forward']}, every other kernel 0), "
+            f"{rows_n} sampled rows max err values {ev:.3g}, gradients "
+            f"{eg:.3g} ({int((slack > 0).sum())} (atom, row) entries "
+            f"held to a jump's size instead)")
+        del cvs, grads, cvs_only
     print("blocked serving: " + "; ".join(served) + f"; card: {card}")
 
     # (d) kernel times, plain times and bounds on one batch of each model
@@ -555,6 +632,16 @@ def blocked_phase(dev, card, alanine, x_alanine):
         del xb, xpl
     print(f"one {BATCH}-frame batch on the card: " + "; ".join(timed)
           + f"; card: {card}")
+    models = {"peptide_model(60)": (peptide, pu, paths["peptide_model(60)"]),
+              "lj_fluid_model(5)": (fluid, fu, paths["lj_fluid_model(5)"]),
+              "sparse": (sparse, su, None), "c_fluid": c_fluid}
+    return blocked_entries(launches, err, out, (
+        ("blocked_forward", 1179), ("blocked_cv_forces", 1398))), models
+
+
+def blocked_entries(launches, err, out, kinds):
+    """The ``kernels`` entries of blocked kernels: the peptide's numbers,
+    the fluid's under ``also``."""
     return [{
         "name": kind, "route": "cuda",
         "source": "molann_tpu_torch/csrc/fused_blocked.cu",
@@ -564,8 +651,500 @@ def blocked_phase(dev, card, alanine, x_alanine):
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "model": "peptide_model(60)",
         "also": {"lj_fluid_model(5)": out[kind]["lj_fluid_model(5)"]},
-    } for kind, line in (("blocked_forward", 1179),
-                         ("blocked_cv_forces", 1398))]
+    } for kind, line in kinds]
+
+
+def g_standard(g, layout, n):
+    """A gradient of ``layout`` back as ``[l, n, 3]``."""
+    if layout == "[3, n, l]":
+        return g.permute(2, 1, 0)
+    if layout == "[3n, l]":
+        return g.T.reshape(-1, n, 3)
+    return g
+
+
+def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
+    """Phase 8. Returns the ``kernels`` entries of the blocked backward and
+    train kernels."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+    from molann_tpu_torch.train import (
+        TrajectoryDataset,
+        batch_iterator,
+        fit,
+        fused_mse_loss,
+        make_fused_train_step,
+        masked_optimizer,
+        trainable_mask,
+    )
+
+    peptide, pu, peptide_path = models["peptide_model(60)"]
+    fluid, fu, fluid_path = models["lj_fluid_model(5)"]
+    sparse, su, _ = models["sparse"]
+    err = {"blocked_backward": 0.0, "blocked_train": 0.0}
+    rel = dict(err)
+    at_jump = {}
+    L = BLK_CHECK_FRAMES
+
+    def check(name, model, x, layouts, **kw):
+        """K7 under autograd and K5 against the float64 plain versions, on
+        L and L - 1 frames in every layout; then two launches of each must
+        give the same bits."""
+        parts = F._extract_model(model)
+        n = x.shape[1]
+        d = F._out_dim(parts[0], parts[3])
+        has_ref = FB.blocked_layout(parts[0], parts[1]).has_align
+        gy = torch.as_tensor(np.random.default_rng(16).normal(
+            size=(L, d)).astype(np.float32), device=dev)
+        slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+        at_jump[name] = [int((slack > 0).sum()), 0.0]
+        for l in (L, L - 1):
+            gx_r, gp_r, gref_r = FB.blocked_backward_plain(
+                *f64(parts), x[:l].double(), gy[:l].double())
+            want = [*flat(gp_r)] + ([gref_r] if has_ref else [])
+            for layout in layouts:
+                what = f"{name}, {layout}, {l} frames"
+                xin = as_layout(x[:l], layout).requires_grad_(True)
+                leaves = [xin, *flat(parts[3])]
+                if has_ref:
+                    leaves.append(parts[2].requires_grad_(True))
+                y = F.fused_model_forward(model, xin, **kw)
+                got = torch.autograd.grad(y, leaves, gy[:l])
+                if has_ref:
+                    parts[2].requires_grad_(False)
+                if got[0].shape != xin.shape:
+                    fail(f"blocked backward, {what}: gx is "
+                         f"{tuple(got[0].shape)}")
+                eg_all = (g_standard(got[0], layout, n).double()
+                          - gx_r).abs().amax(dim=-1)
+                eg = float(eg_all[slack[:l] == 0].max())
+                over = float((eg_all - slack[:l]).max())
+                if not over <= grad_tol(gx_r):
+                    fail(f"blocked backward vs float64 plain, {what}: gx "
+                         f"{eg}, past the jump slack {over}")
+                there = eg_all[slack[:l] > 0]
+                if there.numel():
+                    at_jump[name][1] = max(at_jump[name][1],
+                                           float(there.max()))
+                e = worst(got[1:], want, f"blocked backward, {what}")
+                err["blocked_backward"] = max(err["blocked_backward"], eg, e)
+                rel["blocked_backward"] = max(
+                    rel["blocked_backward"], rel_err(got[1:], want),
+                    eg / max(1.0, float(gx_r.abs().max())))
+            for train_ref in (False, True) if has_ref else (False,):
+                loss_r, gp_r, gref_r = FB.blocked_train_grads_plain(
+                    *f64(parts), x[:l].double(), gy[:l].double(), train_ref)
+                want = [*flat(gp_r)] + ([gref_r] if gref_r is not None
+                                        else [])
+                for layout in layouts:
+                    what = f"blocked train vs float64 plain, {name}, " \
+                           f"{layout}, {l} frames, train_ref={train_ref}"
+                    yt = gy[:l] if layout == "[l, n, 3]" \
+                        else gy[:l].T.contiguous()
+                    loss, grads = F.fused_train_grads(
+                        model, as_layout(x[:l], layout), yt,
+                        train_ref=train_ref, **kw)
+                    el = abs(float(loss) - float(loss_r))
+                    if not el <= LOSS_RTOL * abs(float(loss_r)):
+                        fail(f"{what}: loss {float(loss)} vs {float(loss_r)}")
+                    e = worst(list(grads.values()), want, what)
+                    err["blocked_train"] = max(err["blocked_train"], e, el)
+                    rel["blocked_train"] = max(
+                        rel["blocked_train"],
+                        rel_err(list(grads.values()), want))
+        xg = x.clone().requires_grad_(True)
+        leaves = [xg, *flat(parts[3])]
+        y = F.fused_model_forward(model, xg, **kw)
+        a = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        b = torch.autograd.grad(y, leaves, gy)
+        l1, g1 = F.fused_train_grads(model, x, gy, train_ref=has_ref, **kw)
+        l2, g2 = F.fused_train_grads(model, x, gy, train_ref=has_ref, **kw)
+        if not (all(torch.equal(p, q) for p, q in zip(a, b))
+                and torch.equal(l1, l2)
+                and all(torch.equal(g1[k], g2[k]) for k in g1)):
+            fail(f"two launches of a blocked training kernel differ: {name}")
+
+    # (a), and two launches with the same bits
+    reset_counts()
+    every = ("[l, n, 3]", "[3, n, l]", "[3n, l]")
+    check("peptide_model(60)", peptide, noisy_frames(pu, L, 10, 0.05, dev),
+          every)
+    xf = noisy_frames(fu, L, 11, LJ_SIGMA, dev)
+    check("lj_fluid_model(5), c_mat given", fluid, xf,
+          ("[l, n, 3]", "[3, n, l]"), c_mat=models["c_fluid"])
+    check("lj_fluid_model(5), c_mat=None", fluid, xf, ("[l, n, 3]",))
+    del xf
+    check("alanine, mode='blocked'", alanine, x_alanine,
+          ("[l, n, 3]", "[3n, l]"), mode="blocked")
+    check("2000-atom sparse peptide", sparse,
+          noisy_frames(su, L, 12, 0.05, dev), ("[l, n, 3]", "[3, n, l]"))
+    if not (F.KERNEL_LAUNCHES["blocked_backward"]
+            and F.KERNEL_LAUNCHES["blocked_train"]):
+        fail("a blocked training kernel was never launched")
+    torch.cuda.synchronize()
+    print(f"blocked training kernels vs float64 plain on {L} and {L - 1} "
+          f"frames (peptide_model(60), lj_fluid_model(5), alanine with "
+          f"train_ref, 2000-atom sparse peptide; every layout): max abs err "
+          f"backward {err['blocked_backward']:.3g}, train "
+          f"{err['blocked_train']:.3g} (sums over {L} frames; as a fraction "
+          f"of max(1, max|g|), which the tolerance {GRAD_RTOL} is stated in: "
+          f"{rel['blocked_backward']:.3g} and {rel['blocked_train']:.3g}); "
+          f"repeated launches bit-identical; "
+          f"(atom, frame) entries held to a jump's size and the worst error "
+          f"there: { {k: v for k, v in at_jump.items() if v[0]} }")
+
+    # (b) two trainers on labelled trajectories, and a resume. Adam at
+    # 1e-4: at 1e-3 its first steps move the 355 unnormalised inputs'
+    # weights far enough for the loss to rise before it falls
+    adam = functools.partial(torch.optim.Adam, lr=1e-4)
+    launches = {"blocked_backward": 0, "blocked_train": 0}
+    trained = []
+    for name, build, path, steps in (
+            ("peptide_model(60)",
+             lambda seed: peptide_model(
+                 60, generator=torch.Generator().manual_seed(seed),
+                 device=dev)[0], peptide_path, PEPTIDE_TRAIN_STEPS),
+            ("lj_fluid_model(5)",
+             lambda seed: lj_fluid_model(
+                 5, generator=torch.Generator().manual_seed(seed),
+                 device=dev)[0], fluid_path, LJ_TRAIN_STEPS)):
+        data = TrajectoryDataset(path)
+        n_frames = len(data)
+        teacher = build(1)
+        frames = np.load(path, mmap_mode="r")
+        with torch.no_grad():
+            labels = np.concatenate([F.fused_model_forward(
+                teacher, torch.as_tensor(np.array(frames[s:s + BATCH]),
+                                         device=dev)).cpu().numpy()
+                for s in range(0, n_frames, BATCH)])
+        del frames
+
+        def batches():
+            return ((xb, labels[idx]) for xb, idx in batch_iterator(
+                data, BATCH, seed=0, return_indices=True))
+
+        half = steps // 2
+        t0 = time.perf_counter()
+        fit(build(0), fused_mse_loss, batches(), optimizer=adam, num_steps=1)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, f"ckpt_{steps}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(build(0), fused_mse_loss, batches(), optimizer=adam,
+                  num_steps=steps, checkpoint_dir=ckpt, checkpoint_every=half)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        fit_launches = dict(F.KERNEL_LAUNCHES)
+        if fit_launches != counts(blocked_forward=steps,
+                                  blocked_backward=steps):
+            fail(f"launch counts over fit on {name}: {fit_launches}")
+
+        student = build(0)
+        opt = masked_optimizer(adam, trainable_mask(student))(student)
+        step = make_fused_train_step()
+        fused_losses = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in itertools.islice(batches(), steps):
+            student, opt, loss = step(student, opt, batch)
+            fused_losses.append(loss)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        fused_launches = dict(F.KERNEL_LAUNCHES)
+        if fused_launches != counts(blocked_train=steps):
+            fail(f"launch counts over the fused trainer on {name}: "
+                 f"{fused_launches}")
+        fused_losses = [float(v) for v in fused_losses]
+        for trainer, losses in (("fit", res.losses), ("fused", fused_losses)):
+            if not (len(losses) == steps and np.isfinite(losses).all()
+                    and losses[-1] < losses[0]):
+                fail(f"{trainer} trainer did not lower the loss on {name}: "
+                     f"{losses}")
+        gap = max(abs(a - b) / abs(a) for a, b in zip(res.losses,
+                                                      fused_losses))
+        if not gap <= 1e-3:
+            fail(f"the two trainers part on {name}: {res.losses} vs "
+                 f"{fused_losses}")
+        launches["blocked_backward"] += fit_launches["blocked_backward"]
+        launches["blocked_train"] += fused_launches["blocked_train"]
+
+        resume_dir = os.path.join(tmp, f"resume_{steps}")
+        os.makedirs(resume_dir)
+        for suffix in (".model.npz", ".opt.npz"):
+            shutil.copy(os.path.join(ckpt, f"ckpt_{half:010d}{suffix}"),
+                        resume_dir)
+        resumed = fit(build(0), fused_mse_loss, batches(), optimizer=adam,
+                      num_steps=steps, checkpoint_dir=resume_dir)
+        same = resumed.losses == res.losses[half:] and all(
+            torch.equal(a, b) for a, b in zip(resumed.model.parameters(),
+                                              res.model.parameters()))
+        if not same:
+            fail(f"resume from step {half} differs on {name}: "
+                 f"{resumed.losses} vs {res.losses[half:]}")
+
+        # where a step's time goes: each stage ends in a synchronise
+        stages = {"fetch": 0.0, "h2d": 0.0, "forward_loss": 0.0,
+                  "backward": 0.0, "adam": 0.0, "train_kernel": 0.0}
+        model = build(0)
+        opt = masked_optimizer(adam, trainable_mask(model))(model)
+        it = batches()
+        n_timed = 4
+        for _ in range(n_timed):
+            t = [time.perf_counter()]
+            xb, yb = next(it)
+            t.append(time.perf_counter())
+            xb, yb = torch.as_tensor(xb, device=dev), \
+                torch.as_tensor(yb, device=dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            opt.zero_grad(set_to_none=True)
+            loss = fused_mse_loss(model, (xb, yb))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss.backward()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            opt.step()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            F.fused_train_grads(model, xb, yb)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for key, a, b in zip(stages, t, t[1:]):
+                stages[key] += (b - a) * 1e3 / n_timed
+        trained.append(
+            f"{name}: {steps} steps of {BATCH} frames from {n_frames} "
+            f"labelled frames; fit(fused_mse_loss) loss {res.losses[0]:.6g} "
+            f"-> {res.losses[-1]:.6g}, {steps / t_fit:.6g} steps/s (after a "
+            f"first step of {t_warm:.4g} s), launches blocked_forward "
+            f"{fit_launches['blocked_forward']}, blocked_backward "
+            f"{fit_launches['blocked_backward']}, every other kernel 0; "
+            f"make_fused_train_step loss {fused_losses[0]:.6g} -> "
+            f"{fused_losses[-1]:.6g}, {steps / t_fused:.6g} steps/s, "
+            f"launches blocked_train {fused_launches['blocked_train']}, "
+            f"every other kernel 0; the two loss traces within {gap:.3g}; "
+            f"resume from step {half} bit-identical; one step's stages, ms, "
+            f"mean of {n_timed}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        del data, labels
+    print("blocked training: " + "; ".join(trained) + f"; card: {card}")
+
+    # (c) kernel times, plain times and bounds on one batch of each model
+    out = {}
+    timed = []
+    for name, model, u, sigma, plain_frames, reps in (
+            ("peptide_model(60)", peptide, pu, 0.05, BATCH, 20),
+            ("lj_fluid_model(5)", fluid, fu, LJ_SIGMA, LJ_PLAIN_FRAMES, 5)):
+        parts = F._extract_model(model)
+        d = F._out_dim(parts[0], parts[3])
+        xb = noisy_frames(u, BATCH, 15, sigma, dev)
+        gyb = torch.as_tensor(np.random.default_rng(17).normal(
+            size=(BATCH, d)).astype(np.float32), device=dev)
+        xpl, gpl = xb[:plain_frames], gyb[:plain_frames]
+        within = pairs_within(parts[0], xb[:256])
+        xg = xb.clone().requires_grad_(True)
+        yk = F.fused_model_forward(model, xg)
+        leaves = [xg, *flat(parts[3])]
+        ms7, pl7 = alternate(
+            lambda: FB.blocked_backward_plain(*parts, xpl, gpl),
+            lambda: torch.autograd.grad(yk, leaves, gyb, retain_graph=True),
+            2, reps)
+        del xg, yk, leaves
+        ms5, pl5 = alternate(
+            lambda: FB.blocked_train_grads_plain(*parts, xpl, gpl),
+            lambda: F.fused_train_grads(model, xb, gyb), 2, reps)
+        lay = FB.blocked_layout(parts[0], parts[1])
+        width = 1 + F._grad_width(lay.align_idx if lay.has_align else None,
+                                  parts[3])
+        for kind, ms, pl, forces in (("blocked_backward", ms7, pl7, True),
+                                     ("blocked_train", ms5, pl5, False)):
+            n_bytes, n_ops, n_written = blocked_work(
+                F, FB, model, within, forces, BATCH, grads=True)
+            b_ms, b_by = bound(n_bytes, n_ops)
+            partial_bytes = 2 * 4 * width * min(
+                FB.BLK_GRAD_BLOCKS, BATCH // 8)
+            out.setdefault(kind, {})[name] = {
+                "ms": ms, "plain_ms": pl, "plain_frames": plain_frames,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bytes_per_frame": n_bytes // BATCH,
+                "operations_per_frame": round(n_ops / BATCH),
+                "operations_as_written_per_frame": round(n_written / BATCH),
+                "partial_sum_bytes_at_most": partial_bytes}
+            timed.append(f"{name} {kind} {ms:.4f} ms (bound {b_ms:.4f} ms by "
+                         f"{b_by}: {n_bytes // BATCH} B and "
+                         f"{n_ops / BATCH:.0f} operations a frame needed, "
+                         f"{n_written / BATCH:.0f} as written, at most "
+                         f"{partial_bytes} B of per-block partial sums "
+                         f"written and read; plain {pl:.4f} ms on "
+                         f"{plain_frames} frames)")
+        del xb, gyb
+    print(f"one {BATCH}-frame batch on the card: " + "; ".join(timed)
+          + f"; card: {card}")
+    entries = blocked_entries(launches, err, out, (
+        ("blocked_backward", 1192), ("blocked_train", 1285)))
+    for entry in entries:
+        entry["max_err_over_scale"] = rel[entry["name"]]
+    return entries
+
+
+def edge_phase(dev, card):
+    """Phase 9. Returns the ``kernels`` entry of the edge-product probe."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    # kernel against plain and against float64, as fractions of max|truth|;
+    # the one-pass int8 body multiplies round(x / 256) and is held to that
+    vs_plain = 5e-7
+    vs_f64 = {"f32": 5e-7, "gather": 5e-7, "split3": 5e-7, "fixed4": 5e-7,
+              "bf16": 4e-3, "fixed2": 2e-4, "int8": 1.0}
+    T, reps = 512, 8
+    D_host, x_host = EP.probe_inputs(T)
+    D = torch.as_tensor(D_host, device=dev)
+    x = torch.as_tensor(x_host, device=dev)
+    truth = D.double() @ x.double()
+    top = float(truth.abs().max())
+    errs, worst_plain = {}, 0.0
+    for variant in EP.VARIANTS:
+        got = EP.edge_mm(D, x, variant)
+        torch.cuda.synchronize()
+        e_plain = float((got - EP.edge_mm_plain(D, x, variant)).abs().max())
+        e_f64 = float((got.double() - truth).abs().max())
+        if not (e_plain <= vs_plain * top and e_f64 <= vs_f64[variant] * top):
+            fail(f"edge_mm {variant}: {e_plain / top} off its plain version, "
+                 f"{e_f64 / top} off float64 (of max|truth|)")
+        if not torch.equal(got, EP.edge_mm(D, x, variant)):
+            fail(f"two launches of edge_mm {variant} differ")
+        errs[variant] = e_f64 / top
+        worst_plain = max(worst_plain, e_plain)
+    del truth, got
+    reset_counts()
+    res = EP.run_probe(T, reps)
+    launches = dict(F.KERNEL_LAUNCHES)
+    if launches != counts(edge_mm=len(EP.VARIANTS) * (reps + 3)):
+        fail(f"launch counts over the edge probe: {launches}")
+    ms_plain = cuda_ms(lambda: EP.edge_mm_plain(D, x, "split3"), reps)
+    m, k = D.shape
+    n = x.shape[1]
+    t_bytes = 1e3 * 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    t_ops = 1e3 * 3 * 2.0 * m * k * n / BF16_OPS_PER_S
+    print(f"edge product D [{m}, {k}] @ x [{k}, {n}] (T = {T}, 64 tiles), "
+          f"ms per body (TFLOP/s of the dense count; error against float64 "
+          f"as a fraction of max|truth|): " + "; ".join(
+              f"{v} {res[v]['ms']:.4f} ({res[v]['tflops']:.2f}; "
+              f"{errs[v]:.3g})" for v in EP.VARIANTS)
+          + f"; torch.matmul float32 {res['library']['ms']:.4f}; plain "
+          f"split3 {ms_plain:.4f}; worst distance of a body from its plain "
+          f"version {worst_plain / top:.3g}; launches edge_mm "
+          f"{launches['edge_mm']}; card: {card}")
+    return {"name": "edge_mm", "route": "cuda",
+            "source": "molann_tpu_torch/csrc/edge_mm.cu",
+            "replaces": "scripts/int8_mm_probe.py:70",
+            "launches": launches["edge_mm"],
+            "max_abs_err": max(errs[v] for v in ("f32", "split3", "fixed4",
+                                                 "gather")) * top,
+            "ms": res["split3"]["ms"], "plain_ms": ms_plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": res["library"]["ms"], "body": "split3",
+            "bodies_ms": {v: res[v]["ms"] for v in EP.VARIANTS}}
+
+
+def coordination_model(dev):
+    """A 22-atom model inside the unrolled envelope with two coordination
+    features (9 and 36 pairs, the second under a box with ``d_max``), a bond
+    and two aligned position atoms."""
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import (
+        AlignmentLayer,
+        FeatureLayer,
+        MolANN,
+        PreprocessingANN,
+        create_sequential_nn,
+    )
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    feats = [
+        Feature("c1", "coordination", u.select_atoms("bynum 2 5 7"),
+                group_b=u.select_atoms("bynum 15 17 19"), r0=3.0),
+        Feature("b1", "bond", u.select_atoms("bynum 2 5")),
+        Feature("c2", "coordination", u.select_atoms("bynum 1:9"), r0=2.5,
+                nn=3, mm=7, pbc_box=np.asarray([9.0, 10.0, 11.0]), d_max=4.0),
+        Feature("p1", "position", u.select_atoms("bynum 9 11")),
+    ]
+    align = AlignmentLayer(u.select_atoms("bynum 1 2 5"), u.atoms, device=dev)
+    pp = PreprocessingANN(align, FeatureLayer(feats, u.atoms))
+    head = create_sequential_nn([pp.output_dimension(), 4, 2],
+                                generator=torch.Generator().manual_seed(5),
+                                device=dev)
+    return MolANN(pp, head), u
+
+
+def coordination_phase(dev):
+    """Phase 10: the unrolled kernels on a model with coordination
+    features, against float64 plain versions."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.ops.fused_blocked import gradient_jump_slack
+
+    model, u = coordination_model(dev)
+    if F.model_select_mode(model) != "unrolled":
+        fail("the coordination model is not inside the unrolled envelope")
+    parts = F._extract_model(model)
+    n = u.atoms.n_atoms
+    x = noisy_frames(u, CHECK_FRAMES, 18, 0.15, dev)
+    gy = torch.as_tensor(np.random.default_rng(19).normal(
+        size=(CHECK_FRAMES, 2)).astype(np.float32), device=dev)
+    slack = gradient_jump_slack(parts[0], parts[3], x.double())
+    reset_counts()
+    errs = {}
+    y_r, g_r = F.cv_forces_plain(*f64(parts), x.double())
+    y, g = F.fused_cv_forces(model, x)
+    yt, gt = F.fused_cv_forces(
+        model, x.reshape(CHECK_FRAMES, 3 * n).T.contiguous(),
+        transposed_input=True)
+    with torch.no_grad():
+        y1 = F.fused_model_forward(model, x)
+    errs["forward"] = float((y1 - y_r).abs().max())
+    ev = max(float((y - y_r).abs().max()), float((yt.T - y_r).abs().max()))
+    if not (errs["forward"] <= VAL_TOL and ev <= VAL_TOL):
+        fail(f"coordination model: values {errs['forward']}, {ev}")
+    errs["cv_forces"] = max(
+        ev, worst_gx(g, g_r, slack, "coordination, cv+forces"),
+        worst_gx(gt.T.reshape(-1, n, 3), g_r, slack,
+                 "coordination, cv+forces on [3n, l]"))
+    xg = x.clone().requires_grad_(True)
+    ref_x = parts[2].requires_grad_(True)
+    got = torch.autograd.grad(F.fused_model_forward(model, xg),
+                              [xg, ref_x, *flat(parts[3])], gy)
+    ref_x.requires_grad_(False)
+    gx_r, gp_r, gref_r = F.backward_plain(*f64(parts), x.double(),
+                                          gy.double())
+    errs["backward"] = max(
+        worst_gx(got[0], gx_r, slack, "coordination, backward"),
+        worst(got[1:], [gref_r, *flat(gp_r)], "coordination, backward"))
+    loss_r, gp_r, gref_r = F.train_grads_plain(*f64(parts), x.double(),
+                                               gy.double(), True)
+    loss, grads = F.fused_train_grads(model, x, gy, train_ref=True)
+    el = abs(float(loss) - float(loss_r))
+    if not el <= LOSS_RTOL * abs(float(loss_r)):
+        fail(f"coordination, train: loss {float(loss)} vs {float(loss_r)}")
+    errs["train"] = max(el, worst(list(grads.values()),
+                                  [*flat(gp_r), gref_r],
+                                  "coordination, train"))
+    got = dict(F.KERNEL_LAUNCHES)
+    if got != counts(forward=2, cv_forces=2, backward=1, train=1):
+        fail(f"launch counts of the coordination phase: {got}")
+    torch.cuda.synchronize()
+    print(f"coordination features in the unrolled kernels (22 atoms, 9 + 36 "
+          f"pairs, a box with d_max, a bond, aligned positions) vs float64 "
+          f"plain on {CHECK_FRAMES} frames: max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; {int((slack > 0).sum())} (atom, frame) entries held to a "
+          f"jump's size instead")
 
 
 def main():
@@ -595,11 +1174,10 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     F._library()  # builds, loads and checks the envelope/ABI of the kernels
-    regs = [ln.split("info    :")[-1].strip() for ln in
-            _build.BUILD_INFO["log"].splitlines() if "registers" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.BUILD_INFO['seconds']:.1f} s) -> "
-          f"{os.path.basename(_build.BUILD_INFO['path'])}; {regs}")
+          f"{os.path.basename(_build.BUILD_INFO['path'])}; "
+          f"{kernel_resources(_build.BUILD_INFO['log'])}")
 
     # 3. goldens through the forward kernel
     u = alanine_universe()
@@ -906,8 +1484,17 @@ def main():
           f"[3n, l] {ms_k3:.4f} ms, [l, n, 3] {ms_k3f:.4f} ms (plain "
           f"{ms_p3:.4f} ms); card: {card}")
 
-    # 7. the blocked serving path
-    blocked_kernels = blocked_phase(dev, card, model, x)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 7. the blocked serving path
+        blocked_kernels, blocked_models = blocked_phase(dev, card, model, x,
+                                                        tmp)
+        # 8. the blocked training path
+        blocked_kernels += blocked_train_phase(dev, card, model, x,
+                                               blocked_models, tmp)
+    # 9. the edge-product probe
+    edge_kernel = edge_phase(dev, card)
+    # 10. coordination features in the unrolled kernels
+    coordination_phase(dev)
 
     def alanine_bound(kind):
         b_ms, b_by = bound(BATCH * ALANINE_BYTES[kind],
@@ -938,6 +1525,7 @@ def main():
          "max_abs_err": max_err["train"], "ms": ms_k3,
          "plain_ms": ms_p3, **alanine_bound("train")},
         *blocked_kernels,
+        edge_kernel,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,6 @@
 #include "frame_math.cuh"
 
 #define MOLANN_BLK_MAX_LAYERS 8
-#define MOLANN_BLK_COORD_FLOATS 20
 #define MOLANN_BLK_THREADS 256
 
 // Kinds of an atom's entries in the gather table (atom_ent):
@@ -39,11 +38,6 @@ enum { BLK_ENT_ANGLE = 0, BLK_ENT_BOND = 1, BLK_ENT_DIHEDRAL = 2,
 enum { BLK_ST_C = 0, BLK_ST_H = 3, BLK_ST_R = 12, BLK_ST_FWD_ROWS = 21,
        BLK_ST_GR = 21, BLK_ST_GH = 30, BLK_ST_GC = 39, BLK_ST_DR = 42,
        BLK_ST_ALL_ROWS = 123 };
-
-// Offsets into a coordination feature's MOLANN_BLK_COORD_FLOATS parameters.
-enum { BLK_CP_R0 = 0, BLK_CP_NN = 1, BLK_CP_MM = 2, BLK_CP_HAS_DMAX = 3,
-       BLK_CP_DMAX = 4, BLK_CP_SDMAX = 5, BLK_CP_STRETCH = 6,
-       BLK_CP_HAS_BOX = 7, BLK_CP_INV = 8, BLK_CP_BOX = 11 };
 
 // Model description, passed by value to the kernels; mirrored field by
 // field by the ctypes.Structure in ops/fused_blocked.py. Every atom index
@@ -75,26 +69,37 @@ struct BlockedArgs {
   const int* pairs;         // [n_pairs * 2] (i, j), d = x[j] - x[i]
   const int* nbr_ptr;       // [n_coord * (n_act + 1)] rows of nbr
   const int* nbr;           // [n_pairs * 2] pair partners of each atom
-  const float* coord_par;   // [n_coord * MOLANN_BLK_COORD_FLOATS]
+  const float* coord_par;   // [n_coord * MOLANN_COORD_FLOATS]
   const float* ref_x;       // [n_align * 3]
   const float* params;      // per layer: W transposed, [d_in * d_out] row-major, then b [d_out]
   const float* weights;     // per layer: W [d_out * d_in] row-major, for the MLP backwards
 };
 
 // One call's tensors; strides in floats of frame, atom and component (x,
-// gx) or frame and column (y).
+// gx) or frame and column (y, gy, y_target). The fields from gy on are read
+// by the backward and train kernels only.
 struct BlockedIO {
   const float* x;
   float* y;
-  float* gx;
+  float* gx;       // null: the backward kernel skips the coordinate gradient
   long long l;
   long long x_sf, x_sa, x_sc;
   long long y_sf, y_sj;
   long long g_sf, g_sa, g_sc;
   int component;  // final output column to differentiate, < 0 = their sum
+  int want_ref;   // also the ref_x gradient (needs alignment)
+  const float* gy;        // the backward kernel's cotangent of y
+  long long gy_sf, gy_sj;
+  const float* y_target;  // the train kernel's labels
+  long long t_sf, t_sj;
+  float inv_count;        // 1 / (l * d_out), the train kernel's mean
+  int acc_global;  // the block's sums live in its row of partials, not in shared memory
+  float* partials;  // [blocks, 1 + G] per-block sums, then reduced by column
 };
 
-struct BlkSmem { int xs, feat, h, st, part, total; };  // offsets in floats
+// Offsets in floats. acc: the block's running sums [loss | G], backward
+// and train kernels only.
+struct BlkSmem { int xs, feat, h, st, part, acc, total; };
 
 __host__ __device__ __forceinline__ bool blk_aligned(const BlockedArgs& m) {
   return m.n_align > 0;
@@ -110,6 +115,7 @@ __host__ __device__ inline BlkSmem blk_smem(const BlockedArgs& m, int nt, bool f
   s.st = o;
   if (blk_aligned(m)) o += (forces ? BLK_ST_ALL_ROWS : BLK_ST_FWD_ROWS) * m.pitch;
   s.part = o; o += m.n_coord * nt;
+  s.acc = o;
   s.total = o;
   return s;
 }
@@ -135,125 +141,6 @@ __host__ __device__ __forceinline__ int blk_n_phases(const BlockedArgs& m, bool 
   return forces ? 10 + 2 * m.n_layers : 6 + m.n_layers;
 }
 
-// ---------------------------------------------------------------------------
-// The switching function (molann_tpu_torch/ops/features.py:112-143) and its
-// derivative
-// ---------------------------------------------------------------------------
-
-// t^k for k >= 1 by repeated squaring, the products in the order of _ipow;
-// the usual switching exponents are written out, so that they cost their
-// two to four multiplies and no loop.
-__host__ __device__ __forceinline__ float blk_ipow(float t, int k) {
-  const float t2 = t * t, t4 = t2 * t2;
-  switch (k) {
-    case 1: return t;
-    case 2: return t2;
-    case 3: return t * t2;
-    case 4: return t4;
-    case 5: return t * t4;
-    case 6: return t2 * t4;
-    case 8: return t4 * t4;
-    case 12: return t4 * (t4 * t4);
-  }
-  float acc = 1.f, sq = t;
-  bool have = false;
-  while (k) {
-    if (k & 1) { acc = have ? acc * sq : sq; have = true; }
-    k >>= 1;
-    if (k) sq = sq * sq;
-  }
-  return acc;
-}
-
-// 1 + t + ... + t^(k-1) by Horner, and its derivative in t.
-__host__ __device__ __forceinline__ void blk_geometric(float t, int k, float& v, float& dv) {
-  v = 1.f; dv = 0.f;
-  for (int i = 1; i < k; ++i) { dv = v + t * dv; v = 1.f + t * v; }
-}
-
-// Reciprocal and reciprocal square root of the pair loops. On the card the
-// special-function unit and one Newton step (about 1 ulp) replace
-// IEEE division and square root, which cost some ten operations each and
-// were most of a pair's work; on the host the exact forms stand in.
-#ifdef __CUDA_ARCH__
-__device__ __forceinline__ float blk_rcp(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  const float c = v * r;  // NaN for v = inf (r = 0): keep the 0
-  return c == c ? r * (2.0f - c) : r;
-}
-__device__ __forceinline__ float blk_rsqrt(float v) {
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r * (1.5f - 0.5f * v * r * r);
-}
-#else
-inline float blk_rcp(float v) { return 1.0f / v; }
-inline float blk_rsqrt(float v) { return 1.0f / sqrtf(v); }
-#endif
-
-// A coordination feature's parameters, read once per thread into registers
-// before its pair loop.
-struct BlkCoord {
-  float r0, inv_r0, dmax, dmax2, sdmax, stretch;
-  float inv[3], box[9];
-  int nn, mm;
-  bool has_dmax, has_box, ortho;
-};
-
-__host__ __device__ __forceinline__ BlkCoord blk_coord(const float* cp) {
-  BlkCoord c;
-  c.r0 = cp[BLK_CP_R0];
-  c.inv_r0 = 1.0f / c.r0;
-  c.nn = (int)cp[BLK_CP_NN];
-  c.mm = (int)cp[BLK_CP_MM];
-  c.has_dmax = cp[BLK_CP_HAS_DMAX] != 0.f;
-  c.dmax = cp[BLK_CP_DMAX];
-  c.dmax2 = c.dmax * c.dmax;
-  c.sdmax = cp[BLK_CP_SDMAX];
-  c.stretch = cp[BLK_CP_STRETCH];
-  c.has_box = cp[BLK_CP_HAS_BOX] != 0.f;
-  for (int a = 0; a < 3; ++a) c.inv[a] = cp[BLK_CP_INV + a];
-  for (int a = 0; a < 9; ++a) c.box[a] = cp[BLK_CP_BOX + a];
-  c.ortho = c.box[1] == 0.f && c.box[2] == 0.f && c.box[3] == 0.f &&
-            c.box[5] == 0.f && c.box[6] == 0.f && c.box[7] == 0.f;
-  return c;
-}
-
-// s(r) and s'(r)/r of a pair at squared distance r2. Past d_max both are
-// exactly 0, decided on r2 before any square root (a NaN too, as
-// torch.where(r < d_max, ., 0) gives); r = 0 gives s'(r)/r = 0 times a
-// finite number as the reference's guard does.
-template <bool kGrad>
-__host__ __device__ __forceinline__ void blk_switch(const BlkCoord& cp, float r2, float& s,
-                                                    float& ds_over_r) {
-  ds_over_r = 0.f;
-  if (cp.has_dmax && !(r2 < cp.dmax2)) { s = 0.f; return; }
-  const float inv_r = r2 > 1e-30f ? blk_rsqrt(r2) : 0.f;
-  // r / r0 by the reciprocal and one correction step: a bare r * (1 / r0)
-  // is off by the same fraction of an ulp for every pair of a feature, and
-  // thousands of such errors of one sign add up in the sum
-  const float r = r2 * inv_r;
-  float t = r * cp.inv_r0;
-  t = fmaf(fmaf(-t, cp.r0, r), cp.inv_r0, t);
-  float raw, draw = 0.f;
-  if (cp.mm == 2 * cp.nn) {  // (1 - t^n)/(1 - t^2n) = 1/(1 + t^n)
-    raw = blk_rcp(1.0f + blk_ipow(t, cp.nn));
-    if (kGrad)
-      draw = -(float)cp.nn * (cp.nn > 1 ? blk_ipow(t, cp.nn - 1) : 1.0f) * raw * raw;
-  } else {                   // quotient of geometric sums
-    float num, dnum, den, dden;
-    blk_geometric(t, cp.nn, num, dnum);
-    blk_geometric(t, cp.mm, den, dden);
-    const float inv_den = blk_rcp(den);
-    raw = num * inv_den;
-    draw = (dnum - raw * dden) * inv_den;
-  }
-  const float scale = cp.has_dmax ? cp.stretch : 1.0f;
-  s = cp.has_dmax ? (raw - cp.sdmax) * cp.stretch : raw;
-  if (kGrad) ds_over_r = draw * scale * cp.inv_r0 * inv_r;
-}
-
 // One step of a compensated (Kahan) sum: a switching sum runs over
 // thousands of pairs and its value into the hundreds, where a plain f32
 // accumulator would lose the digits the standardised MLP input needs.
@@ -264,26 +151,12 @@ __host__ __device__ __forceinline__ void blk_kahan(float v, float& acc, float& c
   acc = t;
 }
 
-// d = x[j] - x[i] of frame f, by minimum image when the feature has a box
-// (rintf rounds half to even, as torch.round and jnp.round do).
+// d = x[j] - x[i] of frame f, by minimum image when the feature has a box.
 __host__ __device__ __forceinline__ V3 blk_pair_vector(const float* xs, int FP, int f, int i,
-                                                       int j, const BlkCoord& cp) {
-  float d[3];
-  for (int c = 0; c < 3; ++c) d[c] = xs[(3 * j + c) * FP + f] - xs[(3 * i + c) * FP + f];
-  if (cp.has_box) {
-    if (cp.ortho) {
-      for (int a = 2; a >= 0; --a) d[a] = d[a] - rintf(d[a] * cp.inv[a]) * cp.box[4 * a];
-    } else {
-      for (int a = 2; a >= 0; --a) {
-        const float shift = rintf(d[a] * cp.inv[a]);
-        for (int b = 0; b < 3; ++b) {
-          const float e = cp.box[3 * a + b];
-          if (e != 0.f) d[b] = d[b] - shift * e;
-        }
-      }
-    }
-  }
-  return V3{d[0], d[1], d[2]};
+                                                       int j, const CoordPar& cp) {
+  return min_image(xs[(3 * j) * FP + f] - xs[(3 * i) * FP + f],
+                   xs[(3 * j + 1) * FP + f] - xs[(3 * i + 1) * FP + f],
+                   xs[(3 * j + 2) * FP + f] - xs[(3 * i + 2) * FP + f], cp);
 }
 
 // ---------------------------------------------------------------------------
@@ -300,13 +173,14 @@ __host__ __device__ __forceinline__ void blk_local_atoms(const float* xs, int FP
 // kAligned must equal blk_aligned(m): a model without alignment gets a
 // kernel without the QCP solve and its 9-tangent duals, which would
 // otherwise set every phase's register count.
+// `so` is the block's shared-memory layout; `block` the tile of frames.
 template <bool kForces, bool kAligned>
-__host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO& io, float* sm,
-                                          long long block, int ph, int tid, int nt) {
+__host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const BlockedIO& io,
+                                             float* sm, const BlkSmem& so, long long block,
+                                             int ph, int tid, int nt) {
   const int F = m.frames, FP = m.pitch, fmask = F - 1;
   int flog = 0;  // frames is a power of two: a mask and a shift split an index
   while ((1 << flog) < F) ++flog;
-  const BlkSmem so = blk_smem(m, nt, kForces);
   float* xs = sm + so.xs;
   float* feat = sm + so.feat;
   float* hbuf = sm + so.h;
@@ -384,7 +258,7 @@ __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO&
     // loads and arithmetic are in flight and not one
     const int P = nt >> flog, q = tid >> flog, fq = tid & fmask;
     for (int k = 0; k < m.n_coord; ++k) {
-      const BlkCoord cp = blk_coord(m.coord_par + k * MOLANN_BLK_COORD_FLOATS);
+      const CoordPar cp = coord_load(m.coord_par + k * MOLANN_COORD_FLOATS);
       const int end = m.coord_start[k + 1];
       float acc[4] = {0.f, 0.f, 0.f, 0.f}, comp[4] = {0.f, 0.f, 0.f, 0.f};
       int p = m.coord_start[k] + q;
@@ -394,14 +268,14 @@ __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO&
           const int pp = p + u * P;
           const V3 d = blk_pair_vector(xs, FP, fq, m.pairs[2 * pp], m.pairs[2 * pp + 1], cp);
           float s, ds;
-          blk_switch<false>(cp, dot3(d, d), s, ds);
+          switch_eval<false>(cp, dot3(d, d), s, ds);
           blk_kahan(s, acc[u], comp[u]);
         }
       }
       for (; p < end; p += P) {
         const V3 d = blk_pair_vector(xs, FP, fq, m.pairs[2 * p], m.pairs[2 * p + 1], cp);
         float s, ds;
-        blk_switch<false>(cp, dot3(d, d), s, ds);
+        switch_eval<false>(cp, dot3(d, d), s, ds);
         blk_kahan(s, acc[0], comp[0]);
       }
       part[k * nt + tid] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
@@ -631,7 +505,7 @@ __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO&
       // pairs: d s(|x_j - x_k|)/d x_k = -s'(r)/r * d, the minimum-image
       // shift constant; each pair is recomputed from shared memory
       for (int cf = 0; cf < m.n_coord; ++cf) {
-        const BlkCoord cp = blk_coord(m.coord_par + cf * MOLANN_BLK_COORD_FLOATS);
+        const CoordPar cp = coord_load(m.coord_par + cf * MOLANN_COORD_FLOATS);
         const int* row = m.nbr_ptr + cf * (m.n_act + 1) + k;
         // two partners at a time into two sums, for the same reason
         float acc[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
@@ -641,14 +515,14 @@ __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO&
           for (int u = 0; u < 2; ++u) {
             const V3 d = blk_pair_vector(xs, FP, f, k, m.nbr[q + u], cp);
             float s, coef;
-            blk_switch<true>(cp, dot3(d, d), s, coef);
+            switch_eval<true>(cp, dot3(d, d), s, coef);
             acc[u][0] -= coef * d.x; acc[u][1] -= coef * d.y; acc[u][2] -= coef * d.z;
           }
         }
         if (q < row[1]) {
           const V3 d = blk_pair_vector(xs, FP, f, k, m.nbr[q], cp);
           float s, coef;
-          blk_switch<true>(cp, dot3(d, d), s, coef);
+          switch_eval<true>(cp, dot3(d, d), s, coef);
           acc[0][0] -= coef * d.x; acc[0][1] -= coef * d.y; acc[0][2] -= coef * d.z;
         }
         const float gc = feat[m.item_col[c_coord + cf] * FP + f];
@@ -659,4 +533,173 @@ __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO&
       for (int c = 0; c < 3; ++c)
         io.gx[(f0 + f) * io.g_sf + (long long)o * io.g_sa + c * io.g_sc] = g[c];
   }
+}
+
+// A phase of the forward (kForces = false) or cv+forces kernel on its own
+// shared-memory layout.
+template <bool kForces, bool kAligned>
+__host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO& io, float* sm,
+                                          long long block, int ph, int tid, int nt) {
+  blk_phase_at<kForces, kAligned>(m, io, sm, blk_smem(m, nt, kForces), block, ph, tid, nt);
+}
+
+// ---------------------------------------------------------------------------
+// The backward and train kernels: the phases above with gy (or the MSE
+// cotangent) as the seed, plus every frame's term of the parameter and ref_x
+// gradients, summed over the block's tiles
+// (molann_tpu/ops/fused_blocked.py, _blk_bwd_kernel :1192 and
+// _blk_train_kernel :1285)
+// ---------------------------------------------------------------------------
+
+// Blocks of a backward or train launch: a fixed number, so that the order
+// of the sum over frames depends on the frame count and the tile alone and
+// never on the card. Block b takes tiles b, b + blocks, ... in order.
+#define MOLANN_BLK_GRAD_BLOCKS 528
+
+// Entries of the flat gradient vector [ref_x | W0 | b0 | W1 | b1 ...], W in
+// [d_out, d_in] order; a row of partials is [loss | G].
+__host__ __device__ __forceinline__ int blk_grad_size(const BlockedArgs& m) {
+  int n = 3 * m.n_align;
+  for (int L = 0; L < m.n_layers; ++L) n += m.dims[L + 1] * (m.dims[L] + 1);
+  return n;
+}
+
+__host__ __device__ __forceinline__ long long blk_grad_blocks(const BlockedArgs& m, long long l) {
+  const long long tiles = (l + m.frames - 1) / m.frames;
+  return tiles < MOLANN_BLK_GRAD_BLOCKS ? tiles : MOLANN_BLK_GRAD_BLOCKS;
+}
+
+// The layout of the cv+forces kernel (the whole alignment state) and, unless
+// the sums live in device memory, one row of running sums behind it.
+__host__ __device__ inline BlkSmem blk_grad_smem(const BlockedArgs& m, int nt, bool acc_global) {
+  BlkSmem s = blk_smem(m, nt, true);
+  if (!acc_global) s.total += 1 + blk_grad_size(m);
+  return s;
+}
+
+// Phases of one tile: LOAD, FEAT, REDUCE, QCP, POS, one per MLP layer, LOSS,
+// SEED, then per layer from the last PGRAD and BWD, then GR, GH, GREF, GC,
+// GATHER. A phase a call does not need returns at once.
+__host__ __device__ __forceinline__ int blk_grad_n_phases(const BlockedArgs& m) {
+  return 12 + 3 * m.n_layers;
+}
+
+// Zero the block's running sums; before its first tile.
+__host__ __device__ inline void blk_grad_begin(const BlockedArgs& m, float* acc, int tid, int nt) {
+  const int width = 1 + blk_grad_size(m);
+  for (int e = tid; e < width; e += nt) acc[e] = 0.f;
+}
+
+// kTrain: the seed is the MSE cotangent 2 (y - y_target) inv_count on the
+// true frames, the loss is summed, and there is no gx. Otherwise the seed is
+// gy. Frames past the end get a zero seed, and with it zero terms. `acc`
+// is the block's row of running sums; thread t owns entries t, t + nt, ...
+// of every gradient, and adds a tile's term (summed over the tile's frames
+// in order) to each: no atomics, the same bits on every launch.
+template <bool kTrain, bool kAligned>
+__host__ __device__ inline void blk_grad_phase(const BlockedArgs& m, const BlockedIO& io,
+                                               float* sm, const BlkSmem& so, float* acc,
+                                               long long tile, int ph, int tid, int nt) {
+  const int F = m.frames, FP = m.pitch, fmask = F - 1;
+  int flog = 0;
+  while ((1 << flog) < F) ++flog;
+  const int nl = m.n_layers;
+  const bool want_gx = !kTrain && io.gx != nullptr;
+  const bool want_ref = kAligned && io.want_ref != 0;
+  const bool adjoint = want_gx || want_ref;  // anything below the MLP
+  const long long f0 = tile * F;
+  const long long left = io.l - f0;
+  const int nf = left < (long long)F ? (int)left : F;
+  float* feat = sm + so.feat;
+  float* hbuf = sm + so.h;
+  float* last = nl ? hbuf + blk_h_off(m, nl - 1) : feat;
+  const int d_out = blk_out_dim(m);
+
+  if (ph < BLK_PH_MLP + nl) {  // the forward, with dR/dH only where an adjoint needs it
+    if (ph == BLK_PH_QCP && adjoint)
+      blk_phase_at<true, kAligned>(m, io, sm, so, tile, ph, tid, nt);
+    else
+      blk_phase_at<false, kAligned>(m, io, sm, so, tile, ph, tid, nt);
+    return;
+  }
+  int q = ph - (BLK_PH_MLP + nl);
+  if (q == 0) {  // LOSS: one thread, frames then columns in order
+    if (!kTrain || tid != 0) return;
+    float e2 = 0.f;
+    for (int f = 0; f < nf; ++f)
+      for (int j = 0; j < d_out; ++j) {
+        const float e = last[j * FP + f] - io.y_target[(f0 + f) * io.t_sf + j * io.t_sj];
+        e2 += e * e;
+      }
+    acc[0] += e2 * io.inv_count;
+    return;
+  }
+  if (q == 1) {  // SEED: the cotangent of the output, in place
+    for (int e = tid; e < d_out * F; e += nt) {
+      const int f = e & fmask, j = e >> flog;
+      float g = 0.f;
+      if (f < nf) {
+        if (kTrain)
+          g = 2.0f * (last[j * FP + f] - io.y_target[(f0 + f) * io.t_sf + j * io.t_sj]) *
+              io.inv_count;
+        else
+          g = io.gy[(f0 + f) * io.gy_sf + j * io.gy_sj];
+      }
+      last[j * FP + f] = g;
+    }
+    return;
+  }
+  q -= 2;
+  const int pb = BLK_PH_MLP + nl + 1;  // the cv+forces kernel's first backward phase
+  if (q < 2 * nl) {
+    const int L = nl - 1 - (q >> 1);
+    if (q & 1) {  // BWD L: the cotangent of the layer's input, in place
+      if (L > 0 || adjoint) blk_phase_at<true, kAligned>(m, io, sm, so, tile, pb + (q >> 1), tid, nt);
+      return;
+    }
+    // PGRAD L: gW[j][k] += sum_f gz[j][f] a[k][f], gb[j] += sum_f gz[j][f],
+    // before BWD L overwrites the layer's input a
+    const int d_in = m.dims[L], d_o = m.dims[L + 1];
+    int off = 1 + 3 * m.n_align;
+    for (int i = 0; i < L; ++i) off += m.dims[i + 1] * (m.dims[i] + 1);
+    const float* gz = hbuf + blk_h_off(m, L);
+    const float* a = L ? hbuf + blk_h_off(m, L - 1) : feat;
+    for (int e = tid; e < d_o * (d_in + 1); e += nt) {
+      float s = 0.f;
+      if (e < d_o * d_in) {
+        const int j = e / d_in, k = e - j * d_in;
+        for (int f = 0; f < F; ++f) s += gz[j * FP + f] * a[k * FP + f];
+      } else {
+        const int j = e - d_o * d_in;
+        for (int f = 0; f < F; ++f) s += gz[j * FP + f];
+      }
+      acc[off + e] += s;
+    }
+    return;
+  }
+  q -= 2 * nl;
+  if (!adjoint) return;
+  if (q == 0 || q == 1) {  // GR, GH
+    blk_phase_at<true, kAligned>(m, io, sm, so, tile, pb + nl + q, tid, nt);
+    return;
+  }
+  if (q == 2) {  // GREF: g_ref[n][j] += sum_f sum_i gH[i][j] (x[a_n][i] - c_i)
+    if (!want_ref) return;
+    const float* xs = sm + so.xs;
+    const float* st = sm + so.st;
+    for (int e = tid; e < 3 * m.n_align; e += nt) {
+      const int n = e / 3, j = e - 3 * n;
+      const int a = m.align_idx[n];
+      float s = 0.f;
+      for (int f = 0; f < F; ++f)
+        for (int i = 0; i < 3; ++i)
+          s += st[(BLK_ST_GH + 3 * i + j) * FP + f] *
+               (xs[(3 * a + i) * FP + f] - st[(BLK_ST_C + i) * FP + f]);
+      acc[1 + e] += s;
+    }
+    return;
+  }
+  if (!want_gx) return;
+  // GC, GATHER
+  blk_phase_at<true, kAligned>(m, io, sm, so, tile, pb + nl + q - 1, tid, nt);
 }

@@ -43,6 +43,7 @@ enum { MOLANN_ACT_IDENTITY = 0, MOLANN_ACT_TANH = 1, MOLANN_ACT_RELU = 2,
 struct ModelArgs {
   int n_atoms;
   int n_angles, n_bonds, n_dihedrals, n_pos, n_align;
+  int n_coord;     // coordination features, one column each
   int use_angle_value;
   int n_feat;      // feature columns (spec.out_dim)
   int has_perm;    // 0: feature columns already in feature-list order
@@ -55,6 +56,9 @@ struct ModelArgs {
   const int* pos_idx;       // [n_pos]
   const int* align_idx;     // [n_align]
   const int* perm;          // [n_feat] or null
+  const int* coord_start;   // [n_coord + 1] rows of coord_pairs
+  const int* coord_pairs;   // [n_pairs * 2] (i, j), d = x[j] - x[i]
+  const float* coord_par;   // [n_coord * MOLANN_COORD_FLOATS]
   const float* ref_x;       // [n_align * 3] centred reference
   const float* params;      // per layer: Wt [d_out * d_in] row-major, b [d_out]
 };
@@ -294,6 +298,154 @@ __host__ __device__ __forceinline__ void acc_atom(float* g, int a, V3 v) {
 }
 
 // ---------------------------------------------------------------------------
+// The switching function of the coordination features
+// (molann_tpu_torch/ops/features.py:112-143) and its derivative, shared by
+// the unrolled kernels (a thread owns a frame) and the blocked ones
+// (blocked_math.cuh, threads share a frame)
+// ---------------------------------------------------------------------------
+
+// Floats of one coordination feature's parameters, and the offsets into
+// them (ops/fused.py packs them, coord_parameters).
+#define MOLANN_COORD_FLOATS 20
+enum { CP_R0 = 0, CP_NN = 1, CP_MM = 2, CP_HAS_DMAX = 3, CP_DMAX = 4,
+       CP_SDMAX = 5, CP_STRETCH = 6, CP_HAS_BOX = 7, CP_INV = 8, CP_BOX = 11 };
+
+// t^k for k >= 1 by repeated squaring, the products in the order of _ipow;
+// the usual switching exponents are written out, so that they cost their
+// two to four multiplies and no loop.
+__host__ __device__ __forceinline__ float switch_ipow(float t, int k) {
+  const float t2 = t * t, t4 = t2 * t2;
+  switch (k) {
+    case 1: return t;
+    case 2: return t2;
+    case 3: return t * t2;
+    case 4: return t4;
+    case 5: return t * t4;
+    case 6: return t2 * t4;
+    case 8: return t4 * t4;
+    case 12: return t4 * (t4 * t4);
+  }
+  float acc = 1.f, sq = t;
+  bool have = false;
+  while (k) {
+    if (k & 1) { acc = have ? acc * sq : sq; have = true; }
+    k >>= 1;
+    if (k) sq = sq * sq;
+  }
+  return acc;
+}
+
+// 1 + t + ... + t^(k-1) by Horner, and its derivative in t.
+__host__ __device__ __forceinline__ void switch_geometric(float t, int k, float& v, float& dv) {
+  v = 1.f; dv = 0.f;
+  for (int i = 1; i < k; ++i) { dv = v + t * dv; v = 1.f + t * v; }
+}
+
+// Reciprocal and reciprocal square root of the pair loops. On the card the
+// special-function unit and one Newton step (about 1 ulp) replace
+// IEEE division and square root, which cost some ten operations each and
+// were most of a pair's work; on the host the exact forms stand in.
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ float switch_rcp(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  const float c = v * r;  // NaN for v = inf (r = 0): keep the 0
+  return c == c ? r * (2.0f - c) : r;
+}
+__device__ __forceinline__ float switch_rsqrt(float v) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r * (1.5f - 0.5f * v * r * r);
+}
+#else
+inline float switch_rcp(float v) { return 1.0f / v; }
+inline float switch_rsqrt(float v) { return 1.0f / sqrtf(v); }
+#endif
+
+// A coordination feature's parameters, read once per thread into registers
+// before its pair loop.
+struct CoordPar {
+  float r0, inv_r0, dmax, dmax2, sdmax, stretch;
+  float inv[3], box[9];
+  int nn, mm;
+  bool has_dmax, has_box, ortho;
+};
+
+__host__ __device__ __forceinline__ CoordPar coord_load(const float* cp) {
+  CoordPar c;
+  c.r0 = cp[CP_R0];
+  c.inv_r0 = 1.0f / c.r0;
+  c.nn = (int)cp[CP_NN];
+  c.mm = (int)cp[CP_MM];
+  c.has_dmax = cp[CP_HAS_DMAX] != 0.f;
+  c.dmax = cp[CP_DMAX];
+  c.dmax2 = c.dmax * c.dmax;
+  c.sdmax = cp[CP_SDMAX];
+  c.stretch = cp[CP_STRETCH];
+  c.has_box = cp[CP_HAS_BOX] != 0.f;
+  for (int a = 0; a < 3; ++a) c.inv[a] = cp[CP_INV + a];
+  for (int a = 0; a < 9; ++a) c.box[a] = cp[CP_BOX + a];
+  c.ortho = c.box[1] == 0.f && c.box[2] == 0.f && c.box[3] == 0.f &&
+            c.box[5] == 0.f && c.box[6] == 0.f && c.box[7] == 0.f;
+  return c;
+}
+
+// s(r) and s'(r)/r of a pair at squared distance r2. Past d_max both are
+// exactly 0, decided on r2 before any square root (a NaN too, as
+// torch.where(r < d_max, ., 0) gives); r = 0 gives s'(r)/r = 0 times a
+// finite number as the reference's guard does.
+template <bool kGrad>
+__host__ __device__ __forceinline__ void switch_eval(const CoordPar& cp, float r2, float& s,
+                                                     float& ds_over_r) {
+  ds_over_r = 0.f;
+  if (cp.has_dmax && !(r2 < cp.dmax2)) { s = 0.f; return; }
+  const float inv_r = r2 > 1e-30f ? switch_rsqrt(r2) : 0.f;
+  // r / r0 by the reciprocal and one correction step: a bare r * (1 / r0)
+  // is off by the same fraction of an ulp for every pair of a feature, and
+  // thousands of such errors of one sign add up in the sum
+  const float r = r2 * inv_r;
+  float t = r * cp.inv_r0;
+  t = fmaf(fmaf(-t, cp.r0, r), cp.inv_r0, t);
+  float raw, draw = 0.f;
+  if (cp.mm == 2 * cp.nn) {  // (1 - t^n)/(1 - t^2n) = 1/(1 + t^n)
+    raw = switch_rcp(1.0f + switch_ipow(t, cp.nn));
+    if (kGrad)
+      draw = -(float)cp.nn * (cp.nn > 1 ? switch_ipow(t, cp.nn - 1) : 1.0f) * raw * raw;
+  } else {                   // quotient of geometric sums
+    float num, dnum, den, dden;
+    switch_geometric(t, cp.nn, num, dnum);
+    switch_geometric(t, cp.mm, den, dden);
+    const float inv_den = switch_rcp(den);
+    raw = num * inv_den;
+    draw = (dnum - raw * dden) * inv_den;
+  }
+  const float scale = cp.has_dmax ? cp.stretch : 1.0f;
+  s = cp.has_dmax ? (raw - cp.sdmax) * cp.stretch : raw;
+  if (kGrad) ds_over_r = draw * scale * cp.inv_r0 * inv_r;
+}
+
+// The minimum image of a displacement when the feature has a box (rintf
+// rounds half to even, as torch.round and jnp.round do).
+__host__ __device__ __forceinline__ V3 min_image(float d0, float d1, float d2,
+                                                 const CoordPar& cp) {
+  float d[3] = {d0, d1, d2};
+  if (cp.has_box) {
+    if (cp.ortho) {
+      for (int a = 2; a >= 0; --a) d[a] = d[a] - rintf(d[a] * cp.inv[a]) * cp.box[4 * a];
+    } else {
+      for (int a = 2; a >= 0; --a) {
+        const float shift = rintf(d[a] * cp.inv[a]);
+        for (int b = 0; b < 3; ++b) {
+          const float e = cp.box[3 * a + b];
+          if (e != 0.f) d[b] = d[b] - shift * e;
+        }
+      }
+    }
+  }
+  return V3{d[0], d[1], d[2]};
+}
+
+// ---------------------------------------------------------------------------
 // Features (molann_tpu/ops/fused.py:364-389) and their adjoints
 // ---------------------------------------------------------------------------
 
@@ -392,6 +544,45 @@ __host__ __device__ __forceinline__ void dihedral_bwd(const float* xs, const int
   acc_atom(gx, idx[3], g34);
 }
 
+// One coordination feature of a frame (molann_tpu/ops/fused.py:392-410,
+// _coordination_row): the switching function summed over the feature's
+// pairs in table order. A thread owns its frame and the unrolled envelope
+// has at most 96 pairs (UNROLLED_MAX_COORD_PAIRS, checked by the wrapper),
+// so a plain loop in a fixed order is enough and gives the same bits on
+// every launch.
+__host__ __device__ __forceinline__ float coordination_fwd(const int* pairs, int n_pairs,
+                                                           const CoordPar& cp,
+                                                           const float* xs) {
+  float acc = 0.f;
+  for (int p = 0; p < n_pairs; ++p) {
+    const int i = pairs[2 * p], j = pairs[2 * p + 1];
+    const V3 d = min_image(xs[3 * j] - xs[3 * i], xs[3 * j + 1] - xs[3 * i + 1],
+                           xs[3 * j + 2] - xs[3 * i + 2], cp);
+    float s, ds;
+    switch_eval<false>(cp, dot3(d, d), s, ds);
+    acc += s;
+  }
+  return acc;
+}
+
+// Its adjoint: d s(|x_j - x_i|)/d x_j = s'(r)/r * d and the opposite on
+// x_i; the minimum-image shift is constant.
+__host__ __device__ __forceinline__ void coordination_bwd(const int* pairs, int n_pairs,
+                                                          const CoordPar& cp,
+                                                          const float* xs, float g,
+                                                          float* gx) {
+  for (int p = 0; p < n_pairs; ++p) {
+    const int i = pairs[2 * p], j = pairs[2 * p + 1];
+    const V3 d = min_image(xs[3 * j] - xs[3 * i], xs[3 * j + 1] - xs[3 * i + 1],
+                           xs[3 * j + 2] - xs[3 * i + 2], cp);
+    float s, coef;
+    switch_eval<true>(cp, dot3(d, d), s, coef);
+    const V3 gd = scale3(g * coef, d);
+    acc_atom(gx, j, gd);
+    acc_atom(gx, i, scale3(-1.f, gd));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Alignment (molann_tpu/ops/fused.py:310-361)
 // ---------------------------------------------------------------------------
@@ -419,7 +610,8 @@ __host__ __device__ __forceinline__ void align_covariance(const ModelArgs& m,
 }
 
 // Intermediate (type-grouped) feature rows:
-// [angles | bonds | dihedrals | positions], the layout spec.perm indexes.
+// [angles | bonds | dihedrals | coordinations | positions], the layout
+// spec.perm indexes.
 __host__ __device__ __forceinline__ void features_fwd(const ModelArgs& m, const float* xs,
                                                       bool aligned, const float c[3],
                                                       const float R[3][3], float* feat) {
@@ -429,6 +621,11 @@ __host__ __device__ __forceinline__ void features_fwd(const ModelArgs& m, const 
   for (int i = 0; i < m.n_bonds; ++i) feat[row++] = bond_fwd(xs, m.bond_idx + 2 * i);
   for (int i = 0; i < m.n_dihedrals; ++i)
     row += dihedral_fwd(xs, m.dihedral_idx + 4 * i, m.use_angle_value, feat + row);
+  for (int k = 0; k < m.n_coord; ++k) {
+    const int p0 = m.coord_start[k];
+    feat[row++] = coordination_fwd(m.coord_pairs + 2 * p0, m.coord_start[k + 1] - p0,
+                                   coord_load(m.coord_par + k * MOLANN_COORD_FLOATS), xs);
+  }
   for (int p = 0; p < m.n_pos; ++p) {
     V3 v = atom(xs, m.pos_idx[p]);
     if (aligned) {
@@ -621,8 +818,13 @@ __host__ __device__ __forceinline__ void frame_vjp(const ModelArgs& m, const flo
       dihedral_bwd(xs, m.dihedral_idx + 4 * i, m.use_angle_value, gb + row, gx);
       row += m.use_angle_value ? 1 : 2;
     }
+    for (int k = 0; k < m.n_coord; ++k) {
+      const int p0 = m.coord_start[k];
+      coordination_bwd(m.coord_pairs + 2 * p0, m.coord_start[k + 1] - p0,
+                       coord_load(m.coord_par + k * MOLANN_COORD_FLOATS), xs, gb[row++], gx);
+    }
   } else {
-    row = m.n_angles + m.n_bonds + m.n_dihedrals * (m.use_angle_value ? 1 : 2);
+    row = m.n_angles + m.n_bonds + m.n_dihedrals * (m.use_angle_value ? 1 : 2) + m.n_coord;
   }
   if (!st.aligned) {
     for (int p = 0; p < m.n_pos; ++p, row += 3)

@@ -26,9 +26,10 @@
 // Hopper runs blocks in no order. So the sum has two fixed-order passes
 // and no atomics: each warp sums its 32 frames' terms of every entry with
 // a shuffle tree and its lane 0 stores them as the warp's row of a
-// partials tensor that the wrapper allocates; reduce_partials then sums
-// every column over the rows in a fixed order. The same inputs give the
-// same bits on every launch, which a resumed training run relies on. No
+// partials tensor that the wrapper allocates; reduce_partials
+// (reduce_partials.cuh) then sums every column over the rows in a fixed
+// order. The same inputs give the same bits on every launch, which a
+// resumed training run relies on. No
 // thread keeps an array of parameter gradients (18.7K entries at the
 // envelope): frame_vjp hands each term to the warp sum as it produces it.
 // Lanes past the last frame recompute the block's last frame, like the
@@ -38,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "frame_math.cuh"
+#include "reduce_partials.cuh"
 
 namespace {
 
@@ -121,26 +123,6 @@ fused_grads_kernel(const ModelArgs m, const float* __restrict__ x,
   for (int k = t; k < nf * n3; k += blockDim.x) dst[k] = slab[k];
 }
 
-// out[c] = sum of partials[:, c] in a fixed order: thread (x, y) sums rows
-// y, y + 32, ... of column 32 * blockIdx.x + x, then thread (x, 0) adds
-// the 32 sums in the order of y.
-__global__ void __launch_bounds__(1024)
-reduce_partials(const float* __restrict__ partials, float* __restrict__ out,
-                long long rows, int width) {
-  __shared__ float s[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (c < width)
-    for (long long r = threadIdx.y; r < rows; r += 32) acc += partials[r * width + c];
-  s[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < width) {
-    float tot = s[0][threadIdx.x];
-    for (int y = 1; y < 32; ++y) tot += s[y][threadIdx.x];
-    out[c] = tot;
-  }
-}
-
 inline long long partial_rows(int n3, long long l) {
   const int threads = frames_per_block(n3);
   return (l + threads - 1) / threads * (threads / 32);
@@ -163,9 +145,7 @@ int launch(const ModelArgs* m, const float* x, const float* aux, float* gx,
       *m, x, aux, gx, partials, width, l, in_t, inv_count, want_ref);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials<<<(width + 31) / 32, dim3(32, 32), 0, s>>>(
-      partials, out, partial_rows(n3, l), width);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce_partials(partials, out, partial_rows(n3, l), width, s);
 }
 
 }  // namespace

@@ -27,7 +27,9 @@
 // coalesced loads, and the gradient goes back the same way; on the
 // transposed layout ([3n, l]) neighbouring threads already touch
 // neighbouring addresses. The ragged last block is masked by frame index, so
-// no padding is needed. Per-frame arrays are sized by the compile-time
+// no padding is needed. A coordination feature (at most 96 pairs in this
+// family's envelope) is a loop over its pair table in the thread, in table
+// order, forward and adjoint. Per-frame arrays are sized by the compile-time
 // envelope (MOLANN_MAX_*), and live in local memory where the tables index
 // them. This is the simple, right first version: it is not tuned.
 

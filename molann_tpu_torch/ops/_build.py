@@ -88,10 +88,21 @@ def _bind(lib):
     lib.molann_blocked_caps.restype = i32
     lib.molann_blocked_smem_bytes.argtypes = [vp, i32]
     lib.molann_blocked_smem_bytes.restype = i64
+    lib.molann_blocked_partial_rows.argtypes = [vp, i64]
+    lib.molann_blocked_partial_rows.restype = i64
     lib.molann_blocked_forward.argtypes = [vp, vp, i32, vp]
     lib.molann_blocked_forward.restype = i32
     lib.molann_blocked_cv_forces.argtypes = [vp, vp, i32, vp]
     lib.molann_blocked_cv_forces.restype = i32
+    lib.molann_blocked_backward.argtypes = [vp, vp, vp, i32, vp]
+    lib.molann_blocked_backward.restype = i32
+    lib.molann_blocked_train.argtypes = [vp, vp, vp, i32, vp]
+    lib.molann_blocked_train.restype = i32
+    lib.molann_edge_mm_scratch.argtypes = [i32, i32]
+    lib.molann_edge_mm_scratch.restype = i64
+    lib.molann_edge_mm.argtypes = [i32, vp, vp, vp, i32, i32, i64, vp, vp, vp,
+                                   vp, i32, vp]
+    lib.molann_edge_mm.restype = i32
     return lib
 
 

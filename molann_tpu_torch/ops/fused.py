@@ -3,8 +3,8 @@
 The entry points, with the JAX signatures. ``mode="auto"`` picks the
 formulation by system size (:func:`select_mode`): the unrolled family
 below for systems of at most 64 atoms, 96 columns and 96 coordination
-pairs, the blocked family of :mod:`.fused_blocked` (kernels K6 and K8,
-serving only so far) for everything larger.
+pairs, the blocked family of :mod:`.fused_blocked` (kernels K5 to K8) for
+everything larger.
 
 Port of the unrolled family of ``molann_tpu/ops/fused.py``:
 
@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -76,17 +77,13 @@ UNROLLED_MAX_COORD_PAIRS = 96
 KERNEL_MAX_WIDTH = 64
 KERNEL_MAX_LAYERS = 4
 KERNEL_ACTIVATIONS = {"identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3}
+# Floats of one coordination feature's parameters (csrc/frame_math.cuh).
+COORD_FLOATS = 20
 
 # Launches of each CUDA kernel, counted by the wrappers where they launch.
 KERNEL_LAUNCHES = {"forward": 0, "cv_forces": 0, "backward": 0, "train": 0,
-                   "blocked_forward": 0, "blocked_cv_forces": 0}
-
-_BLOCKED_TRAIN_TODO = ("the blocked train kernel (K5) is not ported to "
-                       "molann_tpu_torch yet (ROADMAP.md, queue 1): "
-                       "fused_train_grads serves the unrolled envelope only")
-_COORD_TODO = ("coordination features are not in the CUDA unrolled kernels "
-               "yet (ROADMAP.md, queue 1: coordination in K1/K4); the "
-               "eager model computes them")
+                   "blocked_forward": 0, "blocked_cv_forces": 0,
+                   "blocked_backward": 0, "blocked_train": 0, "edge_mm": 0}
 
 
 def select_mode(spec, n_atoms: int) -> str:
@@ -203,8 +200,11 @@ def _resolve_mode(spec, mode, c_mat):
 def _check_envelope(spec, params, activation):
     """What the CUDA kernels compute, checked for every input device so that
     a model behaves the same on the CPU and on the card."""
-    if spec.coord_slices:
-        raise NotImplementedError(_COORD_TODO)
+    n_pairs = sum(npairs for _, npairs in spec.coord_slices)
+    if n_pairs > UNROLLED_MAX_COORD_PAIRS:
+        raise ValueError(
+            f"{n_pairs} coordination pairs are outside the unrolled kernels' "
+            f"envelope ({UNROLLED_MAX_COORD_PAIRS} pairs): use mode='blocked'")
     if activation not in KERNEL_ACTIVATIONS:
         raise NotImplementedError(
             f"activation {activation!r} is not in the CUDA kernels "
@@ -361,6 +361,7 @@ class ModelArgs(ctypes.Structure):
         ("n_dihedrals", ctypes.c_int),
         ("n_pos", ctypes.c_int),
         ("n_align", ctypes.c_int),
+        ("n_coord", ctypes.c_int),
         ("use_angle_value", ctypes.c_int),
         ("n_feat", ctypes.c_int),
         ("has_perm", ctypes.c_int),
@@ -373,19 +374,50 @@ class ModelArgs(ctypes.Structure):
         ("pos_idx", ctypes.c_void_p),
         ("align_idx", ctypes.c_void_p),
         ("perm", ctypes.c_void_p),
+        ("coord_start", ctypes.c_void_p),
+        ("coord_pairs", ctypes.c_void_p),
+        ("coord_par", ctypes.c_void_p),
         ("ref_x", ctypes.c_void_p),
         ("params", ctypes.c_void_p),
     ]
 
 
 _TABLES = ("angle_idx", "bond_idx", "dihedral_idx", "pos_idx", "align_idx",
-           "perm")
+           "perm", "coord_start", "coord_pairs")
+
+
+def coord_parameters(spec):
+    """The coordination features' parameters as the kernels read them:
+    float32 ``[n_coord, COORD_FLOATS]`` holding ``r0, nn, mm``, then
+    ``has_dmax, d_max, s(d_max), 1 / (1 - s(d_max))``, then ``has_box``,
+    the reciprocal box diagonal and the box's nine entries (offsets
+    ``CP_*`` in ``csrc/frame_math.cuh``)."""
+    n_coord = spec.n_coordinations
+    boxes = spec.coord_boxes or (None,) * n_coord
+    dmaxs = spec.coord_dmax or (None,) * n_coord
+    par = np.zeros((n_coord, COORD_FLOATS), dtype=np.float32)
+    for k, ((r0, nn, mm), box, dmax) in enumerate(
+            zip(spec.coord_params, boxes, dmaxs)):
+        par[k, 0:3] = (r0, nn, mm)
+        if dmax is not None:
+            y = float(dmax) / float(r0)
+            s_dmax = (1.0 - y**nn) / (1.0 - y**mm)
+            par[k, 3:7] = (1.0, dmax, s_dmax, 1.0 / (1.0 - s_dmax))
+        if box is not None:
+            par[k, 7] = 1.0
+            par[k, 8:11] = [1.0 / box[i][i] for i in range(3)]
+            par[k, 11:20] = np.asarray(box, dtype=np.float64).reshape(9)
+    return par
 
 
 @functools.lru_cache(maxsize=64)
 def _index_tables(spec, align_idx, device):
     """The spec's index tables as ONE int32 tensor on ``device`` plus the
-    element offset of each table (static per model, so cached)."""
+    element offset of each table, and the coordination parameters as a
+    float32 tensor (static per model, so cached)."""
+    starts = [0]
+    for _, npairs in spec.coord_slices:
+        starts.append(starts[-1] + npairs)
     tables = {
         "angle_idx": [i for t in spec.angle_idx for i in t],
         "bond_idx": [i for t in spec.bond_idx for i in t],
@@ -393,21 +425,26 @@ def _index_tables(spec, align_idx, device):
         "pos_idx": list(spec.position_idx),
         "align_idx": list(align_idx or ()),
         "perm": list(spec.perm or ()),
+        "coord_start": starts,
+        "coord_pairs": [i for p in spec.coord_pairs for i in p],
     }
     flat, offsets = [], {}
     for name in _TABLES:
         offsets[name] = len(flat)
         flat.extend(tables[name])
     buf = torch.tensor(flat + [0], dtype=torch.int32, device=device)
-    return buf, offsets
+    par = torch.from_numpy(np.concatenate(
+        [coord_parameters(spec).reshape(-1), np.zeros(1, np.float32)])
+    ).to(device)
+    return buf, offsets, par
 
 
 def model_args(spec, align_idx, ref_x, params, activation, device):
     """``(ModelArgs, keepalive)`` for the kernels on ``device``: pointers
-    into an int32 table tensor and a float32 tensor
-    ``[ref_x | W0 | b0 | W1 | b1 ...]`` that ``keepalive`` holds."""
+    into an int32 table tensor, the coordination parameters and a float32
+    tensor ``[ref_x | W0 | b0 | W1 | b1 ...]`` that ``keepalive`` holds."""
     device = torch.device(device)
-    idx, offsets = _index_tables(spec, align_idx, device)
+    idx, offsets, par = _index_tables(spec, align_idx, device)
     with torch.no_grad():
         pieces = [torch.zeros(1, dtype=torch.float32, device=device)]
         if align_idx is not None:
@@ -425,6 +462,7 @@ def model_args(spec, align_idx, ref_x, params, activation, device):
     a.n_angles, a.n_bonds = spec.n_angles, spec.n_bonds
     a.n_dihedrals, a.n_pos = spec.n_dihedrals, spec.n_position_atoms
     a.n_align = len(align_idx) if align_idx is not None else 0
+    a.n_coord = spec.n_coordinations
     a.use_angle_value = int(spec.use_angle_value)
     a.n_feat = spec.out_dim
     a.has_perm = int(spec.perm is not None)
@@ -436,10 +474,11 @@ def model_args(spec, align_idx, ref_x, params, activation, device):
     base = idx.data_ptr()
     for name in _TABLES:
         setattr(a, name, base + 4 * offsets[name])
+    a.coord_par = par.data_ptr()
     fbase = floats.data_ptr() + 4  # past the leading pad element
     a.ref_x = fbase
     a.params = fbase + 4 * (3 * a.n_align)
-    return a, (idx, floats)
+    return a, (idx, par, floats)
 
 
 def _check_cuda_input(x):
@@ -629,10 +668,9 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     In the blocked formulation (``mode="blocked"``, or ``"auto"`` for a
     large system) ``x`` may also be ``[3n, l]`` or ``[3, n, l]``, and
     ``c_mat`` may carry the pair operand of :func:`model_chunk_matrix`. On
-    a CUDA tensor the blocked forward kernel (K6) runs and returns values
-    only: with gradients enabled and ``x``, a weight or ``ref_x`` requiring
-    grad it raises ``NotImplementedError`` (the blocked backward, K7, is
-    not ported)."""
+    a CUDA tensor the blocked forward kernel (K6) runs, and autograd then
+    runs the blocked backward kernel (K7) in the same way
+    (:func:`.fused_blocked.blocked_apply`)."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
     if _resolve_mode(spec, mode, c_mat) == "blocked":
@@ -755,11 +793,24 @@ def fused_train_grads(model, x, y_target, *, tile=None, interpret=False,
 
     On a CUDA tensor this launches the CUDA train kernel (K3); on a CPU
     tensor it runs :func:`train_grads_plain`. ``precision`` is resolved
-    with ``training=True`` and otherwise ignored."""
-    resolve_precision(precision, training=True)
+    with ``training=True`` and otherwise ignored.
+
+    In the blocked formulation (``mode="blocked"``, or ``"auto"`` for a
+    large system) the blocked train kernel (K5) runs instead
+    (:func:`.fused_blocked.blocked_train_grads`): ``x`` may be in any
+    layout it takes (``[3, n, l]`` too, the layout told from the shape),
+    ``y_target`` ``[l, d_out]`` or ``[d_out, l]``, and ``c_mat`` may carry
+    the pair operand of :func:`model_chunk_matrix`."""
+    precision = resolve_precision(precision, training=True)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
     if _resolve_mode(spec, mode, c_mat) == "blocked":
-        raise NotImplementedError(_BLOCKED_TRAIN_TODO)
+        from .fused_blocked import blocked_train_grads
+
+        loss, gparams, g_ref = blocked_train_grads(
+            spec, align_idx, activation, params, ref_x, x, y_target,
+            tile=tile, interpret=interpret, precision=precision,
+            train_ref=train_ref, c_mat=c_mat)
+        return loss, _grads_dict(model, params, gparams, ref_x, g_ref)
     _check_envelope(spec, params, activation)
     _check_device(x)
     n = spec.n_input_atoms

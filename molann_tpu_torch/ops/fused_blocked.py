@@ -1,20 +1,24 @@
 """The blocked fused formulation for large systems: CUDA kernels, their
 host-side layout compiler and their plain versions.
 
-Port of the serving half of ``molann_tpu/ops/fused_blocked.py``:
+Port of ``molann_tpu/ops/fused_blocked.py``:
 
-- :func:`blocked_apply` — values; on a CUDA tensor it launches the CUDA
-  kernel that replaces the Pallas ``_blk_fwd_kernel`` (K6). Forward only:
-  the blocked backward (K7) is not ported yet, so on the card it refuses
-  inputs that require grad;
+- :func:`blocked_apply` — values, differentiable with respect to x, the
+  MLP parameters and ``ref_x``; on a CUDA tensor it launches the CUDA
+  kernel that replaces the Pallas ``_blk_fwd_kernel`` (K6), and its
+  backward launches the one that replaces ``_blk_bwd_kernel`` (K7);
 - :func:`blocked_cv_forces` — values and coordinate gradients in one pass;
   on a CUDA tensor it launches the CUDA kernel that replaces
-  ``_blk_cv_forces_kernel`` (K8).
+  ``_blk_cv_forces_kernel`` (K8);
+- :func:`blocked_train_grads` — the MSE loss and its parameter gradients in
+  one pass; on a CUDA tensor it launches the CUDA kernel that replaces
+  ``_blk_train_kernel`` (K5).
 
-Both kernels live in ``csrc/fused_blocked.cu`` over the per-block phases of
+The kernels live in ``csrc/fused_blocked.cu`` over the per-block phases of
 ``csrc/blocked_math.cuh``. Beside them are the plain PyTorch versions
-:func:`blocked_forward_plain` and :func:`blocked_cv_forces_plain`, which a
-wrapper takes only for a CPU tensor.
+:func:`blocked_forward_plain`, :func:`blocked_backward_plain`,
+:func:`blocked_cv_forces_plain` and :func:`blocked_train_grads_plain`, which
+a wrapper takes only for a CPU tensor.
 
 What the JAX module does with matrices, this one does with index tables. A
 :class:`BlockedLayout` keeps the names a reader of the JAX module looks for
@@ -30,9 +34,11 @@ partners]`` that may hold millions of pairs.
 The kernels choose their own tile (:func:`choose_frames`): the ``tile``
 that the fused ops and ``evaluate_trajectory`` accept for the JAX signature
 sets the TPU kernels' VMEM tiling and changes nothing here. ``precision``
-is validated and otherwise ignored: it selects the passes of the TPU's edge
-matmul, which a direct f32 gather does not have, and f32 is inside every
-mode's error budget (docs/design.md:296-300).
+is validated and otherwise ignored, on the training paths too: it selects
+the passes of the TPU's edge matmul, which a direct f32 gather does not
+have, and f32 is inside every mode's error budget (docs/design.md:296-300).
+``probes/edge_mm_probe.py`` measures the tensor-core forms of that product
+against the gather.
 """
 
 from __future__ import annotations
@@ -51,8 +57,11 @@ __all__ = [
     "chunk_matrix",
     "blocked_apply",
     "blocked_cv_forces",
+    "blocked_train_grads",
     "blocked_forward_plain",
+    "blocked_backward_plain",
     "blocked_cv_forces_plain",
+    "blocked_train_grads_plain",
     "gradient_jump_slack",
 ]
 
@@ -62,22 +71,19 @@ __all__ = [
 COORD_RESIDENT_MAX = 512
 # Mirrors of csrc/blocked_math.cuh, checked against the built library.
 BLK_MAX_LAYERS = 8
-BLK_COORD_FLOATS = 20
+BLK_COORD_FLOATS = _F.COORD_FLOATS
 BLK_THREADS = 256
-# Shared memory a block may use (227 KB), and a quarter of an SM's, at
-# which four blocks are resident and hide each other's barriers.
+BLK_GRAD_BLOCKS = 528
+# Shared memory a block may use (227 KB), and a quarter and a half of an
+# SM's, at which four and two blocks are resident and hide each other's
+# barriers.
 _SMEM_MAX = 232448
 _SMEM_QUARTER = 56 * 1024
+_SMEM_HALF = 113 * 1024
 # Blocks a launch should have before its tile grows: about one per SM.
 _MIN_BLOCKS = 128
 # Floats of one [frames, pairs, 3] intermediate of the plain versions.
 _PLAIN_SLICE_FLOATS = 1 << 25
-
-_K7_TODO = ("the blocked backward kernel (K7) is not ported to "
-            "molann_tpu_torch yet (ROADMAP.md, queue 1): on a CUDA tensor "
-            "fused_model_forward(mode='blocked') computes values only; call "
-            "it under torch.no_grad(), or use fused_cv_forces for "
-            "coordinate gradients")
 
 
 class BlockedLayout:
@@ -187,21 +193,7 @@ class BlockedLayout:
         self.tables = {k: np.ascontiguousarray(v, dtype=np.int32).reshape(-1)
                        for k, v in self.tables.items()}
 
-        boxes = spec.coord_boxes or (None,) * n_coord
-        dmaxs = spec.coord_dmax or (None,) * n_coord
-        par = np.zeros((n_coord, BLK_COORD_FLOATS), dtype=np.float32)
-        for k, ((r0, nn, mm), box, dmax) in enumerate(
-                zip(spec.coord_params, boxes, dmaxs)):
-            par[k, 0:3] = (r0, nn, mm)
-            if dmax is not None:
-                y = float(dmax) / float(r0)
-                s_dmax = (1.0 - y**nn) / (1.0 - y**mm)
-                par[k, 3:7] = (1.0, dmax, s_dmax, 1.0 / (1.0 - s_dmax))
-            if box is not None:
-                par[k, 7] = 1.0
-                par[k, 8:11] = [1.0 / box[i][i] for i in range(3)]
-                par[k, 11:20] = np.asarray(box, dtype=np.float64).reshape(9)
-        self.coord_par = par.reshape(-1)
+        self.coord_par = _F.coord_parameters(spec).reshape(-1)
         self._on_device: dict = {}  # device tensors, built once per device
 
     @property
@@ -339,6 +331,55 @@ def blocked_cv_forces_plain(spec, align_idx, ref_x, params, activation, x,
     if len(outs) == 1:
         return outs[0]
     return torch.cat([y for y, _ in outs]), torch.cat([g for _, g in outs])
+
+
+def _sum_grads(total, part):
+    """Add one slice's ``(gparams, g_ref)`` to the running total."""
+    if total is None:
+        return part
+    gparams = tuple((gw + hw, gb + hb)
+                    for (gw, gb), (hw, hb) in zip(total[0], part[0]))
+    g_ref = None if total[1] is None else total[1] + part[1]
+    return gparams, g_ref
+
+
+def blocked_backward_plain(spec, align_idx, ref_x, params, activation, x,
+                           gy):
+    """The plain version of the blocked backward kernel: autograd of
+    :func:`blocked_forward_plain` given the cotangent ``gy [l, d_out]``, a
+    slice of frames at a time. Returns ``(gx [l, n, 3], gparams, g_ref)``
+    as :func:`.fused.backward_plain` does, summed over the frames."""
+    step = _frame_slice(spec)
+    gxs, total = [], None
+    for s in range(0, max(x.shape[0], 1), step):
+        gx, gparams, g_ref = _F.backward_plain(
+            spec, align_idx, ref_x, params, activation, x[s:s + step],
+            gy[s:s + step])
+        gxs.append(gx)
+        total = _sum_grads(total, (gparams, g_ref))
+    return (gxs[0] if len(gxs) == 1 else torch.cat(gxs)), *total
+
+
+def blocked_train_grads_plain(spec, align_idx, ref_x, params, activation, x,
+                              y_target, train_ref=False):
+    """The plain version of the blocked train kernel: ``loss = mean((
+    blocked_forward_plain(x) - y_target)**2)`` over ``x [l, n, 3]`` and
+    ``y_target [l, d_out]`` and autograd of it with respect to the
+    parameters (and ``ref_x`` when ``train_ref``), a slice of frames at a
+    time. Returns ``(loss, gparams, g_ref)`` as
+    :func:`.fused.train_grads_plain` does."""
+    step = _frame_slice(spec)
+    inv_count = 1.0 / float(y_target.numel())
+    loss, total = None, None
+    for s in range(0, x.shape[0], step):
+        yt = y_target[s:s + step]
+        part, _, gparams, g_ref = _F._plain_grads(
+            spec, align_idx, ref_x, params, activation, x[s:s + step],
+            lambda y, yt=yt: ((y - yt.to(y.dtype)) ** 2).sum() * inv_count,
+            False, train_ref)
+        loss = part if loss is None else loss + part
+        total = _sum_grads(total, (gparams, g_ref))
+    return loss, *total
 
 
 def gradient_jump_slack(spec, params, x, tol=4e-6):
@@ -515,7 +556,13 @@ class BlockedIO(ctypes.Structure):
         ("y_sf", ctypes.c_longlong), ("y_sj", ctypes.c_longlong),
         ("g_sf", ctypes.c_longlong), ("g_sa", ctypes.c_longlong),
         ("g_sc", ctypes.c_longlong),
-        ("component", ctypes.c_int),
+        ("component", ctypes.c_int), ("want_ref", ctypes.c_int),
+        ("gy", ctypes.c_void_p),
+        ("gy_sf", ctypes.c_longlong), ("gy_sj", ctypes.c_longlong),
+        ("y_target", ctypes.c_void_p),
+        ("t_sf", ctypes.c_longlong), ("t_sj", ctypes.c_longlong),
+        ("inv_count", ctypes.c_float), ("acc_global", ctypes.c_int),
+        ("partials", ctypes.c_void_p),
     ]
 
 
@@ -555,19 +602,6 @@ def check_blocked_envelope(params, activation):
     if len(params) > BLK_MAX_LAYERS:
         raise ValueError(f"the blocked CUDA kernels take at most "
                          f"{BLK_MAX_LAYERS} Linear layers; got {len(params)}")
-
-
-def refuse_blocked_grad(x, ref_x, params):
-    """Raise unless the forward may run without a graph: the blocked
-    backward kernel does not exist yet, and a result that silently lacks
-    its graph would train nothing."""
-    if not torch.is_grad_enabled():
-        return
-    tensors = [x, *(t for wb in params for t in wb)]
-    if ref_x is not None:
-        tensors.append(ref_x)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(_K7_TODO)
 
 
 def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
@@ -628,7 +662,8 @@ def blocked_io(x, x_strides, l, y, y_strides, gx, g_strides, component):
     """A call's :class:`BlockedIO`: pointers, frame count, strides in
     floats, and the component (None = the sum of the outputs)."""
     io = BlockedIO()
-    io.x, io.y, io.l = x.data_ptr(), y.data_ptr(), l
+    io.x, io.l = x.data_ptr(), l
+    io.y = y.data_ptr() if y is not None else None
     io.gx = gx.data_ptr() if gx is not None else None
     io.x_sf, io.x_sa, io.x_sc = x_strides
     io.y_sf, io.y_sj = y_strides
@@ -637,34 +672,54 @@ def blocked_io(x, x_strides, l, y, y_strides, gx, g_strides, component):
     return io
 
 
+def blocked_grads_io(kind, x, x_strides, l, aux, aux_strides, gx, g_strides,
+                     want_ref, inv_count, acc_global, partials):
+    """The :class:`BlockedIO` of a backward (``aux`` = gy) or train
+    (``aux`` = y_target) call."""
+    io = blocked_io(x, x_strides, l, None, (0, 0), gx, g_strides, None)
+    if kind == "blocked_train":
+        io.y_target = aux.data_ptr()
+        io.t_sf, io.t_sj = aux_strides
+    else:
+        io.gy = aux.data_ptr()
+        io.gy_sf, io.gy_sj = aux_strides
+    io.want_ref, io.inv_count = int(want_ref), inv_count
+    io.acc_global, io.partials = int(acc_global), partials.data_ptr()
+    return io
+
+
 def _library():
     """The built kernel library, after checking that it was compiled with
     the caps and struct layouts this module assumes."""
     lib = _F._library()
-    caps = (ctypes.c_int * 5)()
+    caps = (ctypes.c_int * 6)()
     lib.molann_blocked_caps(caps)
     want = [BLK_MAX_LAYERS, BLK_COORD_FLOATS, BLK_THREADS,
-            ctypes.sizeof(BlockedArgs), ctypes.sizeof(BlockedIO)]
+            ctypes.sizeof(BlockedArgs), ctypes.sizeof(BlockedIO),
+            BLK_GRAD_BLOCKS]
     if list(caps) != want:
         raise RuntimeError(f"kernel library caps {list(caps)} do not match "
                            f"ops/fused_blocked.py {want}")
     return lib
 
 
-def choose_frames(smem_bytes, l=None):
+def choose_frames(smem_bytes, l=None, backward=False):
     """Frames per block (a power of two) given ``smem_bytes(frames) ->
     bytes``: 32, 16 or 8 while four blocks fit on an SM, else the most that
     fit in one block's 227 KB; halved while a batch of ``l`` frames would
     leave most SMs without a block, so that a small batch spreads its pairs
-    and features over more threads. (The tile sets the order of the
-    switching sums: a frame's low bits may differ between batch sizes,
-    never between two calls on the same batch.) Raises when one frame does
-    not fit."""
+    and features over more threads. ``backward``: the backward and train
+    kernels keep a block's running gradient sums beside the tile, a part
+    that does not shrink with the tile; where four blocks do not fit they
+    take 32, 16 or 8 frames with two blocks on an SM before one block's 227
+    KB. (The tile sets the order of the sums: a frame's low bits may differ
+    between batch sizes, never between two calls on the same batch.) Raises
+    when one frame does not fit."""
     frames = None
-    for cand in (32, 16, 8):
-        if smem_bytes(cand) <= _SMEM_QUARTER:
-            frames = cand
-            break
+    for share in (_SMEM_QUARTER, _SMEM_HALF) if backward else (_SMEM_QUARTER,):
+        for cand in (32, 16, 8):
+            if frames is None and smem_bytes(cand) <= share:
+                frames = cand
     if frames is None:
         for cand in (32, 16, 8, 4, 2, 1):
             if smem_bytes(cand) <= _SMEM_MAX:
@@ -707,8 +762,49 @@ def _launch(kind, lay, ref_x, params, activation, x, tag, l, y, y_strides,
     _F.KERNEL_LAUNCHES[kind] += 1
 
 
-def _prepare(spec, align_idx, params, activation, x, precision, c_mat):
-    _F.resolve_precision(precision, training=False)
+def _launch_grads(kind, lay, ref_x, params, activation, x, tag, l, aux,
+                  aux_strides, gx, g_strides, want_ref, inv_count, pair_op):
+    """Launch the backward (``aux`` = gy) or train (``aux`` = y_target)
+    kernel and its column-wise reduction on the current stream and count
+    it. Returns ``out [1 + G]``: the loss (0 for the backward) and the flat
+    gradients ``[ref_x | W0 | b0 ...]`` summed over the frames."""
+    lib = _library()
+    dev = x.device
+    args, keep = blocked_args(lay, ref_x, params, activation, pair_op, dev)
+    width = 1 + _F._grad_width(lay.align_idx if lay.has_align else None,
+                               params)
+    # sums that would take more than half a block's shared memory stay in
+    # the block's row of partials in device memory
+    acc_global = 4 * width > _SMEM_MAX // 2
+
+    def smem_bytes(frames):
+        args.frames, args.pitch = frames, frames | 1
+        return lib.molann_blocked_smem_bytes(ctypes.addressof(args),
+                                             3 if acc_global else 2)
+
+    frames = choose_frames(smem_bytes, l, backward=True)
+    args.frames, args.pitch = frames, frames | 1
+    rows = lib.molann_blocked_partial_rows(ctypes.addressof(args), l)
+    partials = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    out = torch.empty(width, dtype=torch.float32, device=dev)
+    io = blocked_grads_io(kind, x, _strides(tag, lay.n_atoms, l), l, aux,
+                          aux_strides, gx, g_strides, want_ref, inv_count,
+                          acc_global, partials)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = (lib.molann_blocked_train if kind == "blocked_train"
+          else lib.molann_blocked_backward)
+    rc = fn(ctypes.addressof(args), ctypes.addressof(io), out.data_ptr(),
+            dev.index, stream)
+    del keep, partials  # the caching allocator orders reuse on this stream
+    if rc != 0:
+        raise RuntimeError(f"CUDA {kind} kernel launch failed: cudaError {rc}")
+    _F.KERNEL_LAUNCHES[kind] += 1
+    return out
+
+
+def _prepare(spec, align_idx, params, activation, x, precision, c_mat,
+             training=False):
+    _F.resolve_precision(precision, training=training)
     check_blocked_envelope(params, activation)
     _F._check_device(x)
     lay = blocked_layout(spec, align_idx)
@@ -719,15 +815,52 @@ def _prepare(spec, align_idx, params, activation, x, precision, c_mat):
     return lay, tag, l, pair_op
 
 
+class _BlockedApply(torch.autograd.Function):
+    """The blocked forward kernel with the blocked backward kernel as its
+    VJP: the port of the ``blocked_apply`` custom VJP
+    (``molann_tpu/ops/fused_blocked.py:1756-1797``). Inputs are the frames
+    in their own layout, ``ref_x`` (or None) and each ``W_i``, ``b_i`` on
+    its own, so that autograd reaches the ``nn.Parameter``s; gradients
+    nobody asked for are not computed. The pair operand rides in
+    ``statics`` and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, statics, x, ref_x, *flat):
+        lay, activation, tag, l, pair_op = statics
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        ctx.statics = statics
+        ctx.save_for_backward(x, ref_x, *flat)
+        return _kernel_forward(lay, ref_x, params, activation, x, tag, l,
+                               pair_op)
+
+    @staticmethod
+    @_F.once_differentiable
+    def backward(ctx, gy):
+        lay, activation, tag, l, pair_op = ctx.statics
+        x, ref_x, *flat = ctx.saved_tensors
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        want_ref = lay.has_align and ctx.needs_input_grad[2]
+        gx, gparams, g_ref = _kernel_backward(
+            lay, ref_x, params, activation, x, tag, l, gy,
+            ctx.needs_input_grad[1], want_ref, pair_op)
+        if ctx.needs_input_grad[2] and not want_ref:
+            g_ref = torch.zeros_like(ref_x)  # alignment that no feature reads
+        return (None, gx, g_ref if ctx.needs_input_grad[2] else None,
+                *(g for wb in gparams for g in wb))
+
+
 def blocked_apply(spec, align_idx, activation, params, ref_x, x, *,
                   precision="exact", c_mat=None):
     """The blocked fused forward: ``x`` in any layout :func:`_classify`
-    takes ``→ [l, d_out]`` (final feature order when there is no MLP).
+    takes ``→ [l, d_out]`` (final feature order when there is no MLP),
+    differentiable with respect to x, the MLP parameters and ``ref_x``
+    (``c_mat`` is a constant).
 
-    On a CUDA tensor this launches the blocked forward kernel (K6) and
-    returns values only: it raises ``NotImplementedError`` when gradients
-    are enabled and ``x``, a weight or ``ref_x`` requires grad, because the
-    blocked backward kernel (K7) is not ported. On a CPU tensor it runs
+    On a CUDA tensor this launches the blocked forward kernel (K6);
+    autograd then runs the blocked backward kernel (K7), which computes
+    only the gradients asked for: gx (shaped like ``x``) only when ``x``
+    requires grad, the ``ref_x`` gradient only when ``ref_x`` does. Under
+    ``torch.no_grad()`` only K6 runs. On a CPU tensor it runs
     :func:`blocked_forward_plain`, which autograd differentiates."""
     lay, tag, l, pair_op = _prepare(spec, align_idx, params, activation, x,
                                     precision, c_mat)
@@ -735,8 +868,8 @@ def blocked_apply(spec, align_idx, activation, params, ref_x, x, *,
     if x.device.type == "cpu":
         return blocked_forward_plain(spec, align_idx, ref_x, params,
                                      activation, _as_lnd(x, tag, n, l))
-    refuse_blocked_grad(x, ref_x if lay.has_align else None, params)
-    return _kernel_forward(lay, ref_x, params, activation, x, tag, l, pair_op)
+    return _BlockedApply.apply((lay, activation, tag, l, pair_op), x, ref_x,
+                               *(t for wb in params for t in wb))
 
 
 def _kernel_forward(lay, ref_x, params, activation, x, tag, l, pair_op):
@@ -747,6 +880,96 @@ def _kernel_forward(lay, ref_x, params, activation, x, tag, l, pair_op):
         _launch("blocked_forward", lay, ref_x, params, activation, x, tag, l,
                 y, (d_out, 1), None, (0, 0, 0), None, pair_op, False)
     return y
+
+
+def _kernel_backward(lay, ref_x, params, activation, x, tag, l, gy, want_gx,
+                     want_ref, pair_op):
+    """Allocate gx in the layout of ``x`` (when wanted) and launch the
+    backward kernel. Returns ``(gx or None, gparams, g_ref or None)``."""
+    n = lay.n_atoms
+    d_out = _F._out_dim(lay.spec, params)
+    gy = gy.to(torch.float32).contiguous()
+    gx = None
+    if want_gx:
+        gx = (torch.empty if l else torch.zeros)(
+            _g_shape(tag, n, l), dtype=torch.float32, device=x.device)
+    align = lay.align_idx if lay.has_align else None
+    if l == 0:
+        out = torch.zeros(1 + _F._grad_width(align, params),
+                          dtype=torch.float32, device=x.device)
+    else:
+        out = _launch_grads("blocked_backward", lay, ref_x, params,
+                            activation, x, tag, l, gy, (d_out, 1), gx,
+                            _strides(tag, n, l) if want_gx else (0, 0, 0),
+                            want_ref, 0.0, pair_op)
+    gparams, g_ref = _F._unpack_grads(out[1:], align, ref_x, params)
+    return gx, gparams, g_ref if want_ref else None
+
+
+def blocked_train_grads(spec, align_idx, activation, params, ref_x, x,
+                        y_target, *, tile=None, interpret=False,
+                        precision="exact", train_ref=False, c_mat=None):
+    """The blocked single-kernel MSE training gradients: ``x`` in any layout
+    :func:`_classify` takes, ``y_target`` ``[l, d_out]`` or ``[d_out, l]``.
+    Returns ``(loss, gparams, g_ref)``: ``loss = mean((model(x) -
+    y_target)**2)`` as a 0-d tensor, ``gparams`` as ``(gW [d_out, d_in], gb
+    [d_out])`` per layer, ``g_ref`` shaped like ``ref_x`` (zeros unless
+    ``train_ref``; None for a model without alignment). Needs an MLP head:
+    a bare feature layer has nothing to train. ``c_mat`` is the pair
+    operand of :func:`chunk_matrix`.
+
+    On a CUDA tensor this launches the blocked train kernel (K5): no
+    coordinate gradient, no feature adjoints and, with
+    ``train_ref=False``, no QCP backward either. On a CPU tensor it runs
+    :func:`blocked_train_grads_plain`. ``tile`` and ``interpret`` are
+    accepted for the JAX signature and change nothing. ``precision`` is
+    validated (``"auto"`` means ``"tf32"`` on a training path) and the
+    kernel computes in f32 for every name, which is inside each mode's
+    error budget (docs/design.md:296-300)."""
+    if not params:
+        raise ValueError("blocked_train_grads requires an MLP head")
+    lay, tag, l, pair_op = _prepare(spec, align_idx, params, activation, x,
+                                    precision, c_mat, training=True)
+    n = lay.n_atoms
+    d_out = _F._out_dim(spec, params)
+    if tuple(y_target.shape) == (l, d_out):
+        t_strides, yt = (d_out, 1), y_target
+    elif tuple(y_target.shape) == (d_out, l):
+        t_strides, yt = (1, l), y_target.T
+    else:
+        raise ValueError(f"y_target must be [{l}, {d_out}] or [{d_out}, "
+                         f"{l}], got {list(y_target.shape)}")
+    if l == 0:
+        raise ValueError("blocked_train_grads needs at least one frame")
+    if y_target.device != x.device:
+        raise ValueError(f"y_target is on {y_target.device}, x on {x.device}")
+    train_ref = bool(train_ref) and lay.has_align
+
+    if x.device.type == "cpu":
+        loss, gparams, g_ref = blocked_train_grads_plain(
+            spec, align_idx, ref_x, params, activation,
+            _as_lnd(x, tag, n, l), yt, train_ref)
+    else:
+        _F._check_cuda_input(y_target)
+        loss, gparams, g_ref = _kernel_train(
+            lay, ref_x, params, activation, x, tag, l, y_target, t_strides,
+            train_ref, pair_op)
+    if g_ref is None and ref_x is not None:
+        g_ref = torch.zeros_like(ref_x)  # alignment that no feature reads
+    return loss, gparams, g_ref
+
+
+def _kernel_train(lay, ref_x, params, activation, x, tag, l, y_target,
+                  t_strides, train_ref, pair_op):
+    """Launch the train kernel on ``y_target`` with strides ``t_strides``
+    of (frame, column). Returns ``(loss, gparams, g_ref or None)``."""
+    d_out = _F._out_dim(lay.spec, params)
+    out = _launch_grads("blocked_train", lay, ref_x, params, activation, x,
+                        tag, l, y_target, t_strides, None, (0, 0, 0),
+                        train_ref, 1.0 / (float(l) * float(d_out)), pair_op)
+    gparams, g_ref = _F._unpack_grads(
+        out[1:], lay.align_idx if lay.has_align else None, ref_x, params)
+    return out[0], gparams, g_ref
 
 
 def blocked_cv_forces(spec, align_idx, activation, params, ref_x, x, *,

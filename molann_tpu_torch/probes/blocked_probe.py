@@ -1,9 +1,9 @@
 """Where the blocked kernels' time goes, measured on one CUDA card.
 
-    python -m molann_tpu_torch.probes.blocked_probe [phases] [tiles] [scaling]
+    python -m molann_tpu_torch.probes.blocked_probe [phases] [tiles] [scaling] [grads]
 
-With no argument all three parts run (about two minutes on an H100, most
-of it ``nvcc``). Every time is the mean CUDA-event time of one call after
+With no argument the first three parts run (about two minutes on an H100,
+most of it ``nvcc``). Every time is the mean CUDA-event time of one call after
 two warm-up calls, on ``peptide_model(60)`` and ``lj_fluid_model(5)`` with
 weights from seed 0 and frames from seed 2.
 
@@ -16,6 +16,10 @@ weights from seed 0 and frames from seed 2.
   wrapper call on 8 frames, ``x.sum()`` and ``x.clone()`` on the peptide
   batch as yardsticks of reading and of reading and writing 236 MB, and
   ``torch.profiler``'s kernel times by name.
+- ``grads`` (only when named): the backward (K7, as ``torch.autograd.grad``
+  through a retained graph) and train (K5) kernels on 65,536 frames of both
+  models, as built and with the 64-register variant for models that fit
+  four blocks on an SM taken out (a patched copy of ``csrc/``), in turns.
 
 A development script: nothing in the package imports it. It rebuilds the
 kernels from patched copies of ``csrc/`` and forces tiles by patching
@@ -95,6 +99,39 @@ def phases(peptide, xp):
             prev6, prev8 = t6, t8
 
 
+FOUR_BLOCKS = "return smem <= 56 * 1024 ?"
+
+
+def grads(models):
+    """K7 and K5 as built, and without the four-blocks-an-SM variant."""
+    src_dir = _build.SRC_DIR
+    text = (src_dir / "fused_blocked.cu").read_text()
+    if FOUR_BLOCKS not in text:
+        raise SystemExit("launch_grads no longer reads as this probe expects")
+    with tempfile.TemporaryDirectory() as tmp:
+        cut = Path(tmp) / "csrc_two_blocks"
+        shutil.copytree(src_dir, cut)
+        (cut / "fused_blocked.cu").write_text(
+            text.replace(FOUR_BLOCKS, "return false ?"))
+        for tag, src in (("as built", src_dir), ("two blocks", cut),
+                         ("two blocks", cut), ("as built", src_dir)):
+            with mock.patch.multiple(_build, SRC_DIR=src, _lib=None):
+                for name, (model, x) in models.items():
+                    spec, _, _, params, _ = F._extract_model(model)
+                    d = F._out_dim(spec, params)
+                    gy = torch.as_tensor(np.random.default_rng(17).normal(
+                        size=(x.shape[0], d)).astype(np.float32),
+                        device=x.device)
+                    xg = x.clone().requires_grad_(True)
+                    yk = F.fused_model_forward(model, xg)
+                    leaves = [xg, *model.parameters()]
+                    t7 = cuda_ms(lambda: torch.autograd.grad(
+                        yk, leaves, gy, retain_graph=True))
+                    t5 = cuda_ms(lambda: F.fused_train_grads(model, x, gy))
+                    print(f"grads: {name}, {tag}: K7 {t7:.4f} ms, K5 "
+                          f"{t5:.4f} ms", flush=True)
+
+
 def tiles(models):
     for n_frames in (None, 32, 16, 8, 4):
         forced = (mock.patch.object(
@@ -172,6 +209,8 @@ def main(argv):
         tiles(models)
     if "scaling" in parts:
         scaling(models, dev)
+    if "grads" in parts:
+        grads(models)
 
 
 if __name__ == "__main__":

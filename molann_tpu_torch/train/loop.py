@@ -118,10 +118,12 @@ def make_fused_train_step(mesh=None, *, tile=None, transposed_input=False,
 
     Like :func:`make_train_step` with ``loss_fn=mse_loss``, but the loss
     AND the gradients come from :func:`~molann_tpu_torch.ops.fused.fused_train_grads`
-    (on the card: one launch of the train kernel, no coordinate
+    (on the card: one launch of the train kernel, the unrolled or the
+    blocked one by the system's size under ``mode="auto"``, no coordinate
     gradients). Batch = ``(x, y)``; with ``transposed_input``, ``x [3n, l]``
-    and ``y [d, l]``. ``precision`` is resolved for training and otherwise
-    ignored, as in the unrolled TPU kernels."""
+    and ``y [d, l]``. A blocked system's pair operand is built from the
+    model and cached. ``precision`` is resolved for training and otherwise
+    ignored: the kernels compute in f32."""
     _check_mesh(mesh)
 
     def step(model, opt, batch):

@@ -24,8 +24,8 @@ def mse_loss(model, batch):
 
 def fused_mse_loss(model, batch, *, interpret=False):
     """:func:`mse_loss` through the fused path: on the card the forward
-    kernel, and under autograd the backward kernel. x may be packed ``[l,
-    3n]``."""
+    kernel, and under autograd the backward kernel (the unrolled or the
+    blocked pair, by the system's size). x may be packed ``[l, 3n]``."""
     x, y = batch
     pred = fused_model_forward(model, x, interpret=interpret)
     return torch.mean((pred - y) ** 2)

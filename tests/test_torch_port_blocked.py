@@ -338,25 +338,33 @@ def test_modes_precision_and_refusals(tmp_path):
         F.fused_cv_forces(tm, x, precision="fp8")
     with pytest.raises(ValueError, match="precision"):
         F.fused_model_forward(tm, x, precision="fp8")
-    with pytest.raises(NotImplementedError, match="K5"):
-        F.fused_train_grads(tm, x, torch.zeros(3, 2))
-    assert set(F.KERNEL_LAUNCHES) >= {"blocked_forward", "blocked_cv_forces"}
-    assert not any(F.KERNEL_LAUNCHES[k] for k in ("blocked_forward",
-                                                  "blocked_cv_forces"))
-    # on the CPU the plain forward is differentiable
+    # training: the loss and the gradients of an MSE through the eager model
+    yt = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 2)).astype(np.float32))
+    loss, grads = F.fused_train_grads(tm, x, yt)
+    tm.zero_grad()
+    ((tm(x) - yt) ** 2).mean().backward()
+    np.testing.assert_allclose(float(loss),
+                               float(((tm(x) - yt) ** 2).mean().detach()),
+                               rtol=1e-5)
+    for name, p in tm.named_parameters():
+        close_grads(grads[name], p.grad)
+    assert set(F.KERNEL_LAUNCHES) >= {"blocked_forward", "blocked_cv_forces",
+                                      "blocked_backward", "blocked_train"}
+    assert not any(F.KERNEL_LAUNCHES[k] for k in (
+        "blocked_forward", "blocked_cv_forces", "blocked_backward",
+        "blocked_train"))
+    # the forward is differentiable, with respect to x and to the weights
     xg = x.clone().requires_grad_(True)
+    tm.zero_grad()
     F.fused_model_forward(tm, xg).sum().backward()
     close_grads(xg.grad, g0)
-    # the refusal the CUDA path makes before it launches
-    params = tuple((lin.weight, lin.bias) for lin in tm.ann_layers.layers)
-    with pytest.raises(NotImplementedError, match="K7"):
-        FB.refuse_blocked_grad(x, None, params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FB.refuse_blocked_grad(xg, None, ())
-    with torch.no_grad():
-        FB.refuse_blocked_grad(xg, None, params)
-    FB.refuse_blocked_grad(x, None, tuple((w.detach(), b.detach())
-                                          for w, b in params))
+    assert all(p.grad is not None and p.grad.abs().max() > 0
+               for p in tm.parameters())
+    with pytest.raises(ValueError, match="MLP head"):
+        F.fused_train_grads(tm.preprocessing_layer, x, torch.zeros(3, 355))
+    with pytest.raises(ValueError, match="y_target"):
+        F.fused_train_grads(tm, x, torch.zeros(4, 2))
     with pytest.raises(ValueError, match="at most"):
         FB.check_blocked_envelope(((x, x),) * 9, "tanh")
     with pytest.raises(NotImplementedError, match="gelu"):

@@ -9,9 +9,13 @@ threads of each phase in loops, with the shared memory of a block filled
 with NaN first so that a read of a row nobody wrote shows. The outputs are
 held against the plain PyTorch versions over the models, layouts, tile
 sizes and options the kernels take, so index-table, stride and adjoint
-faults show before any GPU time is spent. Tolerances: values 1e-5 abs
+faults show before any GPU time is spent. The backward and train kernels
+are walked the same way: a grid of a few blocks, each over its tiles in
+order with its running sums, then the column-wise reduction in the
+kernel's order, twice, with equal bits. Tolerances: values 1e-5 abs
 (5e-5 for sums over thousands of pairs); gradients 5e-5·max(1, max|g|)
-(tests/test_fused_blocked.py:83-95, tests/test_condensed.py:101-118).
+(tests/test_fused_blocked.py:83-95, tests/test_condensed.py:101-118); the
+loss 1e-5 relative.
 """
 
 import ctypes
@@ -49,13 +53,15 @@ HOST_SRC = r"""
 #include <vector>
 
 #include "blocked_math.cuh"
+#include "reduce_partials.cuh"
 
 extern "C" void host_blk_caps(int* out) {
   out[0] = MOLANN_BLK_MAX_LAYERS;
-  out[1] = MOLANN_BLK_COORD_FLOATS;
+  out[1] = MOLANN_COORD_FLOATS;
   out[2] = MOLANN_BLK_THREADS;
   out[3] = (int)sizeof(BlockedArgs);
   out[4] = (int)sizeof(BlockedIO);
+  out[5] = MOLANN_BLK_GRAD_BLOCKS;
 }
 
 extern "C" long long host_blk_smem_bytes(const BlockedArgs* m, int nt, int forces) {
@@ -79,6 +85,52 @@ extern "C" void host_blk_run(const BlockedArgs* m, const BlockedIO* io, int nt,
       }
   }
 }
+
+extern "C" long long host_blk_grad_smem_bytes(const BlockedArgs* m, int nt, int acc_global) {
+  return (long long)blk_grad_smem(*m, nt, acc_global != 0).total * (long long)sizeof(float);
+}
+
+extern "C" long long host_blk_grad_rows(const BlockedArgs* m, long long l) {
+  return blk_grad_blocks(*m, l);
+}
+
+template <bool kTrain, bool kAligned>
+static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int nt,
+                      int n_blocks) {
+  const int width = 1 + blk_grad_size(m);
+  const BlkSmem so = blk_grad_smem(m, nt, io.acc_global != 0);
+  std::vector<float> sm(so.total);
+  const long long tiles = (io.l + m.frames - 1) / m.frames;
+  const int n_phases = blk_grad_n_phases(m);
+  for (int b = 0; b < n_blocks; ++b) {
+    for (float& v : sm) v = NAN;
+    float* row = io.partials + (long long)b * width;
+    float* acc = io.acc_global ? row : sm.data() + so.acc;
+    for (int tid = 0; tid < nt; ++tid) blk_grad_begin(m, acc, tid, nt);
+    for (long long tile = b; tile < tiles; tile += n_blocks)
+      for (int ph = 0; ph < n_phases; ++ph)
+        for (int tid = 0; tid < nt; ++tid)
+          blk_grad_phase<kTrain, kAligned>(m, io, sm.data(), so, acc, tile, ph, tid, nt);
+    if (!io.acc_global)
+      for (int e = 0; e < width; ++e) row[e] = acc[e];
+  }
+  for (int c = 0; c < width; ++c) {  // reduce_partials, in its order
+    float tot = reduce_rows(io.partials, n_blocks, width, c, 0);
+    for (int y = 1; y < MOLANN_REDUCE_LANES; ++y)
+      tot += reduce_rows(io.partials, n_blocks, width, c, y);
+    out[c] = tot;
+  }
+}
+
+// The backward (train = 0) or train kernel as a grid of n_blocks blocks.
+extern "C" void host_blk_grads(const BlockedArgs* m, const BlockedIO* io, float* out, int nt,
+                               int train, int n_blocks) {
+  const bool al = blk_aligned(*m);
+  if (train && al) run_grads<true, true>(*m, *io, out, nt, n_blocks);
+  else if (train) run_grads<true, false>(*m, *io, out, nt, n_blocks);
+  else if (al) run_grads<false, true>(*m, *io, out, nt, n_blocks);
+  else run_grads<false, false>(*m, *io, out, nt, n_blocks);
+}
 """
 
 
@@ -99,11 +151,16 @@ def host(tmp_path_factory):
     h.host_blk_smem_bytes.argtypes = [vp, i32, i32]
     h.host_blk_smem_bytes.restype = ctypes.c_longlong
     h.host_blk_run.argtypes = [vp, vp, i32, i32]
-    caps = (ctypes.c_int * 5)()
+    h.host_blk_grad_smem_bytes.argtypes = [vp, i32, i32]
+    h.host_blk_grad_smem_bytes.restype = ctypes.c_longlong
+    h.host_blk_grad_rows.argtypes = [vp, ctypes.c_longlong]
+    h.host_blk_grad_rows.restype = ctypes.c_longlong
+    h.host_blk_grads.argtypes = [vp, vp, vp, i32, i32, i32]
+    caps = (ctypes.c_int * 6)()
     h.host_blk_caps(caps)
     assert list(caps) == [FB.BLK_MAX_LAYERS, FB.BLK_COORD_FLOATS,
                           FB.BLK_THREADS, ctypes.sizeof(FB.BlockedArgs),
-                          ctypes.sizeof(FB.BlockedIO)]
+                          ctypes.sizeof(FB.BlockedIO), FB.BLK_GRAD_BLOCKS]
     return h
 
 
@@ -317,3 +374,275 @@ def test_layouts(host, layout, out_layout):
         y_std, g_std = y.T, g.permute(2, 1, 0)
     np.testing.assert_array_equal(y_std.numpy(), y0.numpy())
     np.testing.assert_array_equal(g_std.numpy(), g0.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The backward and train kernels
+# ---------------------------------------------------------------------------
+
+
+def host_launch_grads(host, frames, threads, n_blocks, acc_global):
+    """A stand-in for ``fused_blocked._launch_grads`` that walks a grid of
+    ``n_blocks`` blocks on the host, then the reduction."""
+    def launch(kind, lay, ref_x, params, activation, x, tag, l, aux,
+               aux_strides, gx, g_strides, want_ref, inv_count, pair_op):
+        args, keep = FB.blocked_args(lay, ref_x, params, activation, pair_op,
+                                     "cpu")
+        args.frames, args.pitch = frames, frames | 1
+        assert host.host_blk_grad_smem_bytes(ctypes.addressof(args), threads,
+                                             int(acc_global)) > 0
+        assert host.host_blk_grad_rows(ctypes.addressof(args), l) == min(
+            -(-l // frames), FB.BLK_GRAD_BLOCKS)
+        width = 1 + F._grad_width(lay.align_idx if lay.has_align else None,
+                                  params)
+        partials = torch.full((n_blocks, width), float("nan"))
+        out = torch.full((width,), float("nan"))
+        io = FB.blocked_grads_io(kind, x, FB._strides(tag, lay.n_atoms, l), l,
+                                 aux, aux_strides, gx, g_strides, want_ref,
+                                 inv_count, acc_global, partials)
+        host.host_blk_grads(ctypes.addressof(args), ctypes.addressof(io),
+                            out.data_ptr(), threads,
+                            int(kind == "blocked_train"), n_blocks)
+        del keep
+        return out
+    return launch
+
+
+def _host_setup(model, x):
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    lay = FB.blocked_layout(spec, align_idx)
+    tag, l = FB._classify(x, lay.n_atoms)
+    pair_op = (torch.from_numpy(lay.pair_operand()) if lay.coord_npairs
+               else None)
+    return lay, ref_x, params, act, tag, l, pair_op
+
+
+def run_host_backward(host, model, x, gy, *, want_gx=True, want_ref=True,
+                      frames=4, threads=32, n_blocks=3, acc_global=False):
+    lay, ref_x, params, act, tag, l, pair_op = _host_setup(model, x)
+    with mock.patch.object(FB, "_launch_grads", host_launch_grads(
+            host, frames, threads, n_blocks, acc_global)):
+        return FB._kernel_backward(lay, ref_x, params, act, x.contiguous(),
+                                   tag, l, gy, want_gx,
+                                   want_ref and lay.has_align, pair_op)
+
+
+def run_host_train(host, model, x, yt, *, train_ref=False, frames=4,
+                   threads=32, n_blocks=3, acc_global=False):
+    lay, ref_x, params, act, tag, l, pair_op = _host_setup(model, x)
+    d = F._out_dim(lay.spec, params)
+    strides = (d, 1) if tuple(yt.shape) == (l, d) else (1, l)
+    with mock.patch.object(FB, "_launch_grads", host_launch_grads(
+            host, frames, threads, n_blocks, acc_global)):
+        return FB._kernel_train(lay, ref_x, params, act, x.contiguous(), tag,
+                                l, yt.contiguous(), strides,
+                                train_ref and lay.has_align, pair_op)
+
+
+def f64(parts):
+    spec, align_idx, ref_x, params, act = parts
+    return (spec, align_idx, None if ref_x is None else ref_x.double(),
+            tuple((w.double(), b.double()) for w, b in params), act)
+
+
+def close(got, want, slack=None):
+    """Within 5e-5·max(1, max|want|) of the float64 reference."""
+    want = want.detach()
+    err = (got.double() - want).abs()
+    if slack is not None:
+        err = err.amax(dim=-1) - slack
+    assert float(err.max()) <= 5e-5 * max(1.0, float(want.abs().max()))
+
+
+def random_like(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32))
+
+
+def check_backward(host, model, x, *, seed=20, **kw):
+    """K7 on the host against the float64 plain version, [l, n, 3] input;
+    twice, with equal bits; without gx the sums keep theirs."""
+    parts = F._extract_model(model)
+    d = F._out_dim(parts[0], parts[3])
+    gy = random_like((x.shape[0], d), seed)
+    gx_r, gp_r, gref_r = FB.blocked_backward_plain(*f64(parts), x.double(),
+                                                   gy.double())
+    gx, gp, g_ref = run_host_backward(host, model, x, gy, **kw)
+    slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+    assert float(gx_r.abs().max()) > 0
+    close(gx, gx_r, slack)
+    for (gw, gb), (gw_r, gb_r) in zip(gp, gp_r):
+        close(gw, gw_r)
+        close(gb, gb_r)
+    has_ref = FB.blocked_layout(parts[0], parts[1]).has_align
+    assert (g_ref is not None) == has_ref
+    if has_ref:
+        assert float(gref_r.abs().max()) > 0
+        close(g_ref, gref_r)
+    gx2, gp2, g_ref2 = run_host_backward(host, model, x, gy, **kw)
+    _, gp3, _ = run_host_backward(host, model, x, gy, want_gx=False,
+                                  **{k: v for k, v in kw.items()
+                                     if k != "want_gx"})
+    assert torch.equal(gx, gx2)
+    for a, b, c in zip(_flat(gp), _flat(gp2), _flat(gp3)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if has_ref:
+        assert torch.equal(g_ref, g_ref2)
+    return gx, gp, g_ref
+
+
+def _flat(gparams):
+    return [t for wb in gparams for t in wb]
+
+
+def check_train(host, model, x, *, train_ref=False, seed=21, t_layout=False,
+                **kw):
+    """K5 on the host against the float64 plain version; twice, equal bits."""
+    parts = F._extract_model(model)
+    d = F._out_dim(parts[0], parts[3])
+    yt = random_like((x.shape[0], d), seed)
+    loss_r, gp_r, gref_r = FB.blocked_train_grads_plain(
+        *f64(parts), x.double(), yt.double(), train_ref)
+    yin = yt.T.contiguous() if t_layout else yt
+    loss, gp, g_ref = run_host_train(host, model, x, yin, train_ref=train_ref,
+                                     **kw)
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=1e-5)
+    for (gw, gb), (gw_r, gb_r) in zip(gp, gp_r):
+        assert float(gw_r.abs().max()) > 0
+        close(gw, gw_r)
+        close(gb, gb_r)
+    if g_ref is not None:
+        close(g_ref, gref_r)
+        assert bool(g_ref.any()) == bool(train_ref)
+    loss2, gp2, g_ref2 = run_host_train(host, model, x, yin,
+                                        train_ref=train_ref, **kw)
+    assert torch.equal(loss, loss2)
+    for a, b in zip(_flat(gp), _flat(gp2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("frames,threads,n_blocks,acc_global", [
+    (4, 32, 3, False), (16, 256, 2, False), (1, 32, 5, True),
+    (8, 64, 1, False), (32, 64, 4, True)])
+def test_backward_peptide(host, frames, threads, n_blocks, acc_global):
+    """gx and the parameter sums over several blocks, each over several
+    tiles, the last one ragged; sums in shared memory and in the row."""
+    model, u = peptide_model(6, generator=gen(1), device="cpu")
+    check_backward(host, model, frames_of(u, 37, 0), frames=frames,
+                   threads=threads, n_blocks=n_blocks, acc_global=acc_global)
+
+
+@pytest.mark.parametrize("train_ref", [False, True])
+@pytest.mark.parametrize("frames,threads,n_blocks,acc_global", [
+    (4, 32, 3, False), (16, 256, 2, True), (1, 32, 5, False)])
+def test_train_peptide(host, frames, threads, n_blocks, acc_global,
+                       train_ref):
+    model, u = peptide_model(6, generator=gen(1), device="cpu")
+    check_train(host, model, frames_of(u, 37, 0), train_ref=train_ref,
+                frames=frames, threads=threads, n_blocks=n_blocks,
+                acc_global=acc_global)
+
+
+@pytest.mark.parametrize("case", [
+    dict(), dict(use_angle_value=True), dict(activation="relu"),
+    dict(activation="sigmoid"), dict(hidden_dims=(8, 6, 2)),
+    dict(include_position=False),
+])
+def test_backward_and_train_alanine(host, case):
+    """Alignment: gx through dR/dH, the ref_x gradient, and the train
+    kernel with and without it."""
+    model, u = alanine_model(generator=gen(3), device="cpu", **case)
+    x = frames_of(u, 21, 1)
+    check_backward(host, model, x)
+    check_train(host, model, x, train_ref=False)
+    check_train(host, model, x, train_ref=True, t_layout=True)
+
+
+def test_backward_uncentred_reference(host):
+    model, u = alanine_model(generator=gen(9), device="cpu")
+    model.preprocessing_layer.align_layer.ref_x += torch.tensor(
+        [0.7, -1.3, 0.4])
+    x = frames_of(u, 21, 5)
+    check_backward(host, model, x)
+    check_train(host, model, x, train_ref=True)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_backward_feature_layer_only(host, aligned):
+    """No MLP: gy is over the feature columns in final order; there are no
+    parameter sums, only gx and (with alignment) the ref_x gradient."""
+    model, u = alanine_model(device="cpu")
+    pp = model.preprocessing_layer
+    if not aligned:
+        pp = PreprocessingANN(None, pp.feature_layer)
+    _, gp, g_ref = check_backward(host, pp, frames_of(u, 19, 2))
+    assert gp == () and (g_ref is not None) == aligned
+
+
+@pytest.mark.parametrize("n_side", [3, 4])
+def test_backward_and_train_lj_fluid(host, n_side):
+    model, u, _ = lj_fluid_model(n_side, generator=gen(2), device="cpu")
+    x = frames_of(u, 9, 3, sigma=1.5)
+    check_backward(host, model, x)
+    check_train(host, model, x)
+
+
+def test_backward_switching_forms(host):
+    model, pp, u = mixed_coordination_model()
+    x = frames_of(u, 7, 6, sigma=0.6)
+    check_backward(host, model, x)
+    check_backward(host, pp, x)
+    check_train(host, model, x)
+
+
+def test_backward_compaction(host):
+    model, u = sparse_model()
+    x = frames_of(u, 11, 7)
+    gx, _, _ = check_backward(host, model, x)
+    active = F.active_atom_indices(model)
+    inactive = np.setdiff1d(np.arange(u.atoms.n_atoms), active)
+    assert not gx[:, inactive].any()
+    check_train(host, model, x, train_ref=True)
+
+
+@pytest.mark.parametrize("layout", ["packed", "t", "cmajor"])
+def test_backward_layouts(host, layout):
+    """gx comes back in the layout of x, with the bits of [l, n, 3]; the
+    parameter sums do not depend on the layout."""
+    model, u = peptide_model(4, generator=gen(5), device="cpu")
+    n, l = u.atoms.n_atoms, 13
+    x = frames_of(u, l, 8)
+    gy = random_like((l, 2), 22)
+    gx0, gp0, _ = run_host_backward(host, model, x, gy)
+    xin = {"packed": x.reshape(l, 3 * n),
+           "t": x.reshape(l, 3 * n).T.contiguous(),
+           "cmajor": x.permute(2, 1, 0).contiguous()}[layout]
+    gx, gp, _ = run_host_backward(host, model, xin, gy)
+    assert gx.shape == xin.shape
+    back = {"packed": lambda g: g.reshape(l, n, 3),
+            "t": lambda g: g.T.reshape(l, n, 3),
+            "cmajor": lambda g: g.permute(2, 1, 0)}[layout]
+    np.testing.assert_array_equal(back(gx).numpy(), gx0.numpy())
+    for a, b in zip(_flat(gp), _flat(gp0)):
+        assert torch.equal(a, b)
+    yt = random_like((l, 2), 23)
+    loss0, gt0, _ = run_host_train(host, model, x, yt)
+    loss, gt, _ = run_host_train(host, model, xin, yt.T.contiguous())
+    assert torch.equal(loss, loss0)
+    for a, b in zip(_flat(gt), _flat(gt0)):
+        assert torch.equal(a, b)
+
+
+def test_choose_frames_backward():
+    """The backward case: where the running sums push four blocks off an
+    SM, two blocks at 8 to 32 frames come before one block's 227 KB."""
+    fixed = 46 * 1024
+
+    def smem(frames):
+        return fixed + 1289 * (frames | 1) * 4
+
+    assert FB.choose_frames(smem) == 32            # one block, as before
+    assert FB.choose_frames(smem, backward=True) == 8
+    assert FB.choose_frames(lambda f: 1289 * (f | 1) * 4, backward=True) == 8
+    assert FB.choose_frames(lambda f: 100 * (f | 1) * 4, 64,
+                            backward=True) == 1

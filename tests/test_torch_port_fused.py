@@ -152,9 +152,18 @@ def test_errors():
     with pytest.raises(ValueError, match="frames"):
         F.fused_cv_forces(model, x[:, :5])
 
+    # a coordination feature inside the envelope is served, past its 96
+    # pairs only the blocked formulation takes it
     coord, u = _coordination_model()
-    with pytest.raises(NotImplementedError, match="coordination"):
-        F.fused_cv_forces(coord, torch.as_tensor(u.atoms.positions[None]))
+    xc = torch.as_tensor(u.atoms.positions[None])
+    y, g = F.fused_cv_forces(coord, xc)
+    np.testing.assert_allclose(y.numpy(), coord(xc).numpy(), atol=VAL_ATOL)
+    assert g.shape == xc.shape and g.abs().max() > 0
+    many = FeatureLayer([Feature("c", "coordination", u.atoms, r0=3.0)],
+                        u.atoms)  # 22 * 21 / 2 = 231 pairs
+    assert F.model_select_mode(many) == "blocked"
+    with pytest.raises(ValueError, match="coordination pairs"):
+        F.fused_cv_forces(many, xc, mode="unrolled")
     big, u = _big_model()
     xb = torch.as_tensor(u.atoms.positions[None], dtype=torch.float32)
     for mode in ("auto", "blocked"):  # 70 atoms: auto selects blocked

@@ -8,8 +8,10 @@ only PyTorch and the CUDA toolkit:
 
 (``--noconftest``: tests/conftest.py sets up JAX). Each kernel is held
 against its plain PyTorch version on the same card; the sums over frames of
-the backward and train kernels against a float64 plain version, the
-steadier reference for a sum over thousands of float32 terms. Tolerances:
+the backward and train kernels (unrolled and blocked) against a float64
+plain version, the steadier reference for a sum over thousands of float32
+terms; every body of the edge-product probe against its plain version and
+float64. Tolerances:
 values 1e-5 abs; gradients 2e-4·max(1, max|g|)
 (tests/test_parity_torch.py:25,52); losses 1e-5 relative (float32 frames
 against float64: the per-frame values differ by up to ~2e-7).
@@ -327,16 +329,20 @@ def test_blocked_refuses_grad_and_bad_inputs(cuda):
     n = u.atoms.n_atoms
     x = torch.as_tensor(u.atoms.positions[None], device=cuda)
     before = dict(F.KERNEL_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="K7"):
-        F.fused_model_forward(model, x)  # the weights require grad
-    with pytest.raises(NotImplementedError, match="K7"):
-        with torch.no_grad():
-            xg = x.clone().requires_grad_(True)
-        F.fused_model_forward(model.requires_grad_(False), xg)
-    assert F.KERNEL_LAUNCHES == before
+    y = F.fused_model_forward(model, x)  # the weights require grad
+    assert y.requires_grad and y.shape == (1, 2)
+    y.sum().backward()
+    assert all(p.grad is not None and bool(p.grad.abs().max() > 0)
+               for p in model.parameters())
+    assert F.KERNEL_LAUNCHES["blocked_forward"] == \
+        before["blocked_forward"] + 1
+    assert F.KERNEL_LAUNCHES["blocked_backward"] == \
+        before["blocked_backward"] + 1
     with torch.no_grad():
-        y = F.fused_model_forward(model, x)
-    assert y.shape == (1, 2) and not y.requires_grad
+        y_val = F.fused_model_forward(model, x)
+    assert y_val.shape == (1, 2) and not y_val.requires_grad
+    assert F.KERNEL_LAUNCHES["blocked_backward"] == \
+        before["blocked_backward"] + 1
     with pytest.raises(TypeError, match="float32"):
         F.fused_cv_forces(model, x.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -345,8 +351,18 @@ def test_blocked_refuses_grad_and_bad_inputs(cuda):
         F.fused_cv_forces(peptide_model(14, device="cpu")[0], x)
     y, g = F.fused_cv_forces(model, x[:0])
     assert y.shape == (0, 2) and g.shape == (0, n, 3)
-    with pytest.raises(NotImplementedError, match="K5"):
-        F.fused_train_grads(model, x, torch.zeros(1, 2, device=cuda))
+    loss, grads = F.fused_train_grads(model, x,
+                                      torch.zeros(1, 2, device=cuda))
+    assert F.KERNEL_LAUNCHES["blocked_train"] == before["blocked_train"] + 1
+    np.testing.assert_allclose(float(loss), float((y_val ** 2).mean()),
+                               rtol=LOSS_RTOL)
+    with pytest.raises(ValueError, match="MLP head"):
+        F.fused_train_grads(model.preprocessing_layer, x,
+                            torch.zeros(1, 355, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        F.fused_train_grads(model, x, torch.zeros(1, 2, device=cuda).double())
+    with pytest.raises(ValueError, match="y_target is on"):
+        F.fused_train_grads(model, x, torch.zeros(1, 2))
 
 
 @pytest.mark.gpu
@@ -419,3 +435,327 @@ def test_blocked_serving_from_file(cuda, tmp_path):
                                    torch.as_tensor(x, device=cuda).double())
     _assert_grads(torch.as_tensor(grads, device=cuda), g_ref, slack,
                   GRAD_RTOL * scale)
+
+
+# ---------------------------------------------------------------------------
+# The blocked training kernels (K7, K5), against float64 plain versions
+# ---------------------------------------------------------------------------
+
+
+def _flat(gparams):
+    return [t for wb in gparams for t in wb]
+
+
+def _in_layout(x, layout):
+    l, n = x.shape[:2]
+    if layout == "t":
+        return x.reshape(l, 3 * n).T.contiguous()
+    if layout == "cmajor":
+        return x.permute(2, 1, 0).contiguous()
+    return x
+
+
+def _to_lnd(g, layout, n):
+    if layout == "t":
+        return g.T.reshape(-1, n, 3)
+    if layout == "cmajor":
+        return g.permute(2, 1, 0)
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 33, 1000])
+@pytest.mark.parametrize("layout", ["lnd", "t", "cmajor"])
+@pytest.mark.parametrize("name", ["peptide", "lj", "alanine",
+                                  "alanine_angles"])
+def test_blocked_backward_and_train_match_plain(cuda, name, layout, l):
+    """K7 under autograd (gx in the layout of x, the weights, ref_x) and K5
+    (train_ref where the model aligns), ragged tails, launches counted, two
+    launches with the same bits."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+
+    model, u, sigma, _ = _blocked_models(cuda)[name]()
+    n = u.atoms.n_atoms
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor((u.atoms.positions[None] + sigma * rng.normal(
+        size=(l, n, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    d_out = F._out_dim(parts[0], parts[3])
+    gy = torch.as_tensor(rng.normal(size=(l, d_out)).astype(np.float32),
+                         device=cuda)
+    has_ref = FB.blocked_layout(parts[0], parts[1]).has_align
+    gx_r, gp_r, gref_r = FB.blocked_backward_plain(*_f64(parts), x.double(),
+                                                   gy.double())
+    before = dict(F.KERNEL_LAUNCHES)
+    xin = _in_layout(x, layout).requires_grad_(True)
+    leaves = [xin, *_flat(parts[3])]
+    if has_ref:
+        leaves.append(parts[2].requires_grad_(True))
+    y = F.fused_model_forward(model, xin, mode="blocked")
+    got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert got[0].shape == xin.shape
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+    _assert_grads(_to_lnd(got[0], layout, n), gx_r, slack,
+                  GRAD_RTOL * max(1.0, float(gx_r.abs().max())))
+    for g, want in zip(got[1:], _flat(gp_r) + ([gref_r] if has_ref else [])):
+        _close(g, want)
+    assert F.KERNEL_LAUNCHES["blocked_backward"] == \
+        before["blocked_backward"] + 2
+    assert F.KERNEL_LAUNCHES["blocked_forward"] == \
+        before["blocked_forward"] + 1
+    if has_ref:
+        parts[2].requires_grad_(False)
+
+    for train_ref in (False, True) if has_ref else (False,):
+        loss_r, gp_r, gref_r = FB.blocked_train_grads_plain(
+            *_f64(parts), x.double(), gy.double(), train_ref)
+        yt = gy if layout == "lnd" else gy.T.contiguous()
+        loss, grads = F.fused_train_grads(model, xin.detach(), yt,
+                                          mode="blocked", train_ref=train_ref)
+        loss2, grads2 = F.fused_train_grads(model, xin.detach(), yt,
+                                            mode="blocked",
+                                            train_ref=train_ref)
+        np.testing.assert_allclose(float(loss), float(loss_r),
+                                   rtol=LOSS_RTOL)
+        want = _flat(gp_r) + ([gref_r] if gref_r is not None else [])
+        for g, w in zip(grads.values(), want):
+            _close(g, w)
+        assert torch.equal(loss, loss2)
+        assert all(torch.equal(grads[k], grads2[k]) for k in grads)
+    assert F.KERNEL_LAUNCHES["blocked_train"] == \
+        before["blocked_train"] + (4 if has_ref else 2)
+
+
+@pytest.mark.gpu
+def test_blocked_sums_in_device_memory(cuda):
+    """A head too wide for shared memory keeps each block's running sums
+    in its row of the partials (acc_global)."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import peptide_model
+
+    model, u = peptide_model(14, hidden_dims=(512, 2),
+                             generator=torch.Generator().manual_seed(5),
+                             device=cuda)
+    assert F.model_select_mode(model) == "blocked"
+    parts = F._extract_model(model)
+    width = 1 + F._grad_width(None, parts[3])
+    assert 4 * width > FB._SMEM_MAX // 2
+    rng = np.random.default_rng(9)
+    l = 777
+    x = torch.as_tensor((u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(l, u.atoms.n_atoms, 3))).astype(np.float32), device=cuda)
+    yt = torch.as_tensor(rng.normal(size=(l, 2)).astype(np.float32),
+                         device=cuda)
+    loss_r, gp_r, _ = FB.blocked_train_grads_plain(*_f64(parts), x.double(),
+                                                   yt.double())
+    loss, grads = F.fused_train_grads(model, x, yt)
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=LOSS_RTOL)
+    for g, w in zip(grads.values(), _flat(gp_r)):
+        _close(g, w)
+    gx_r, gp_r, _ = FB.blocked_backward_plain(*_f64(parts), x.double(),
+                                              yt.double())
+    xg = x.clone().requires_grad_(True)
+    got = torch.autograd.grad(F.fused_model_forward(model, xg),
+                              [xg, *_flat(parts[3])], yt)
+    for g, w in zip(got, [gx_r, *_flat(gp_r)]):
+        _close(g, w)
+
+
+@pytest.mark.gpu
+def test_blocked_trainers_on_the_card(cuda):
+    """fit(fused_mse_loss) runs K6 + K7, make_fused_train_step K5; both
+    lower the loss and agree step for step."""
+    import functools
+
+    from molann_tpu_torch.systems import peptide_model
+    from molann_tpu_torch.train import (
+        fit,
+        fused_mse_loss,
+        make_fused_train_step,
+        masked_optimizer,
+        trainable_mask,
+    )
+
+    def student():
+        return peptide_model(14, generator=torch.Generator().manual_seed(2),
+                             device=cuda)[0]
+
+    teacher, u = peptide_model(14, generator=torch.Generator().manual_seed(3),
+                               device=cuda)
+    rng = np.random.default_rng(10)
+    x = (u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(512, u.atoms.n_atoms, 3))).astype(np.float32)
+    with torch.no_grad():
+        y = F.fused_model_forward(teacher, torch.as_tensor(
+            x, device=cuda)).cpu().numpy()
+    batches = [(x[s:s + 256], y[s:s + 256]) for s in (0, 256)] * 4
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    before = dict(F.KERNEL_LAUNCHES)
+    res = fit(student(), fused_mse_loss, iter(batches), optimizer=adam,
+              num_steps=8)
+    assert F.KERNEL_LAUNCHES["blocked_backward"] == \
+        before["blocked_backward"] + 8
+    model = student()
+    opt = masked_optimizer(adam, trainable_mask(model))(model)
+    step = make_fused_train_step()
+    losses = []
+    for batch in batches:
+        model, opt, loss = step(model, opt, batch)
+        losses.append(float(loss))
+    assert F.KERNEL_LAUNCHES["blocked_train"] == before["blocked_train"] + 8
+    assert res.losses[-1] < res.losses[0] and losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, res.losses, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Coordination features in the unrolled kernels (K1-K4)
+# ---------------------------------------------------------------------------
+
+
+def _coordination_model(kind, cuda):
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import (
+        AlignmentLayer,
+        FeatureLayer,
+        MolANN,
+        PreprocessingANN,
+        create_sequential_nn,
+    )
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    feats = [Feature("c1", "coordination", u.select_atoms("bynum 2 5 7"),
+                     group_b=u.select_atoms("bynum 15 17 19"), r0=3.0)]
+    align = None
+    if kind == "two":
+        feats += [
+            Feature("b1", "bond", u.select_atoms("bynum 2 5")),
+            Feature("c2", "coordination", u.select_atoms("bynum 1:9"),
+                    r0=2.5, nn=3, mm=7, pbc_box=np.asarray([9.0, 10.0, 11.0]),
+                    d_max=4.0),
+            Feature("p1", "position", u.select_atoms("bynum 9 11")),
+        ]
+        align = AlignmentLayer(u.select_atoms("bynum 1 2 5"), u.atoms,
+                               device=cuda)
+    elif kind == "full":  # the envelope's 96 pairs: 6 x 16
+        feats = [Feature("c", "coordination", u.select_atoms("bynum 1:6"),
+                         group_b=u.select_atoms("bynum 7:22"), r0=4.0, nn=4,
+                         mm=8)]
+    pp = PreprocessingANN(align, FeatureLayer(feats, u.atoms))
+    head = create_sequential_nn([pp.output_dimension(), 4, 2],
+                                generator=torch.Generator().manual_seed(5),
+                                device=cuda)
+    return MolANN(pp, head), u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 127, 4097])
+@pytest.mark.parametrize("kind", ["one", "two", "full"])
+def test_unrolled_coordination_matches_plain(cuda, kind, l):
+    """K1, K4, K2 and K3 on models with coordination features."""
+    model, u = _coordination_model(kind, cuda)
+    assert F.model_select_mode(model) == "unrolled"
+    rng = np.random.default_rng(11)
+    # the aligned model gets thermal noise: three align atoms thrown 0.4 A
+    # apart come near a degenerate alignment, where float32 and float64
+    # QCP part by more than the tolerance on either side
+    sigma = 0.15 if kind == "two" else 0.4
+    x = torch.as_tensor((u.atoms.positions[None] + sigma * rng.normal(
+        size=(l, N, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    gy = torch.as_tensor(rng.normal(size=(l, 2)).astype(np.float32),
+                         device=cuda)
+    from molann_tpu_torch.ops.fused_blocked import gradient_jump_slack
+    slack = gradient_jump_slack(parts[0], parts[3], x.double())
+    before = dict(F.KERNEL_LAUNCHES)
+    for comp in (None, 1):
+        y_ref, g_ref = F.cv_forces_plain(*_f64(parts), x.double(), comp)
+        y, g = F.fused_cv_forces(model, x, component=comp)
+        yt, gt = F.fused_cv_forces(model, x.reshape(l, 3 * N).T.contiguous(),
+                                   component=comp, transposed_input=True)
+        tol = GRAD_RTOL * max(1.0, float(g_ref.abs().max()))
+        for yy, gg in ((y, g), (yt.T, gt.T.reshape(l, N, 3))):
+            np.testing.assert_allclose(yy.cpu().numpy(), y_ref.cpu().numpy(),
+                                       atol=VAL_ATOL)
+            _assert_grads(gg, g_ref, slack, tol)
+    with torch.no_grad():
+        y1 = F.fused_model_forward(model, x)
+    np.testing.assert_allclose(y1.cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=VAL_ATOL)
+    xg = x.clone().requires_grad_(True)
+    leaves = [xg, *_flat(parts[3])]
+    got = torch.autograd.grad(F.fused_model_forward(model, xg), leaves, gy)
+    gx_r, gp_r, _ = F.backward_plain(*_f64(parts), x.double(), gy.double())
+    _assert_grads(got[0], gx_r, slack,
+                  GRAD_RTOL * max(1.0, float(gx_r.abs().max())))
+    for g, w in zip(got[1:], _flat(gp_r)):
+        _close(g, w)
+    loss_r, gp_r, _ = F.train_grads_plain(*_f64(parts), x.double(),
+                                          gy.double())
+    loss, grads = F.fused_train_grads(model, x, gy)
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=LOSS_RTOL)
+    for g, w in zip(grads.values(), _flat(gp_r)):
+        _close(g, w)
+    assert F.KERNEL_LAUNCHES["cv_forces"] == before["cv_forces"] + 4
+    assert F.KERNEL_LAUNCHES["train"] == before["train"] + 1
+    assert F.KERNEL_LAUNCHES["backward"] == before["backward"] + 1
+
+
+# ---------------------------------------------------------------------------
+# The edge-product probe (K9)
+# ---------------------------------------------------------------------------
+
+# kernel against plain, as a fraction of max|truth|: the bodies with exact
+# products differ by the order of a few f32 additions at most
+EDGE_VS_PLAIN = 5e-7
+EDGE_VS_F64 = {"f32": 5e-7, "gather": 5e-7, "split3": 5e-7, "fixed4": 5e-7,
+               "bf16": 4e-3, "fixed2": 2e-4, "int8": 1.0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(552, 304, 1024), (37, 50, 64),
+                                   (16, 16, 128)])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "int8", "split3",
+                                     "fixed4", "fixed2", "gather"])
+def test_edge_mm_matches_plain(cuda, variant, shape):
+    """Every body at the probe's shape and at shapes that are no multiple
+    of a tile, against its plain version and float64."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    m, k, n = shape
+    rng = np.random.default_rng(12)
+    D = torch.as_tensor((rng.integers(-1, 2, size=(m, k)) * (
+        rng.random((m, k)) < 0.05)).astype(np.float32), device=cuda)
+    scale = 3000.0 if variant == "int8" else 30.0
+    x = torch.as_tensor(((rng.random((k, n)) * 2 - 1) * scale).astype(
+        np.float32), device=cuda)
+    before = F.KERNEL_LAUNCHES["edge_mm"]
+    got = EP.edge_mm(D, x, variant)
+    torch.cuda.synchronize()
+    assert F.KERNEL_LAUNCHES["edge_mm"] == before + 1
+    plain = EP.edge_mm_plain(D, x, variant)
+    truth = D.double() @ x.double()
+    top = float(truth.abs().max()) + 1e-30
+    assert float((got - plain).abs().max()) / top <= EDGE_VS_PLAIN
+    assert float((got.double() - truth).abs().max()) / top <= \
+        EDGE_VS_F64[variant]
+    assert torch.equal(got, EP.edge_mm(D, x, variant))
+
+
+@pytest.mark.gpu
+def test_edge_mm_refuses_what_the_kernel_does_not_take(cuda):
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    D = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        EP.edge_mm(D, torch.zeros(16, 65, device=cuda), "f32")
+    with pytest.raises(TypeError, match="float32"):
+        EP.edge_mm(D.double(), torch.zeros(16, 64, device=cuda).double(),
+                   "f32")
+    with pytest.raises(ValueError, match="0 and ±1"):
+        EP.edge_mm(D + 0.5, torch.zeros(16, 64, device=cuda), "gather")
+    with pytest.raises(ValueError, match="D is on"):
+        EP.edge_mm(D.cpu(), torch.zeros(16, 64, device=cuda), "f32")

@@ -21,7 +21,13 @@ from molann_tpu.ops import fused as JF
 from molann_tpu.systems import alanine_model as jalanine_model
 from molann_tpu_torch.feature import Feature
 from molann_tpu_torch.io import load_model
-from molann_tpu_torch.models.ann import FeatureLayer, named_tensors
+from molann_tpu_torch.models.ann import (
+    FeatureLayer,
+    MolANN,
+    PreprocessingANN,
+    create_sequential_nn,
+    named_tensors,
+)
 from molann_tpu_torch.ops import fused as F
 from molann_tpu_torch.systems import alanine_model, alanine_universe
 from molann_tpu_torch.train import fit, make_fused_train_step, make_train_step
@@ -148,8 +154,12 @@ def test_errors():
     model, u = alanine_model(device="cpu")
     x = torch.as_tensor(u.atoms.positions[None])
     y = torch.zeros(1, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.fused_train_grads(model, x, y, mode="blocked")
+    # the blocked formulation trains any system, alanine included
+    loss_b, grads_b = F.fused_train_grads(model, x, y, mode="blocked")
+    loss_u, grads_u = F.fused_train_grads(model, x, y, mode="unrolled")
+    np.testing.assert_allclose(float(loss_b), float(loss_u), rtol=LOSS_RTOL)
+    for name in grads_u:
+        _close_grads(grads_b[name], grads_u[name].numpy())
     with pytest.raises(ValueError, match="c_mat"):
         F.fused_train_grads(model, x, y, c_mat=np.zeros((2, 2)))
     with pytest.raises(ValueError, match="mode"):
@@ -174,10 +184,17 @@ def test_errors():
                                   u.select_atoms("bynum 2 5"),
                                   group_b=u.select_atoms("bynum 15 17"),
                                   r0=3.0)], u.atoms)
-    with pytest.raises(NotImplementedError, match="coordination"):
-        F.fused_train_grads(coord, x, torch.zeros(1, 1))
-    with pytest.raises(NotImplementedError, match="coordination"):
-        F.fused_model_forward(coord, x.requires_grad_(True))
+    # coordination features inside the envelope train and differentiate
+    head = create_sequential_nn([1, 3, 1],
+                                generator=torch.Generator().manual_seed(0))
+    cmodel = MolANN(PreprocessingANN(None, coord), head)
+    loss_c, grads_c = F.fused_train_grads(cmodel, x, torch.zeros(1, 1))
+    np.testing.assert_allclose(float(loss_c), float((cmodel(x) ** 2).mean().detach()),
+                               rtol=LOSS_RTOL)
+    assert grads_c["ann_layers.layers.0.weight"].abs().max() > 0
+    xg = x.clone().requires_grad_(True)
+    F.fused_model_forward(coord, xg).sum().backward()
+    assert xg.grad.abs().max() > 0
 
     for make in (lambda: make_train_step(None, mesh=object()),
                  lambda: make_fused_train_step(mesh=object()),
