@@ -45,8 +45,11 @@ Runs the port's serving path on the card and checks it, phase by phase:
    through ``fused_model_forward``: gx in the layout of x, every weight,
    ``ref_x``) and the blocked train kernel (``train_ref`` False and, where
    the model aligns, True) against float64 plain versions on 8192 and 8191
-   frames of the four models of phase 7 in each input layout; two launches
-   give the same bits; (b) ``fit(fused_mse_loss)`` and
+   frames of the four models of phase 7 in each input layout, the backward
+   kernel also asked for the parameter sums alone (no gx: a kernel of its
+   own, one evaluation a pair); two launches of each give the same bits,
+   and whether the sums without gx equal those with gx bit for bit is
+   printed; (b) ``fit(fused_mse_loss)`` and
    ``make_fused_train_step`` train ``peptide_model(60)`` for 20 Adam steps
    of 65536 frames from the ``.npy`` file of phase 7c and
    ``lj_fluid_model(5)`` for 10, labelled by a teacher model, with the
@@ -68,8 +71,8 @@ coordinate read once, every output written once) over 3.35 TB/s and the
 f32 operations the function needs (every feature, adjoint and pair once),
 counted from the model's sizes and this run's share of pairs inside
 ``d_max``, over 67 TFLOP/s. What the blocked kernels do beyond that, by
-gathering where they could scatter, is printed beside it and enters no
-bound; nor do the per-block partial sums of the backward and train kernels,
+evaluating a pair from both its atoms where a gradient is formed, is
+printed beside it and enters no bound; nor do the per-block partial sums of the backward and train kernels,
 which the function does not need and whose bytes are printed beside it.
 
 Gradients of the fluid are compared on every frame and atom. Where a pair
@@ -288,14 +291,18 @@ def blocked_work(F, FB, model, within, forces, frames, grads=False):
     the labels in, in the place of y out, and the parameter gradients out
     once. With ``grads`` the operations gain each layer's parameter product
     (as many as its forward) and, without forces (the train kernel with a
-    frozen reference), the MLP backwards above the first layer. Operations, for the bound: what the function needs, that
-    is every feature and the MLP once and, with forces, the MLP backwards,
-    every feature's adjoint once and every pair's ``s`` and ``s'`` in one
-    pass, with the adds into the gradient (3 per atom of a feature, 6 per
-    pair inside ``d_max``). The kernel as written gathers instead of
-    scattering: with forces it computes a feature's adjoint once per atom
-    of the feature and every pair once forward and once more from each of
-    its atoms; that larger count is the third value and enters no bound.
+    frozen reference), the MLP backwards above the first layer.
+    Operations, for the bound: what the function needs, that is every
+    feature and the MLP once and, with forces, the MLP backwards, every
+    feature's adjoint once and every pair's ``s`` and ``s'`` in one pass,
+    with the adds into the gradient (3 per atom of a feature, 6 per pair
+    inside ``d_max``). The kernel as written computes every feature's
+    adjoint once too; with forces it evaluates every pair from both its
+    atoms (``s`` and ``s'`` together, 3 adds each into the atom's pair
+    gradient) and multiplies each atom's pair gradient by the feature's
+    cotangent (6 operations per atom and coordination feature); without
+    forces it evaluates every pair once. That count is the third value and
+    enters no bound.
     ``within``: per coordination feature, the share of this run's pairs
     inside ``d_max``."""
     spec, align_idx, _, params, _ = F._extract_model(model)
@@ -323,9 +330,7 @@ def blocked_work(F, FB, model, within, forces, frames, grads=False):
               + spec.n_bonds * (OPS["bond_bwd"] + 6)
               + spec.n_dihedrals * (OPS["dihedral_bwd"] + 12)
               + pair_bwd + pair_adds)
-    written = (fwd + pair_fwd + mlp + 3 * spec.n_angles * OPS["angle_bwd"]
-               + 2 * spec.n_bonds * OPS["bond_bwd"]
-               + 4 * spec.n_dihedrals * OPS["dihedral_bwd"] + 2 * pair_bwd)
+    written = needed + pair_bwd + 6 * len(lay.coord_npairs) * lay.n_active
     if grads:
         needed, written = needed + mlp, written + mlp
     return frames * n_bytes + g_bytes, frames * needed, frames * written
@@ -639,12 +644,13 @@ def blocked_phase(dev, card, alanine, x_alanine, tmp):
         ("blocked_forward", 1179), ("blocked_cv_forces", 1398))), models
 
 
-def blocked_entries(launches, err, out, kinds):
+def blocked_entries(launches, err, out, kinds,
+                    source="molann_tpu_torch/csrc/fused_blocked.cu"):
     """The ``kernels`` entries of blocked kernels: the peptide's numbers,
     the fluid's under ``also``."""
     return [{
         "name": kind, "route": "cuda",
-        "source": "molann_tpu_torch/csrc/fused_blocked.cu",
+        "source": source,
         "replaces": f"molann_tpu/ops/fused_blocked.py:{line}",
         "launches": launches[kind], "max_abs_err": err[kind],
         **{k: out[kind]["peptide_model(60)"][k]
@@ -685,6 +691,7 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
     err = {"blocked_backward": 0.0, "blocked_train": 0.0}
     rel = dict(err)
     at_jump = {}
+    same_sums = {}  # the sums of K7 without gx equal those with it, bit for bit
     L = BLK_CHECK_FRAMES
 
     def check(name, model, x, layouts, **kw):
@@ -728,6 +735,18 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
                     at_jump[name][1] = max(at_jump[name][1],
                                            float(there.max()))
                 e = worst(got[1:], want, f"blocked backward, {what}")
+                # without gx: no pair gradient, no accumulators, no gather
+                if has_ref:
+                    parts[2].requires_grad_(True)
+                sums = torch.autograd.grad(
+                    F.fused_model_forward(model, xin, **kw), leaves[1:],
+                    gy[:l])
+                if has_ref:
+                    parts[2].requires_grad_(False)
+                e = max(e, worst(sums, want,
+                                 f"blocked backward without gx, {what}"))
+                same_sums[name] = same_sums.get(name, True) and all(
+                    torch.equal(p, q) for p, q in zip(sums, got[1:]))
                 err["blocked_backward"] = max(err["blocked_backward"], eg, e)
                 rel["blocked_backward"] = max(
                     rel["blocked_backward"], rel_err(got[1:], want),
@@ -757,12 +776,18 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
         leaves = [xg, *flat(parts[3])]
         y = F.fused_model_forward(model, xg, **kw)
         a = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        a_sums = torch.autograd.grad(y, leaves[1:], gy, retain_graph=True)
+        b_sums = torch.autograd.grad(y, leaves[1:], gy, retain_graph=True)
         b = torch.autograd.grad(y, leaves, gy)
-        l1, g1 = F.fused_train_grads(model, x, gy, train_ref=has_ref, **kw)
-        l2, g2 = F.fused_train_grads(model, x, gy, train_ref=has_ref, **kw)
-        if not (all(torch.equal(p, q) for p, q in zip(a, b))
-                and torch.equal(l1, l2)
-                and all(torch.equal(g1[k], g2[k]) for k in g1)):
+        same = all(torch.equal(p, q) for p, q in zip(a + a_sums, b + b_sums))
+        for train_ref in (False, True) if has_ref else (False,):
+            l1, g1 = F.fused_train_grads(model, x, gy, train_ref=train_ref,
+                                         **kw)
+            l2, g2 = F.fused_train_grads(model, x, gy, train_ref=train_ref,
+                                         **kw)
+            same = (same and torch.equal(l1, l2)
+                    and all(torch.equal(g1[k], g2[k]) for k in g1))
+        if not same:
             fail(f"two launches of a blocked training kernel differ: {name}")
 
     # (a), and two launches with the same bits
@@ -790,7 +815,10 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
           f"{err['blocked_train']:.3g} (sums over {L} frames; as a fraction "
           f"of max(1, max|g|), which the tolerance {GRAD_RTOL} is stated in: "
           f"{rel['blocked_backward']:.3g} and {rel['blocked_train']:.3g}); "
-          f"repeated launches bit-identical; "
+          f"the backward kernel with and without gx and the train kernel "
+          f"with and without train_ref, each against float64 and repeated "
+          f"bit-identically; the parameter sums without gx equal those with "
+          f"gx bit for bit: {same_sums}; "
           f"(atom, frame) entries held to a jump's size and the worst error "
           f"there: { {k: v for k, v in at_jump.items() if v[0]} }")
 
@@ -985,7 +1013,8 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
     print(f"one {BATCH}-frame batch on the card: " + "; ".join(timed)
           + f"; card: {card}")
     entries = blocked_entries(launches, err, out, (
-        ("blocked_backward", 1192), ("blocked_train", 1285)))
+        ("blocked_backward", 1192), ("blocked_train", 1285)),
+        source="molann_tpu_torch/csrc/fused_blocked_grads.cu")
     for entry in entries:
         entry["max_err_over_scale"] = rel[entry["name"]]
     return entries

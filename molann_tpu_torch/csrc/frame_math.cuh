@@ -424,25 +424,72 @@ __host__ __device__ __forceinline__ void switch_eval(const CoordPar& cp, float r
   if (kGrad) ds_over_r = draw * scale * cp.inv_r0 * inv_r;
 }
 
+// The same function for mm == 2 nn with an even exponent nn = kNN >= 4,
+// without a square root: s = 1 / (1 + (r^2 / r0^2)^(nn/2)) and s'(r)/r =
+// -nn (r^2 / r0^2)^(nn/2 - 1) s^2 / r0^2 need r^2 only. r0^2 is carried as
+// a rounded square and its rounding error (r02, r02_lo, from
+// switch_even_r02) and the quotient gets one correction step, so that no
+// error of one sign is shared by all the pairs of a sum. Past d_max both
+// results are selected to 0, no branch. A pair loop that is all of one
+// form saves a fifth of its instructions this way; the results differ from
+// switch_eval's in the last bits.
+struct SwitchEven { float r02, r02_lo, inv_r02; };
+
+__host__ __device__ __forceinline__ SwitchEven switch_even_r02(const CoordPar& cp) {
+  SwitchEven e;
+  e.r02 = cp.r0 * cp.r0;
+  e.r02_lo = fmaf(cp.r0, cp.r0, -e.r02);
+  e.inv_r02 = 1.0f / e.r02;
+  return e;
+}
+
+template <bool kGrad, int kNN>
+__host__ __device__ __forceinline__ void switch_eval_even(const CoordPar& cp,
+                                                          const SwitchEven& e, float r2,
+                                                          float& s, float& ds_over_r) {
+  static_assert(kNN >= 4 && kNN % 2 == 0, "an even exponent of at least 4");
+  float t2 = r2 * e.inv_r02;
+  t2 = fmaf(fmaf(-t2, e.r02_lo, fmaf(-t2, e.r02, r2)), e.inv_r02, t2);
+  const float lower = switch_ipow(t2, kNN / 2 - 1);  // t^(nn - 2)
+  const float raw = switch_rcp(1.0f + lower * t2);
+  const bool inside = !cp.has_dmax || r2 < cp.dmax2;
+  const float scale = cp.has_dmax ? cp.stretch : 1.0f;
+  s = inside ? (cp.has_dmax ? (raw - cp.sdmax) * cp.stretch : raw) : 0.f;
+  ds_over_r = 0.f;
+  if (kGrad) ds_over_r = inside ? -(float)kNN * lower * raw * raw * (scale * e.inv_r02) : 0.f;
+}
+
 // The minimum image of a displacement when the feature has a box (rintf
-// rounds half to even, as torch.round and jnp.round do).
-__host__ __device__ __forceinline__ V3 min_image(float d0, float d1, float d2,
-                                                 const CoordPar& cp) {
-  float d[3] = {d0, d1, d2};
-  if (cp.has_box) {
-    if (cp.ortho) {
-      for (int a = 2; a >= 0; --a) d[a] = d[a] - rintf(d[a] * cp.inv[a]) * cp.box[4 * a];
+// rounds half to even, as torch.round and jnp.round do). kBox: 0 no box,
+// 1 an orthorhombic box, -1 read cp (any box).
+template <int kBox>
+__host__ __device__ __forceinline__ V3 min_image_as(float d0, float d1, float d2,
+                                                    const CoordPar& cp) {
+  if (kBox < 0 ? cp.has_box : kBox != 0) {
+    if (kBox > 0 || cp.ortho) {  // written out: no array, whatever the compiler unrolls
+      d2 = d2 - rintf(d2 * cp.inv[2]) * cp.box[8];
+      d1 = d1 - rintf(d1 * cp.inv[1]) * cp.box[4];
+      d0 = d0 - rintf(d0 * cp.inv[0]) * cp.box[0];
     } else {
+      float d[3] = {d0, d1, d2};
+#pragma unroll
       for (int a = 2; a >= 0; --a) {
         const float shift = rintf(d[a] * cp.inv[a]);
+#pragma unroll
         for (int b = 0; b < 3; ++b) {
           const float e = cp.box[3 * a + b];
           if (e != 0.f) d[b] = d[b] - shift * e;
         }
       }
+      return V3{d[0], d[1], d[2]};
     }
   }
-  return V3{d[0], d[1], d[2]};
+  return V3{d0, d1, d2};
+}
+
+__host__ __device__ __forceinline__ V3 min_image(float d0, float d1, float d2,
+                                                 const CoordPar& cp) {
+  return min_image_as<-1>(d0, d1, d2, cp);
 }
 
 // ---------------------------------------------------------------------------

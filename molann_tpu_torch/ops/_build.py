@@ -2,11 +2,15 @@
 
 The sources under ``molann_tpu_torch/csrc/`` are compiled by ``nvcc``, one
 process per ``.cu`` file, all started together, and linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The library goes
-to ``molann_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so an edited source builds anew and an unchanged one is reused.
-Nothing is built at import: the CPU tests import every module without
-``nvcc``.
+library with a plain C interface, loaded with ``ctypes``. A file whose
+kernels are large template instances names a macro and a count in a line
+``// nvcc-variants: MACRO N`` and is compiled N times, with ``-DMACRO=0`` to
+``-DMACRO=N-1``, each process building the instances of its variant: one
+``ptxas`` run per kernel, side by side, in place of one after another. The
+library goes to ``molann_tpu_torch/_build/`` under a name keyed by a hash of
+the sources and flags, so an edited source builds anew and an unchanged one
+is reused. Nothing is built at import: the CPU tests import every module
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -86,6 +91,8 @@ def _bind(lib):
     lib.molann_fused_train.restype = i32
     lib.molann_blocked_caps.argtypes = [vp]
     lib.molann_blocked_caps.restype = i32
+    lib.molann_blocked_threads.argtypes = [vp, i32]
+    lib.molann_blocked_threads.restype = i32
     lib.molann_blocked_smem_bytes.argtypes = [vp, i32]
     lib.molann_blocked_smem_bytes.restype = i64
     lib.molann_blocked_partial_rows.argtypes = [vp, i64]
@@ -106,32 +113,46 @@ def _bind(lib):
     return lib
 
 
+def _variants(src):
+    """``[(object stem, extra nvcc flags)]`` of one ``.cu``: one entry, or
+    one per variant its ``// nvcc-variants: MACRO N`` line declares."""
+    m = re.search(r"^// nvcc-variants: (\w+) (\d+)$", src.read_text(),
+                  re.MULTILINE)
+    if m is None:
+        return [(src.stem, [])]
+    return [(f"{src.stem}.{i}", [f"-D{m.group(1)}={i}"])
+            for i in range(int(m.group(2)))]
+
+
 def _compile(files, out):
-    """Compile each ``.cu`` of ``files`` in its own ``nvcc``, all at once,
-    and link the objects into ``out``. Returns nvcc's combined report."""
+    """Compile each ``.cu`` of ``files`` (each variant of it) in its own
+    ``nvcc``, all at once, and link the objects into ``out``. Returns
+    nvcc's combined report, one ``== <file> [flags]`` section per process."""
     nvcc = nvcc_path()
     objs = out.with_suffix(f".{os.getpid()}.obj")
     objs.mkdir(parents=True, exist_ok=True)
     try:
         jobs = []
         for src in (p for p in files if p.suffix == ".cu"):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
-                   str(objs / (src.stem + ".o"))]
-            jobs.append((src, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            for stem, flags in _variants(src):
+                cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(src), "-o",
+                       str(objs / (stem + ".o"))]
+                jobs.append((f"{src.name} {' '.join(flags)}".strip(), cmd,
+                             objs / (stem + ".o"), subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
         log = []
-        for src, cmd, proc in jobs:
+        for name, cmd, _, proc in jobs:
             text = proc.communicate()[0]
-            log.append(f"== {src.name}\n{text}")
+            log.append(f"== {name}\n{text}")
             if proc.returncode != 0:
-                for _, _, other in jobs:
+                for _, _, _, other in jobs:
                     other.wait()
                 raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                    f"{' '.join(cmd)}\n{text}")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *GENCODE, "-shared", "-o", str(tmp),
-               *(str(objs / (src.stem + ".o")) for src, _, _ in jobs)]
+               *(str(obj) for _, _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): "

@@ -14,7 +14,8 @@ Port of ``molann_tpu/ops/fused_blocked.py``:
   one pass; on a CUDA tensor it launches the CUDA kernel that replaces
   ``_blk_train_kernel`` (K5).
 
-The kernels live in ``csrc/fused_blocked.cu`` over the per-block phases of
+The kernels live in ``csrc/fused_blocked.cu`` (K6, K8) and
+``csrc/fused_blocked_grads.cu`` (K7, K5) over the per-block steps of
 ``csrc/blocked_math.cuh``. Beside them are the plain PyTorch versions
 :func:`blocked_forward_plain`, :func:`blocked_backward_plain`,
 :func:`blocked_cv_forces_plain` and :func:`blocked_train_grads_plain`, which
@@ -25,11 +26,13 @@ What the JAX module does with matrices, this one does with index tables. A
 (``active_idx``, ``n_active``, ``coord_resident``, ``coord_npairs``,
 ``has_align``, ``n_align``, ``out_dim``) and holds int32 tables in place of
 ``D``, ``C`` and ``CW``: the atoms of every feature, each feature's final
-column, per atom the list of (feature, role) entries that touch it, and for
-the coordination features the pair table with per atom its pair partners.
-That last part, the *pair operand*, is what ``c_mat`` is in the port
-(:func:`chunk_matrix`): one int32 device tensor ``[pairs | partner rows |
-partners]`` that may hold millions of pairs.
+column, the bonds, angles and dihedrals in batches in which no two share an
+atom (their adjoints are added into per-atom accumulators batch by batch),
+per atom its position and alignment entries, and for the coordination
+features per atom its pair partners. That last part, the *pair operand*, is
+what ``c_mat`` is in the port (:func:`chunk_matrix`): one int32 device
+tensor ``[partner rows | owned ends | partners]`` that may hold millions of
+pairs.
 
 The kernels choose their own tile (:func:`choose_frames`): the ``tile``
 that the fused ops and ``evaluate_trajectory`` accept for the JAX signature
@@ -74,6 +77,10 @@ BLK_MAX_LAYERS = 8
 BLK_COORD_FLOATS = _F.COORD_FLOATS
 BLK_THREADS = 256
 BLK_GRAD_BLOCKS = 528
+# Where a backward or train block's running sums live (BLK_SUMS_*), and the
+# floats of a thread's rectangle of a large layer's weight gradient.
+SUMS_SHARED, SUMS_ROW, SUMS_RECT = 0, 1, 2
+RECT_FLOATS = 24
 # Shared memory a block may use (227 KB), and a quarter and a half of an
 # SM's, at which four and two blocks are resident and hide each other's
 # barriers.
@@ -95,7 +102,8 @@ class BlockedLayout:
     ``coord_npairs``, ``coord_resident``, ``chunked``, ``has_align``,
     ``n_align``, ``out_dim``. ``tables`` holds the small int32 index tables
     by name and ``coord_par`` the per-feature float parameters; the pair
-    operand is built on demand by :meth:`pair_operand`. Every atom index in
+    operand is built on demand by :meth:`pair_operand` and the batches of
+    bonds, angles and dihedrals by :meth:`feature_batches`. Every atom index in
     a table is a staged index: a position in ``active_idx`` when compaction
     is on, the input-atom index otherwise.
     """
@@ -160,26 +168,26 @@ class BlockedLayout:
             na + nb + w * nd + n_coord + 3 * np.arange(len(pos))])
         item_col = final_of_row[rows.astype(np.int64)]
 
-        # per staged atom, every (kind, role, item) that touches it, in the
-        # order angles, bonds, dihedrals, positions, align atoms
+        # per staged atom, its (kind, item) entries of the gather: position
+        # features, then align atoms. Bonds, angles and dihedrals reach their
+        # atoms through the batches.
         entries = [[] for _ in range(self.n_active)]
-        for kind, table in enumerate((angle, bond, dihedral)):
-            for item, row in enumerate(table):
-                for role, a in enumerate(row):
-                    entries[a].append(kind << 28 | role << 26 | item)
         for item, a in enumerate(pos):
             entries[a].append(3 << 28 | item)
         for item, a in enumerate(align):
             entries[a].append(4 << 28 | item)
-        if max(len(angle), len(bond), len(dihedral), len(pos), 1) >= 1 << 26:
+        if max(len(angle), len(bond), len(dihedral), len(pos), 1) >= 1 << 28:
             raise ValueError("too many features of one type for the blocked "
-                             "kernels' gather table (limit 2^26)")
+                             "kernels' tables (limit 2^28)")
+        self._scattered = [
+            (kind, item, tuple(int(a) for a in row))
+            for kind, table in enumerate((angle, bond, dihedral))
+            for item, row in enumerate(table)]
+        self._batches: dict = {}
         atom_ptr = np.zeros(self.n_active + 1, dtype=np.int64)
         atom_ptr[1:] = np.cumsum([len(e) for e in entries])
         atom_ent = np.asarray([v for e in entries for v in e], dtype=np.int64)
 
-        coord_start = np.zeros(n_coord + 1, dtype=np.int64)
-        coord_start[1:] = np.cumsum(self.coord_npairs)
         out_map = staged if self.active_idx is not None else np.zeros(0)
         self.tables = {
             "active_idx": (self.active_idx if self.active_idx is not None
@@ -188,7 +196,6 @@ class BlockedLayout:
             "angle_idx": angle, "bond_idx": bond, "dihedral_idx": dihedral,
             "pos_idx": pos, "align_idx": align, "item_col": item_col,
             "atom_ptr": atom_ptr, "atom_ent": atom_ent,
-            "coord_start": coord_start,
         }
         self.tables = {k: np.ascontiguousarray(v, dtype=np.int32).reshape(-1)
                        for k, v in self.tables.items()}
@@ -202,33 +209,86 @@ class BlockedLayout:
 
     @property
     def pair_operand_size(self):
-        """Entries of the pair operand: ``[pairs 2P | partner rows
-        n_coord·(n_active+1) | partners 2P]``."""
-        return 4 * self.n_pairs + len(self.coord_npairs) * (self.n_active + 1)
+        """Entries of the pair operand: ``[partner rows n_coord·(n_active+1)
+        | owned ends n_coord·n_active | partners 2P]``."""
+        return 2 * self.n_pairs + len(self.coord_npairs) * (
+            2 * self.n_active + 1)
 
     def pair_operand(self):
         """The int32 pair operand of the coordination features (numpy,
-        1-D): the pair table in staged indices, then per feature and staged
-        atom the row of its pair partners (a CSR), then the partners."""
+        1-D), in staged indices: per feature and atom the row of its pair
+        partners (a CSR into the partners), per feature and atom where in
+        that row the partners of the pairs the atom *owns* end, then the
+        partners, each row's owned ones first. Every pair has one owner, so
+        a walk over the owned partners of every atom meets each pair once;
+        a pair ``(i, j)`` belongs to its smaller atom when ``i + j`` is
+        even and to its larger otherwise, which shares an all-pairs
+        feature's pairs evenly among its atoms."""
         pairs = self._staged[self._pairs]
-        ptrs, nbrs, base = [], [], 0
+        ptrs, mids, nbrs, base = [], [], [], 0
         start = 0
         for npairs in self.coord_npairs:
             p = pairs[start:start + npairs]
             start += npairs
-            ends = np.concatenate([p[:, 0], p[:, 1]])
-            partners = np.concatenate([p[:, 1], p[:, 0]])
-            order = np.argsort(ends, kind="stable")
+            lo, hi = p.min(axis=1), p.max(axis=1)
+            owner = np.where((lo + hi) % 2 == 0, lo, hi)
+            other = lo + hi - owner
+            ends = np.concatenate([owner, other])
+            partners = np.concatenate([other, owner])
+            order = np.argsort(ends, kind="stable")  # owned first, pair order
             ptr = np.zeros(self.n_active + 1, dtype=np.int64)
             ptr[1:] = np.cumsum(np.bincount(ends, minlength=self.n_active))
             ptrs.append(base + ptr)
+            mids.append(base + ptr[:-1]
+                        + np.bincount(owner, minlength=self.n_active))
             nbrs.append(partners[order])
             base += 2 * npairs
-        parts = [pairs.reshape(-1), *ptrs, *nbrs]
+        parts = [*ptrs, *mids, *nbrs]
         out = np.concatenate(parts) if parts else np.zeros(0)
         if out.size and out.max() >= 2**31:
             raise ValueError("pair operand exceeds int32 indexing")
         return np.ascontiguousarray(out, dtype=np.int32)
+
+    def feature_batches(self, group):
+        """``(batch_ptr, batch_ent)``, int32: the bonds, angles and
+        dihedrals (``kind << 28 | item``) cut into batches of at most
+        ``group`` features of which no two share an atom, so that a thread
+        per feature can add its adjoint into per-atom accumulators without
+        a race; the kernels put a barrier between batches. Greedy in table
+        order (angles, bonds, dihedrals): a feature joins the first batch
+        that has room and none of its atoms."""
+        if group not in self._batches:
+            batches, open_ = [], []  # open_: indices of batches with room
+            for kind, item, atoms in self._scattered:
+                for b in open_:
+                    ents, used = batches[b]
+                    if used.isdisjoint(atoms):
+                        break
+                else:
+                    b = len(batches)
+                    batches.append(([], set()))
+                    open_.append(b)
+                    ents, used = batches[b]
+                ents.append(kind << 28 | item)
+                used.update(atoms)
+                if len(ents) >= group:
+                    open_.remove(b)
+            ptr = np.zeros(len(batches) + 1, dtype=np.int32)
+            ptr[1:] = np.cumsum([len(e) for e, _ in batches])
+            ent = np.asarray([v for e, _ in batches for v in e],
+                             dtype=np.int32)
+            self._batches[group] = (ptr, ent)
+        return self._batches[group]
+
+    def device_batches(self, group, device):
+        """:meth:`feature_batches` as one tensor ``[ptr | ent | 0]`` on
+        ``device`` and the number of batches."""
+        key = ("batches", group, torch.device(device))
+        if key not in self._on_device:
+            ptr, ent = self.feature_batches(group)
+            self._on_device[key] = (torch.from_numpy(np.concatenate(
+                [ptr, ent, np.zeros(1, np.int32)])).to(device), len(ptr) - 1)
+        return self._on_device[key]
 
     def device_tables(self, device):
         """The small int32 tables as ONE tensor on ``device`` with the
@@ -259,7 +319,7 @@ class BlockedLayout:
 
 _INT_TABLES = ("active_idx", "out_map", "angle_idx", "bond_idx",
                "dihedral_idx", "pos_idx", "align_idx", "item_col", "atom_ptr",
-               "atom_ent", "coord_start")
+               "atom_ent")
 # The one cache of this module: layouts by spec identity; a layout holds its
 # own device tensors, so dropping it frees them.
 _LAYOUTS: dict = {}
@@ -537,11 +597,12 @@ class BlockedArgs(ctypes.Structure):
         ("n_layers", ctypes.c_int), ("activation", ctypes.c_int),
         ("dims", ctypes.c_int * (BLK_MAX_LAYERS + 1)),
         ("frames", ctypes.c_int), ("pitch", ctypes.c_int),
+        ("n_batches", ctypes.c_int),
         *((name, ctypes.c_void_p) for name in _INT_TABLES),
-        ("pairs", ctypes.c_void_p), ("nbr_ptr", ctypes.c_void_p),
+        ("batch_ptr", ctypes.c_void_p), ("batch_ent", ctypes.c_void_p),
+        ("nbr_ptr", ctypes.c_void_p), ("nbr_mid", ctypes.c_void_p),
         ("nbr", ctypes.c_void_p), ("coord_par", ctypes.c_void_p),
         ("ref_x", ctypes.c_void_p), ("params", ctypes.c_void_p),
-        ("weights", ctypes.c_void_p),
     ]
 
 
@@ -606,24 +667,31 @@ def check_blocked_envelope(params, activation):
 
 def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
                  compact_out=False):
-    """``(BlockedArgs, keepalive)`` for the kernels on ``device``; frames
-    and pitch are left for :func:`_launch` to choose."""
+    """``(BlockedArgs, keepalive)`` for the kernels on ``device``; the
+    tile (frames, pitch and the feature batches) is left for
+    :func:`set_tile`."""
     device = torch.device(device)
     ints, offsets, par = lay.device_tables(device)
     spec = lay.spec
     with torch.no_grad():
-        pieces = [torch.zeros(1, dtype=torch.float32, device=device)]
-        if lay.has_align:
-            pieces.append(ref_x.reshape(-1))
-        for w, b in params:  # the forward reads W transposed, [d_in, d_out]
-            pieces.extend((w.T.reshape(-1), b.reshape(-1)))
-        pieces.extend(w.reshape(-1) for w, _ in params)  # the backward W
-        for p in pieces:
+        # [ref_x | per layer: W transposed [d_in, d_out], b], every piece
+        # padded to a multiple of 4 floats so that the kernels may load a
+        # row of four weights in one 16-byte access (a leading pad keeps the
+        # pointer valid for a model without any); one zeros and one cat
+        zeros = torch.zeros(4, dtype=torch.float32, device=device)
+        pieces = [zeros]
+        tensors = [ref_x.reshape(-1)] if lay.has_align else []
+        for w, b in params:
+            tensors.extend((w.T.reshape(-1), b.reshape(-1)))
+        for p in tensors:
             if p.device != device:
                 raise ValueError(
                     f"model tensors are on {p.device}, input on {device}: "
                     "move the model with model.to(device)")
-        floats = torch.cat([p.to(torch.float32) for p in pieces])
+            pieces.append(p.to(torch.float32))
+            if p.numel() % 4:
+                pieces.append(zeros[:-p.numel() % 4])
+        floats = torch.cat(pieces)
     a = BlockedArgs()
     a.n_act = lay.n_active
     a.n_out = lay.n_active if compact_out else lay.n_atoms
@@ -647,15 +715,28 @@ def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
     if pair_op is not None:
         p0 = pair_op.data_ptr()
         n_ptr = len(lay.coord_npairs) * (lay.n_active + 1)
-        a.pairs = p0
-        a.nbr_ptr = p0 + 4 * 2 * lay.n_pairs
-        a.nbr = p0 + 4 * (2 * lay.n_pairs + n_ptr)
+        a.nbr_ptr = p0
+        a.nbr_mid = p0 + 4 * n_ptr
+        a.nbr = p0 + 4 * (2 * n_ptr - len(lay.coord_npairs))
     a.coord_par = par.data_ptr()
-    fbase = floats.data_ptr() + 4  # past the leading pad element
+    fbase = floats.data_ptr() + 16  # past the leading pad
     a.ref_x = fbase
-    a.params = fbase + 4 * (3 * lay.n_align)
-    a.weights = a.params + 4 * sum(w.numel() + b.numel() for w, b in params)
+    a.params = fbase + 4 * (-(-3 * lay.n_align // 4) * 4)
+    if floats.data_ptr() % 16:
+        raise RuntimeError("the parameter block is not 16-byte aligned")
     return a, (ints, par, floats, pair_op)
+
+
+def set_tile(args, lay, frames, device, threads):
+    """Give ``args`` its tile: ``frames`` frames a block and the batches of
+    bonds, angles and dihedrals for the ``threads // frames`` features a
+    block's threads take at a time. Returns what must stay alive."""
+    args.frames, args.pitch = frames, frames | 1
+    buf, n_batches = lay.device_batches(max(1, threads // frames), device)
+    args.n_batches = n_batches
+    args.batch_ptr = buf.data_ptr()
+    args.batch_ent = buf.data_ptr() + 4 * (n_batches + 1)
+    return buf
 
 
 def blocked_io(x, x_strides, l, y, y_strides, gx, g_strides, component):
@@ -703,20 +784,28 @@ def _library():
     return lib
 
 
-def choose_frames(smem_bytes, l=None, backward=False):
+def choose_frames(smem_bytes, l=None, backward=False, pairs=False):
     """Frames per block (a power of two) given ``smem_bytes(frames) ->
     bytes``: 32, 16 or 8 while four blocks fit on an SM, else the most that
     fit in one block's 227 KB; halved while a batch of ``l`` frames would
-    leave most SMs without a block, so that a small batch spreads its pairs
-    and features over more threads. ``backward``: the backward and train
-    kernels keep a block's running gradient sums beside the tile, a part
-    that does not shrink with the tile; where four blocks do not fit they
-    take 32, 16 or 8 frames with two blocks on an SM before one block's 227
-    KB. (The tile sets the order of the sums: a frame's low bits may differ
+    leave most SMs without a block, so that a small batch spreads its atoms
+    and features over more threads. ``backward``: the kernels that form a
+    gradient (cv+forces, backward, train) keep per-atom accumulators, the
+    pair gradients or a block's running sums beside the tile; where four
+    blocks do not fit they take 32, 16 or 8 frames with two blocks on an SM
+    before one block's 227 KB. ``pairs``: a model whose time is its pair
+    walk (:func:`pair_heavy`) takes the largest of 32, 16 or 8 frames that
+    leaves two blocks on an SM first: the walk's threads are (atom, frame)
+    either way, and a larger tile spreads a tile's barriers and its serial
+    sum over the atoms over more frames (the 125-atom contact model's train
+    kernel: 2.35 ms per 65,536 frames at 32 frames against 2.58 at 16, its
+    backward kernel 4.71 at 16 against 5.09 at 8, H100 80GB HBM3 at 700 W).
+    (The tile sets the order of the sums: a frame's low bits may differ
     between batch sizes, never between two calls on the same batch.) Raises
     when one frame does not fit."""
     frames = None
-    for share in (_SMEM_QUARTER, _SMEM_HALF) if backward else (_SMEM_QUARTER,):
+    shares = ((_SMEM_QUARTER, _SMEM_HALF) if backward else (_SMEM_QUARTER,))
+    for share in ((_SMEM_HALF,) + shares) if pairs else shares:
         for cand in (32, 16, 8):
             if frames is None and smem_bytes(cand) <= share:
                 frames = cand
@@ -735,6 +824,12 @@ def choose_frames(smem_bytes, l=None, backward=False):
         "has: too many active atoms or feature columns")
 
 
+def pair_heavy(lay):
+    """Whether the blocked kernels' time on this layout is its pair walk:
+    more than eight pairs a staged atom."""
+    return lay.n_pairs > 8 * lay.n_active
+
+
 def _launch(kind, lay, ref_x, params, activation, x, tag, l, y, y_strides,
             gx, g_strides, component, pair_op, compact_out):
     """Launch one blocked kernel on the current stream and count it."""
@@ -748,8 +843,11 @@ def _launch(kind, lay, ref_x, params, activation, x, tag, l, y, y_strides,
         args.frames, args.pitch = frames, frames | 1
         return lib.molann_blocked_smem_bytes(ctypes.addressof(args), forces)
 
-    frames = choose_frames(smem_bytes, l)
+    frames = choose_frames(smem_bytes, l, backward=bool(forces),
+                           pairs=pair_heavy(lay))
     args.frames, args.pitch = frames, frames | 1
+    keep += (set_tile(args, lay, frames, dev, lib.molann_blocked_threads(
+        ctypes.addressof(args), forces)),)
     io = blocked_io(x, _strides(tag, lay.n_atoms, l), l, y, y_strides, gx,
                     g_strides, component)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -773,19 +871,36 @@ def _launch_grads(kind, lay, ref_x, params, activation, x, tag, l, aux,
     args, keep = blocked_args(lay, ref_x, params, activation, pair_op, dev)
     width = 1 + _F._grad_width(lay.align_idx if lay.has_align else None,
                                params)
+    with_gx = 2 | int(gx is not None)  # molann_blocked_smem_bytes' kind
+
+    def smem_bytes(frames, sums=None):
+        args.frames, args.pitch = frames, frames | 1
+        return lib.molann_blocked_smem_bytes(
+            ctypes.addressof(args),
+            with_gx | 4 * (acc_global if sums is None else sums))
+
+    # where a block's running sums live (BLK_SUMS_* in blocked_math.cuh):
     # sums that would take more than half a block's shared memory stay in
     # the block's row of partials in device memory
-    acc_global = 4 * width > _SMEM_MAX // 2
-
-    def smem_bytes(frames):
-        args.frames, args.pitch = frames, frames | 1
-        return lib.molann_blocked_smem_bytes(ctypes.addressof(args),
-                                             3 if acc_global else 2)
-
-    frames = choose_frames(smem_bytes, l, backward=True)
+    acc_global = SUMS_ROW if 4 * width > _SMEM_MAX // 2 else SUMS_SHARED
+    frames = choose_frames(smem_bytes, l, backward=True,
+                           pairs=pair_heavy(lay))
+    if acc_global == SUMS_SHARED and smem_bytes(frames) > _SMEM_HALF:
+        # one block on an SM: two, if they fit with the largest layer's
+        # weight gradient in device memory
+        fewer = choose_frames(lambda f: smem_bytes(f, SUMS_RECT), l,
+                              backward=True)
+        if smem_bytes(fewer, SUMS_RECT) <= _SMEM_HALF:
+            acc_global, frames = SUMS_RECT, fewer
     args.frames, args.pitch = frames, frames | 1
+    threads = lib.molann_blocked_threads(ctypes.addressof(args),
+                                         with_gx | 4 * acc_global)
+    keep += (set_tile(args, lay, frames, dev, threads),)
     rows = lib.molann_blocked_partial_rows(ctypes.addressof(args), l)
-    partials = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    partials = torch.empty(
+        rows * (width + (RECT_FLOATS * threads
+                         if acc_global == SUMS_RECT else 0)),
+        dtype=torch.float32, device=dev)
     out = torch.empty(width, dtype=torch.float32, device=dev)
     io = blocked_grads_io(kind, x, _strides(tag, lay.n_atoms, l), l, aux,
                           aux_strides, gx, g_strides, want_ref, inv_count,

@@ -1,33 +1,47 @@
 """Where the blocked kernels' time goes, measured on one CUDA card.
 
-    python -m molann_tpu_torch.probes.blocked_probe [phases] [tiles] [scaling] [grads]
+    python -m molann_tpu_torch.probes.blocked_probe [phases] [tiles] [scaling]
+    python molann_tpu_torch/probes/blocked_probe.py grads [tag]
 
-With no argument the first three parts run (about two minutes on an H100,
-most of it ``nvcc``). Every time is the mean CUDA-event time of one call after
-two warm-up calls, on ``peptide_model(60)`` and ``lj_fluid_model(5)`` with
-weights from seed 0 and frames from seed 2.
+With no argument the first three parts run (about three minutes on an H100,
+two builds of the kernels among them). Every time is the mean CUDA-event
+time of one call after two warm-up calls, on ``peptide_model(60)`` and
+``lj_fluid_model(5)`` with weights from seed 0 and 65,536 frames from seed 2.
 
-- ``phases``: the kernels cut short after each phase (a copy of
-  ``csrc/`` with ``blk_n_phases`` patched is built for every cut), 65,536
-  peptide frames: what each phase adds.
-- ``tiles``: both kernels at 32, 16, 8 and 4 frames a block against the
-  tile ``choose_frames`` picks, and ``[l, n, 3]`` against ``[3, n, l]``.
-- ``scaling``: both kernels at 1,024 to 262,144 frames, the wall time of a
+- ``phases``: the four kernels (K6 forward, K8 cv+forces, K7 backward as
+  ``torch.autograd.grad`` through a retained graph, with gx and the
+  parameter sums and with the sums alone, K5 train with a frozen reference)
+  by step of a tile, on both models. A copy of ``csrc/`` is built in which
+  thread 0 of every block reads the SM's clock after each step's barrier
+  and adds the cycles since the last to a counter of the step's kind: each
+  step's share of the blocks' cycles, and that share of the kernel's time.
+  Barrier waits count for the step they end.
+- ``tiles``: the four kernels at 32, 16, 8 and 4 frames a block against the
+  tile ``choose_frames`` picks, and K8 on ``[l, n, 3]`` against ``[3, n, l]``.
+- ``scaling``: K6 and K8 at 1,024 to 262,144 frames, the wall time of a
   wrapper call on 8 frames, ``x.sum()`` and ``x.clone()`` on the peptide
   batch as yardsticks of reading and of reading and writing 236 MB, and
   ``torch.profiler``'s kernel times by name.
-- ``grads`` (only when named): the backward (K7, as ``torch.autograd.grad``
-  through a retained graph) and train (K5) kernels on 65,536 frames of both
-  models, as built and with the 64-register variant for models that fit
-  four blocks on an SM taken out (a patched copy of ``csrc/``), in turns.
+- ``grads`` (only when named): one JSON line with the times of K7 (with gx,
+  and the parameter sums alone), K5, K6 and K8 on both models, each kernel's
+  own time by name from ``torch.profiler``, and the seconds ``nvcc`` took.
+  Run as a file, this part imports ``molann_tpu_torch`` from the current
+  directory, not from beside itself, and calls only the package's public
+  functions. So two commits compare in one call on one card: unpack the
+  other commit into a directory git ignores (``git archive``), and run this
+  same file from both roots in turns (parent, change, change, parent), with a
+  tag to tell the lines apart.
 
-A development script: nothing in the package imports it. It rebuilds the
-kernels from patched copies of ``csrc/`` and forces tiles by patching
-``_build.SRC_DIR`` / ``_build._lib`` and ``fused_blocked.choose_frames``
-for the duration of a measurement, as a test would.
+A development script: nothing in the package imports it. ``phases`` rebuilds
+the kernels from a patched copy of ``csrc/`` and ``tiles`` forces tiles by
+patching ``_build.SRC_DIR`` / ``_build._lib`` and
+``fused_blocked.choose_frames`` for the duration of a measurement, as a test
+would.
 """
 
 import contextlib
+import json
+import re
 import shutil
 import subprocess
 import sys
@@ -39,17 +53,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from ..ops import _build
-from ..ops import fused as F
-from ..ops import fused_blocked as FB
-from ..systems import lj_fluid_model, peptide_model
-
 BATCH = 65536
-PHASES = ["LOAD", "FEAT", "REDUCE", "QCP", "POS", "MLP0", "MLP1", "OUT",
-          "BWD1", "BWD0", "GR", "GH", "GC", "GATHER"]
-N_PHASES = "return forces ? 10 + 2 * m.n_layers : 6 + m.n_layers;"
-
-
 def cuda_ms(fn, reps=10):
     for _ in range(2):
         fn()
@@ -72,83 +76,156 @@ def frames(u, l, sigma, dev, chunk=16384):
         for s in range(0, l, chunk)])
 
 
-def k6_k8(model, x):
+def k6_k8(F, model, x):
     with torch.no_grad():
         t6 = cuda_ms(lambda: F.fused_model_forward(model, x))
     return t6, cuda_ms(lambda: F.fused_cv_forces(model, x))
 
 
-def phases(peptide, xp):
-    """Cut the kernels short after n phases, for the n that end a group."""
+def k7_k5(F, model, x, with_params_only=False):
+    """K7 as ``torch.autograd.grad`` through a retained graph (gx and the
+    parameter sums; with ``with_params_only`` also the sums alone) and K5
+    with a frozen reference."""
+    spec, _, _, params, _ = F._extract_model(model)
+    gy = torch.as_tensor(np.random.default_rng(17).normal(
+        size=(x.shape[0], F._out_dim(spec, params))).astype(np.float32),
+        device=x.device)
+    xg = x.clone().requires_grad_(True)
+    yk = F.fused_model_forward(model, xg)
+    leaves = [xg, *model.parameters()]
+    out = [cuda_ms(lambda: torch.autograd.grad(yk, leaves, gy,
+                                               retain_graph=True))]
+    if with_params_only:  # a graph in which x asks for no gradient
+        yp = F.fused_model_forward(model, x)
+        out.append(cuda_ms(lambda: torch.autograd.grad(
+            yp, leaves[1:], gy, retain_graph=True)))
+    out.append(cuda_ms(lambda: F.fused_train_grads(model, x, gy)))
+    return out
+
+
+STEP_KINDS = ["LOAD", "FEAT", "REDUCE", "QCP", "POS", "MLP", "MLP_SUM", "OUT",
+              "SEED", "PGRAD", "BWD", "GR", "GH", "GREF", "GC", "SCATTER",
+              "GATHER"]
+# What the instrumented copy patches: the call's struct gets a pointer to the
+# counters, the clock is read where the step loop starts and after each
+# step's barrier, and once more after the block has stored its sums.
+IO_END = ("  float* partials;  // [blocks, 1 + G] per-block sums, then "
+          "reduced by column\n};")
+LOOP_START = "  const int n_steps = steps[MOLANN_BLK_MAX_STEPS - 1];\n"
+STEP_END = "__syncthreads();  // the step's barrier\n"
+CLOCK = ("if (threadIdx.x == 0) { const long long t1 = clock64(); atomicAdd("
+         "io.probe + st.kind * 4 + (st.kind == BLK_SCATTER ? 0 : st.arg < 3 "
+         "? st.arg : 3), (unsigned long long)(t1 - t0)); t0 = t1; }\n")
+GRADS_END = "  blk_grad_end(m, io, acc, rect, row, tid, nt);\n"
+KERNEL_FILES = ("fused_blocked.cu", "fused_blocked_grads.cu")
+
+
+def phases(F, FB, _build, models):
+    """Each step's share of the blocks' cycles, from one instrumented build."""
+    import ctypes
+
     src_dir = _build.SRC_DIR
-    text = (src_dir / "blocked_math.cuh").read_text()
-    if N_PHASES not in text:
-        raise SystemExit("blk_n_phases no longer reads as this probe expects")
-    prev6 = prev8 = 0.0
+    texts = {n: (src_dir / n).read_text()
+             for n in ("blocked_math.cuh", *KERNEL_FILES)}
+    for name, needle in (("blocked_math.cuh", IO_END),
+                         *((n, LOOP_START) for n in KERNEL_FILES),
+                         *((n, STEP_END) for n in KERNEL_FILES),
+                         ("fused_blocked_grads.cu", GRADS_END)):
+        if texts[name].count(needle) != 1:
+            raise SystemExit(f"{name} no longer reads as this probe expects: "
+                             f"{needle!r}")
+    dev = next(iter(models.values()))[1].device
+    cycles = torch.zeros(128, dtype=torch.int64, device=dev)
+
+    class ProbeIO(ctypes.Structure):
+        _fields_ = [*FB.BlockedIO._fields_, ("probe", ctypes.c_void_p)]
+
+        def __init__(self):
+            super().__init__()
+            self.probe = cycles.data_ptr()
+
     with tempfile.TemporaryDirectory() as tmp:
-        for n in (1, 2, 6, 8, 10, 13, 14):
-            cut = Path(tmp) / f"csrc_{n}"
-            shutil.copytree(src_dir, cut)
-            (cut / "blocked_math.cuh").write_text(text.replace(
-                N_PHASES, f"return forces ? {n} : {min(n, 8)};"))
-            with mock.patch.multiple(_build, SRC_DIR=cut, _lib=None):
-                t6, t8 = k6_k8(peptide, xp)
-            print(f"phases: up to {PHASES[n - 1]} ({n}): K6 {t6:.4f} ms "
-                  f"(+{t6 - prev6:.4f}), K8 {t8:.4f} ms "
-                  f"(+{t8 - prev8:.4f})", flush=True)
-            prev6, prev8 = t6, t8
-
-
-FOUR_BLOCKS = "return smem <= 56 * 1024 ?"
-
-
-def grads(models):
-    """K7 and K5 as built, and without the four-blocks-an-SM variant."""
-    src_dir = _build.SRC_DIR
-    text = (src_dir / "fused_blocked.cu").read_text()
-    if FOUR_BLOCKS not in text:
-        raise SystemExit("launch_grads no longer reads as this probe expects")
-    with tempfile.TemporaryDirectory() as tmp:
-        cut = Path(tmp) / "csrc_two_blocks"
+        cut = Path(tmp) / "csrc_timed"
         shutil.copytree(src_dir, cut)
-        (cut / "fused_blocked.cu").write_text(
-            text.replace(FOUR_BLOCKS, "return false ?"))
-        for tag, src in (("as built", src_dir), ("two blocks", cut),
-                         ("two blocks", cut), ("as built", src_dir)):
-            with mock.patch.multiple(_build, SRC_DIR=src, _lib=None):
-                for name, (model, x) in models.items():
-                    spec, _, _, params, _ = F._extract_model(model)
-                    d = F._out_dim(spec, params)
-                    gy = torch.as_tensor(np.random.default_rng(17).normal(
-                        size=(x.shape[0], d)).astype(np.float32),
-                        device=x.device)
-                    xg = x.clone().requires_grad_(True)
-                    yk = F.fused_model_forward(model, xg)
-                    leaves = [xg, *model.parameters()]
-                    t7 = cuda_ms(lambda: torch.autograd.grad(
-                        yk, leaves, gy, retain_graph=True))
-                    t5 = cuda_ms(lambda: F.fused_train_grads(model, x, gy))
-                    print(f"grads: {name}, {tag}: K7 {t7:.4f} ms, K5 "
-                          f"{t5:.4f} ms", flush=True)
+        (cut / "blocked_math.cuh").write_text(
+            texts["blocked_math.cuh"].replace(
+                IO_END, IO_END[:-2] + "  unsigned long long* probe;\n};"))
+        for name in KERNEL_FILES:
+            (cut / name).write_text(
+                texts[name].replace(
+                    LOOP_START, LOOP_START + "  long long t0 = clock64();\n")
+                .replace(STEP_END, STEP_END + CLOCK)
+                .replace(GRADS_END, GRADS_END + "  if (threadIdx.x == 0) "
+                         "atomicAdd(io.probe + 127, (unsigned long long)("
+                         "clock64() - t0));\n"))
+        with mock.patch.multiple(_build, SRC_DIR=cut, _lib=None), \
+                mock.patch.object(FB, "BlockedIO", ProbeIO):
+            for name, (model, x) in models.items():
+                spec, _, _, params, _ = F._extract_model(model)
+                gy = torch.as_tensor(np.random.default_rng(17).normal(size=(
+                    x.shape[0], F._out_dim(spec, params))).astype(np.float32),
+                    device=dev)
+                xg = x.clone().requires_grad_(True)
+                yk = F.fused_model_forward(model, xg)
+                leaves = [xg, *model.parameters()]
+                yp = F.fused_model_forward(model, x)
+
+                def k6():
+                    with torch.no_grad():
+                        F.fused_model_forward(model, x)
+
+                for kernel, fn in (
+                        ("K6", k6),
+                        ("K8", lambda: F.fused_cv_forces(model, x)),
+                        ("K7", lambda: torch.autograd.grad(
+                            yk, leaves, gy, retain_graph=True)),
+                        ("K7 without gx", lambda: torch.autograd.grad(
+                            yp, leaves[1:], gy, retain_graph=True)),
+                        ("K5", lambda: F.fused_train_grads(model, x, gy))):
+                    ms = cuda_ms(fn)
+                    cycles.zero_()
+                    fn()
+                    torch.cuda.synchronize()
+                    got = cycles.cpu().numpy().astype(np.float64)
+                    total = got.sum()
+                    rows = []
+                    for k, kind in enumerate(STEP_KINDS):
+                        for arg in range(4):
+                            c = got[4 * k + arg]
+                            if c:
+                                label = kind + (str(arg) if kind in (
+                                    "MLP", "MLP_SUM", "PGRAD", "BWD") else "")
+                                rows.append(f"{label} {c / total * ms:.4f}")
+                    if got[127]:
+                        rows.append(f"sums out {got[127] / total * ms:.4f}")
+                    print(f"phases: {name}, {kernel} {ms:.4f} ms (with the "
+                          f"clock reads), by step, ms: " + ", ".join(rows),
+                          flush=True)
 
 
-def tiles(models):
+def tiles(F, FB, models):
     for n_frames in (None, 32, 16, 8, 4):
         forced = (mock.patch.object(
-            FB, "choose_frames", lambda smem, l=None, fr=n_frames: fr)
+            FB, "choose_frames", lambda smem, l=None, backward=False,
+            pairs=False, fr=n_frames: fr)
             if n_frames is not None else contextlib.nullcontext())
         with forced:
             for name, (model, x) in models.items():
-                t6, t8 = k6_k8(model, x)
-                xc = x.permute(2, 1, 0).contiguous()
-                t8c = cuda_ms(lambda: F.fused_cv_forces(model, xc))
+                try:
+                    t6, t8 = k6_k8(F, model, x)
+                    xc = x.permute(2, 1, 0).contiguous()
+                    t8c = cuda_ms(lambda: F.fused_cv_forces(model, xc))
+                    t7, t5 = k7_k5(F, model, x)
+                except RuntimeError as e:  # a tile past 227 KB is refused
+                    print(f"tiles: {name}, frames a block {n_frames}: {e}")
+                    continue
                 print(f"tiles: {name}, frames a block "
                       f"{n_frames or 'as chosen'}: K6 {t6:.4f} ms, K8 "
-                      f"[l, n, 3] {t8:.4f} ms, K8 [3, n, l] {t8c:.4f} ms",
-                      flush=True)
+                      f"[l, n, 3] {t8:.4f} ms, K8 [3, n, l] {t8c:.4f} ms, "
+                      f"K7 {t7:.4f} ms, K5 {t5:.4f} ms", flush=True)
 
 
-def scaling(models, dev):
+def scaling(F, models):
     from torch.profiler import ProfilerActivity, profile
 
     for name, (model, x) in models.items():
@@ -156,7 +233,7 @@ def scaling(models, dev):
         for l in (1024, 16384, 65536, 262144):
             reps = -(-l // x.shape[0])
             xl = u_frames.repeat(reps, 1, 1)[:l].contiguous()
-            t6, t8 = k6_k8(model, xl)
+            t6, t8 = k6_k8(F, model, xl)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(20):
@@ -182,8 +259,41 @@ def scaling(models, dev):
                                     max_name_column_width=70))
 
 
+def grads(F, _build, models, tag, card):
+    """One JSON line: the kernels' times on both models, by CUDA events with
+    their wrappers and alone by name from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"tag": tag, "card": card, "nvcc_s": _build.BUILD_INFO["seconds"]}
+    for name, (model, x) in models.items():
+        t7, t7p, t5 = k7_k5(F, model, x, with_params_only=True)
+        t6, t8 = k6_k8(F, model, x)
+        out[name] = {"K7 ms": t7, "K7 without gx ms": t7p, "K5 ms": t5,
+                     "K6 ms": t6, "K8 ms": t8}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k7_k5(F, model, x, with_params_only=True)
+            k6_k8(F, model, x)
+            torch.cuda.synchronize()
+        for event in prof.key_averages():
+            kernel = re.search(r"blocked(_grads)?_kernel<[^>]*>", event.key)
+            if kernel:
+                total = getattr(event, "device_time_total", None)
+                if total is None:
+                    total = event.cuda_time_total
+                out[name][kernel.group(0) + " alone ms"] = \
+                    total / event.count / 1e3
+    print(json.dumps(out), flush=True)
+
+
 def main(argv):
-    parts = argv or ["phases", "tiles", "scaling"]
+    from molann_tpu_torch.ops import _build
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+
+    parts = [a for a in argv if a in ("phases", "tiles", "scaling", "grads")]
+    tag = next((a for a in argv if a not in parts), "")
+    parts = parts or ["phases", "tiles", "scaling"]
     if not torch.cuda.is_available():
         raise SystemExit("blocked_probe: no CUDA card")
     dev = torch.device("cuda:0")
@@ -199,19 +309,24 @@ def main(argv):
               "lj_fluid_model(5)": (fluid, frames(fu, BATCH, 0.5, dev))}
     FB._library()
     log = _build.BUILD_INFO["log"]  # empty when the library was built before
-    print("registers of fused_blocked.cu: " + ("; ".join(
+    print("registers of the blocked kernels: " + ("; ".join(
         ln.split("info    :")[-1].strip()
-        for ln in log.split("== ")[1].splitlines() if "registers" in ln)
+        for section in log.split("== ")[1:]
+        if section.startswith("fused_blocked")
+        for ln in section.splitlines()
+        if "registers" in ln or "spill" in ln)
         if log else "not rebuilt in this run"))
     if "phases" in parts:
-        phases(*models["peptide_model(60)"])
+        phases(F, FB, _build, models)
     if "tiles" in parts:
-        tiles(models)
+        tiles(F, FB, models)
     if "scaling" in parts:
-        scaling(models, dev)
+        scaling(F, models)
     if "grads" in parts:
-        grads(models)
+        grads(F, _build, models, tag, card)
 
 
 if __name__ == "__main__":
+    if not __package__:
+        sys.path.insert(0, ".")
     main(sys.argv[1:])

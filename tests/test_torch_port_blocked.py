@@ -167,15 +167,19 @@ def test_lj_fluid_streamed_pairs_and_c_mat(tmp_path):
     lay = FB.blocked_layout(spec, align_idx)
     assert lay.coord_resident == (False, False) and lay.chunked
     assert lay.coord_npairs == (2016, 2016)
-    assert c.dtype == np.int32 and c.shape == (4 * 4032 + 2 * 65,)
-    pairs = c[:2 * 4032].reshape(-1, 2)
-    np.testing.assert_array_equal(pairs, np.asarray(spec.coord_pairs))
-    ptr = c[2 * 4032:2 * 4032 + 130].reshape(2, 65)
-    nbr = c[2 * 4032 + 130:]
+    # [partner rows | where each row's owned partners end | partners]
+    assert c.dtype == np.int32 and c.shape == (2 * 4032 + 2 * (2 * 64 + 1),)
+    ptr = c[:130].reshape(2, 65)
+    mid = c[130:258].reshape(2, 64)
+    nbr = c[258:]
     for k in range(2):
         for a in (0, 17, 63):
             got = sorted(nbr[ptr[k, a]:ptr[k, a + 1]].tolist())
             assert got == [b for b in range(64) if b != a]
+            owned = nbr[ptr[k, a]:mid[k, a]].tolist()
+            assert owned == [b for b in range(64) if b != a
+                             and (a < b) == ((a + b) % 2 == 0)]
+        assert int((mid[k] - ptr[k, :-1]).sum()) == 2016  # each pair once
     x = frames(u, 6, 15, sigma=0.8)
     xt = torch.from_numpy(x)
     y, g = F.fused_cv_forces(tm, xt, c_mat=torch.from_numpy(c))

@@ -9,10 +9,16 @@ threads of each phase in loops, with the shared memory of a block filled
 with NaN first so that a read of a row nobody wrote shows. The outputs are
 held against the plain PyTorch versions over the models, layouts, tile
 sizes and options the kernels take, so index-table, stride and adjoint
-faults show before any GPU time is spent. The backward and train kernels
+faults show before any GPU time is spent: the pair walk in each of its
+compiled forms, forward only and with the pair gradient (same switching
+sums, bit for bit), the batches of bonds, angles and dihedrals and their
+per-atom accumulators, the register-tiled MLP layers forwards and backwards.
+The backward and train kernels
 are walked the same way: a grid of a few blocks, each over its tiles in
 order with its running sums, then the column-wise reduction in the
-kernel's order, twice, with equal bits. Tolerances: values 1e-5 abs
+kernel's order, twice, with equal bits, with a large layer's parameter step
+in rectangles and a small one's entry by entry, the sums in shared memory
+and in the block's row. Tolerances: values 1e-5 abs
 (5e-5 for sums over thousands of pairs); gradients 5e-5·max(1, max|g|)
 (tests/test_fused_blocked.py:83-95, tests/test_condensed.py:101-118); the
 loss 1e-5 relative.
@@ -68,51 +74,82 @@ extern "C" long long host_blk_smem_bytes(const BlockedArgs* m, int nt, int force
   return (long long)blk_smem(*m, nt, forces != 0).total * (long long)sizeof(float);
 }
 
+extern "C" int host_blk_pair_form(const float* par) {
+  return blk_pair_form(coord_load(par));
+}
+
 extern "C" void host_blk_run(const BlockedArgs* m, const BlockedIO* io, int nt,
                              int forces) {
   std::vector<float> sm(blk_smem(*m, nt, forces != 0).total);
   const long long blocks = (io->l + m->frames - 1) / m->frames;
-  const int n_phases = blk_n_phases(*m, forces != 0);
+  int* steps = reinterpret_cast<int*>(sm.data());
   for (long long b = 0; b < blocks; ++b) {
     for (float& v : sm) v = NAN;
-    for (int ph = 0; ph < n_phases; ++ph)
-      for (int tid = 0; tid < nt; ++tid) {
-        const bool al = blk_aligned(*m);
-        if (forces && al) blk_phase<true, true>(*m, *io, sm.data(), b, ph, tid, nt);
-        else if (forces) blk_phase<true, false>(*m, *io, sm.data(), b, ph, tid, nt);
-        else if (al) blk_phase<false, true>(*m, *io, sm.data(), b, ph, tid, nt);
-        else blk_phase<false, false>(*m, *io, sm.data(), b, ph, tid, nt);
+    const int n_steps = blk_build_steps(*m, forces ? BLK_MODE_FORCES : BLK_MODE_FORWARD,
+                                        forces != 0, forces != 0, nt, steps);
+    for (int i = 0; i < n_steps; ++i) {
+      const BlkStep st = blk_step_of(steps[i]);
+      const int reps = st.kind == BLK_SCATTER ? m->n_batches : 1;
+      for (int r = 0; r < reps; ++r) {
+        const BlkStep ph = {st.kind, reps > 1 ? r : st.arg};
+        for (int tid = 0; tid < nt; ++tid) {
+          const bool al = blk_aligned(*m);
+          if (forces && al) blk_phase<true, true>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (forces) blk_phase<true, false>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (al) blk_phase<false, true>(*m, *io, sm.data(), b, ph, tid, nt);
+          else blk_phase<false, false>(*m, *io, sm.data(), b, ph, tid, nt);
+        }
       }
+    }
   }
 }
 
-extern "C" long long host_blk_grad_smem_bytes(const BlockedArgs* m, int nt, int acc_global) {
-  return (long long)blk_grad_smem(*m, nt, acc_global != 0).total * (long long)sizeof(float);
+extern "C" long long host_blk_grad_smem_bytes(const BlockedArgs* m, int nt, int gx,
+                                              int acc_global) {
+  return (long long)blk_grad_smem(*m, nt, gx != 0, acc_global).total *
+         (long long)sizeof(float);
+}
+
+// How many layers' parameter steps run in rectangles of 4 x 6 entries.
+extern "C" int host_blk_rect_layers(const BlockedArgs* m, int nt) {
+  int n = 0;
+  for (int L = 0; L < m->n_layers; ++L) n += blk_rect_layer(m->dims[L], m->dims[L + 1], nt);
+  return n;
 }
 
 extern "C" long long host_blk_grad_rows(const BlockedArgs* m, long long l) {
   return blk_grad_blocks(*m, l);
 }
 
-template <bool kTrain, bool kAligned>
+template <bool kTrain, bool kGx, bool kAligned>
 static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int nt,
                       int n_blocks) {
   const int width = 1 + blk_grad_size(m);
-  const BlkSmem so = blk_grad_smem(m, nt, io.acc_global != 0);
+  const BlkSmem so = blk_grad_smem(m, nt, kGx, io.acc_global);
+  const int rect_floats = MOLANN_BLK_RSUM_J * MOLANN_BLK_RSUM_K * nt;
   std::vector<float> sm(so.total);
   const long long tiles = (io.l + m.frames - 1) / m.frames;
-  const int n_phases = blk_grad_n_phases(m);
+  int* steps = reinterpret_cast<int*>(sm.data());
   for (int b = 0; b < n_blocks; ++b) {
     for (float& v : sm) v = NAN;
     float* row = io.partials + (long long)b * width;
-    float* acc = io.acc_global ? row : sm.data() + so.acc;
-    for (int tid = 0; tid < nt; ++tid) blk_grad_begin(m, acc, tid, nt);
+    float* acc = io.acc_global == BLK_SUMS_ROW ? row : sm.data() + so.acc;
+    float* rect = io.acc_global == BLK_SUMS_RECT
+        ? io.partials + (long long)n_blocks * width + (long long)b * rect_floats : nullptr;
+    for (int tid = 0; tid < nt; ++tid) blk_grad_begin(m, io, acc, rect, tid, nt);
+    const int n_steps = blk_build_steps(m, kTrain ? BLK_MODE_TRAIN : BLK_MODE_BACKWARD,
+                                        blk_grad_adjoint<kGx, kAligned>(io), kGx, nt, steps);
     for (long long tile = b; tile < tiles; tile += n_blocks)
-      for (int ph = 0; ph < n_phases; ++ph)
-        for (int tid = 0; tid < nt; ++tid)
-          blk_grad_phase<kTrain, kAligned>(m, io, sm.data(), so, acc, tile, ph, tid, nt);
-    if (!io.acc_global)
-      for (int e = 0; e < width; ++e) row[e] = acc[e];
+      for (int i = 0; i < n_steps; ++i) {
+        const BlkStep st = blk_step_of(steps[i]);
+        const int reps = st.kind == BLK_SCATTER ? m.n_batches : 1;
+        for (int r = 0; r < reps; ++r)
+          for (int tid = 0; tid < nt; ++tid)
+            blk_grad_phase<kTrain, kGx, kAligned>(m, io, sm.data(), so, acc, rect, tile,
+                                                  BlkStep{st.kind, reps > 1 ? r : st.arg},
+                                                  tid, nt);
+      }
+    for (int tid = 0; tid < nt; ++tid) blk_grad_end(m, io, acc, rect, row, tid, nt);
   }
   for (int c = 0; c < width; ++c) {  // reduce_partials, in its order
     float tot = reduce_rows(io.partials, n_blocks, width, c, 0);
@@ -126,10 +163,13 @@ static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int
 extern "C" void host_blk_grads(const BlockedArgs* m, const BlockedIO* io, float* out, int nt,
                                int train, int n_blocks) {
   const bool al = blk_aligned(*m);
-  if (train && al) run_grads<true, true>(*m, *io, out, nt, n_blocks);
-  else if (train) run_grads<true, false>(*m, *io, out, nt, n_blocks);
-  else if (al) run_grads<false, true>(*m, *io, out, nt, n_blocks);
-  else run_grads<false, false>(*m, *io, out, nt, n_blocks);
+  const bool gx = !train && io->gx != nullptr;  // the kernels' three kinds
+  if (train && al) run_grads<true, false, true>(*m, *io, out, nt, n_blocks);
+  else if (train) run_grads<true, false, false>(*m, *io, out, nt, n_blocks);
+  else if (gx && al) run_grads<false, true, true>(*m, *io, out, nt, n_blocks);
+  else if (gx) run_grads<false, true, false>(*m, *io, out, nt, n_blocks);
+  else if (al) run_grads<false, false, true>(*m, *io, out, nt, n_blocks);
+  else run_grads<false, false, false>(*m, *io, out, nt, n_blocks);
 }
 """
 
@@ -151,8 +191,10 @@ def host(tmp_path_factory):
     h.host_blk_smem_bytes.argtypes = [vp, i32, i32]
     h.host_blk_smem_bytes.restype = ctypes.c_longlong
     h.host_blk_run.argtypes = [vp, vp, i32, i32]
-    h.host_blk_grad_smem_bytes.argtypes = [vp, i32, i32]
+    h.host_blk_grad_smem_bytes.argtypes = [vp, i32, i32, i32]
     h.host_blk_grad_smem_bytes.restype = ctypes.c_longlong
+    h.host_blk_rect_layers.argtypes = [vp, i32]
+    h.host_blk_pair_form.argtypes = [vp]
     h.host_blk_grad_rows.argtypes = [vp, ctypes.c_longlong]
     h.host_blk_grad_rows.restype = ctypes.c_longlong
     h.host_blk_grads.argtypes = [vp, vp, vp, i32, i32, i32]
@@ -171,7 +213,7 @@ def host_launch(host, frames, threads):
                gx, g_strides, component, pair_op, compact_out):
         args, keep = FB.blocked_args(lay, ref_x, params, activation, pair_op,
                                      "cpu", compact_out=compact_out)
-        args.frames, args.pitch = frames, frames | 1
+        keep += (FB.set_tile(args, lay, frames, "cpu", threads),)
         forces = int(kind == "blocked_cv_forces")
         assert host.host_blk_smem_bytes(ctypes.addressof(args), threads,
                                         forces) > 0
@@ -310,6 +352,125 @@ def test_switching_forms(host, component):
               threads=32)
 
 
+# nn, mm, d_max, box ("ortho", "triclinic" or None) and the instance of the
+# pair loop it must get (blk_pair_form): 1 + 2 i + has_box for nn = 4, 6, 8,
+# and 0, the generic body, for everything else
+PAIR_FORMS = [
+    (4, 8, None, None, 1), (4, 8, None, "ortho", 2), (4, 8, 3.6, None, 1),
+    (4, 8, 3.6, "ortho", 2), (6, 12, None, None, 3), (6, 12, None, "ortho", 4),
+    (6, 12, 3.6, None, 3), (6, 12, 3.6, "ortho", 4), (8, 16, None, None, 5),
+    (8, 16, None, "ortho", 6), (8, 16, 3.6, None, 5),
+    (8, 16, 3.6, "ortho", 6),
+    (3, 7, 3.6, "ortho", 0), (5, 10, None, "ortho", 0),
+    (6, 12, 3.6, "triclinic", 0), (6, 10, None, None, 0),
+]
+
+
+def pair_form_model(nn, mm, d_max, box_kind):
+    u, box = lj_fluid(3)
+    if box_kind == "triclinic":
+        box = np.diag(box)
+        box[1, 0], box[2, 1] = 0.4, -0.3
+    elif box_kind is None:
+        box = None
+    feats = [Feature("q", "coordination", u.atoms, r0=2.0, nn=nn, mm=mm,
+                     pbc_box=box, d_max=d_max)]
+    pp = PreprocessingANN(None, FeatureLayer(feats, u.atoms))
+    head = create_sequential_nn([1, 4, 2], generator=gen(4))
+    with torch.no_grad():
+        head.layers[0].weight.mul_(1e-2)
+    return MolANN(pp, head), u
+
+
+@pytest.mark.parametrize("nn,mm,d_max,box_kind,form", PAIR_FORMS)
+def test_pair_forms(host, nn, mm, d_max, box_kind, form):
+    """One case per compiled instance of the pair loop and four that fall
+    to the generic body: values, gx and the training kernels."""
+    model, u = pair_form_model(nn, mm, d_max, box_kind)
+    lay = FB.blocked_layout(*F._extract_model(model)[:2])
+    par = np.ascontiguousarray(lay.coord_par, dtype=np.float32)
+    assert host.host_blk_pair_form(par.ctypes.data) == form
+    x = frames_of(u, 6, 6, sigma=0.6)
+    check(host, model, x, val_atol=5e-5, frames=4, threads=32)
+    check_backward(host, model, x)
+    check_train(host, model, x)
+
+
+@pytest.mark.parametrize("build", ["fluid", "mixed"])
+@pytest.mark.parametrize("frames,threads", [(4, 32), (1, 32), (8, 256)])
+def test_walks_give_the_same_sums(host, build, frames, threads):
+    """The forward-only walk (each pair once, from its owner) and the walk
+    that also forms D_k (each pair from both atoms) sum s over the owned
+    partners in the same order into the same two accumulators: the values of
+    the forward and of the cv+forces kernel agree to the last bit."""
+    if build == "fluid":
+        model, u, _ = lj_fluid_model(3, generator=gen(2), device="cpu")
+    else:
+        model, _, u = mixed_coordination_model()
+    x = frames_of(u, 9, 3, sigma=1.0)
+    y6 = run_host(host, model, x, forces=False, frames=frames,
+                  threads=threads)
+    y8, _ = run_host(host, model, x, frames=frames, threads=threads)
+    assert torch.equal(y6, y8)
+
+
+@pytest.mark.parametrize("n_side", [3, 5])
+def test_pair_operand_owners(n_side):
+    """Every pair sits once among its owner's partners and once among the
+    other atom's; the owned partners come first in a row; an all-pairs
+    feature's pairs are shared evenly."""
+    model, u, _ = lj_fluid_model(n_side, generator=gen(2), device="cpu")
+    lay = FB.blocked_layout(*F._extract_model(model)[:2])
+    op = lay.pair_operand()
+    assert op.shape == (lay.pair_operand_size,) and op.dtype == np.int32
+    n, n_coord = lay.n_active, len(lay.coord_npairs)
+    ptr = op[:n_coord * (n + 1)].reshape(n_coord, n + 1)
+    mid = op[n_coord * (n + 1):n_coord * (2 * n + 1)].reshape(n_coord, n)
+    nbr = op[n_coord * (2 * n + 1):]
+    pairs = np.asarray(lay.spec.coord_pairs).reshape(-1, 2)
+    start = 0
+    for k, npairs in enumerate(lay.coord_npairs):
+        want = {tuple(sorted(p)) for p in pairs[start:start + npairs]}
+        start += npairs
+        owned, others = [], []
+        for a in range(n):
+            assert ptr[k, a] <= mid[k, a] <= ptr[k, a + 1]
+            owned += [tuple(sorted((a, int(j))))
+                      for j in nbr[ptr[k, a]:mid[k, a]]]
+            others += [tuple(sorted((a, int(j))))
+                       for j in nbr[mid[k, a]:ptr[k, a + 1]]]
+        assert len(owned) == npairs and set(owned) == want
+        assert len(others) == npairs and set(others) == want
+        share = mid[k] - ptr[k, :-1]
+        assert share.max() - share.min() <= 1 + n % 2
+
+
+@pytest.mark.parametrize("group", [1, 8, 32, 256])
+@pytest.mark.parametrize("n_residues", [6, 60])
+def test_feature_batches(n_residues, group):
+    """No two features of a batch share an atom, a batch has at most
+    ``group`` features, and every bond, angle and dihedral is in exactly
+    one batch."""
+    model, _ = peptide_model(n_residues, generator=gen(1), device="cpu")
+    spec, align_idx = F._extract_model(model)[:2]
+    lay = FB.blocked_layout(spec, align_idx)
+    ptr, ent = lay.feature_batches(group)
+    tables = (lay.tables["angle_idx"].reshape(-1, 3),
+              lay.tables["bond_idx"].reshape(-1, 2),
+              lay.tables["dihedral_idx"].reshape(-1, 4))
+    assert ptr[0] == 0 and ptr[-1] == len(ent) == sum(map(len, tables))
+    assert sorted(ent.tolist()) == sorted(
+        kind << 28 | item for kind, t in enumerate(tables)
+        for item in range(len(t)))
+    for b in range(len(ptr) - 1):
+        atoms = [int(a) for e in ent[ptr[b]:ptr[b + 1]]
+                 for a in tables[e >> 28][e & ((1 << 28) - 1)]]
+        assert 0 < ptr[b + 1] - ptr[b] <= group
+        assert len(atoms) == len(set(atoms))
+    if group >= 32:  # a backbone's features meet few others: few batches
+        assert len(ptr) - 1 <= -(-len(ent) // group) + 8
+
+
 def sparse_model(n_residues=40):
     """A large universe with a small feature set: compaction engages."""
     u = synthetic_peptide(n_residues)
@@ -388,14 +549,16 @@ def host_launch_grads(host, frames, threads, n_blocks, acc_global):
                aux_strides, gx, g_strides, want_ref, inv_count, pair_op):
         args, keep = FB.blocked_args(lay, ref_x, params, activation, pair_op,
                                      "cpu")
-        args.frames, args.pitch = frames, frames | 1
-        assert host.host_blk_grad_smem_bytes(ctypes.addressof(args), threads,
-                                             int(acc_global)) > 0
+        keep += (FB.set_tile(args, lay, frames, "cpu", threads),)
+        assert host.host_blk_grad_smem_bytes(
+            ctypes.addressof(args), threads, int(gx is not None),
+            int(acc_global)) > 0
         assert host.host_blk_grad_rows(ctypes.addressof(args), l) == min(
             -(-l // frames), FB.BLK_GRAD_BLOCKS)
         width = 1 + F._grad_width(lay.align_idx if lay.has_align else None,
                                   params)
-        partials = torch.full((n_blocks, width), float("nan"))
+        partials = torch.full((n_blocks * (width + FB.RECT_FLOATS * threads),),
+                              float("nan"))
         out = torch.full((width,), float("nan"))
         io = FB.blocked_grads_io(kind, x, FB._strides(tag, lay.n_atoms, l), l,
                                  aux, aux_strides, gx, g_strides, want_ref,
@@ -523,7 +686,7 @@ def check_train(host, model, x, *, train_ref=False, seed=21, t_layout=False,
 
 @pytest.mark.parametrize("frames,threads,n_blocks,acc_global", [
     (4, 32, 3, False), (16, 256, 2, False), (1, 32, 5, True),
-    (8, 64, 1, False), (32, 64, 4, True)])
+    (8, 64, 1, False), (32, 64, 4, True), (8, 64, 3, 2), (2, 256, 2, 2)])
 def test_backward_peptide(host, frames, threads, n_blocks, acc_global):
     """gx and the parameter sums over several blocks, each over several
     tiles, the last one ragged; sums in shared memory and in the row."""
@@ -541,6 +704,90 @@ def test_train_peptide(host, frames, threads, n_blocks, acc_global,
     check_train(host, model, frames_of(u, 37, 0), train_ref=train_ref,
                 frames=frames, threads=threads, n_blocks=n_blocks,
                 acc_global=acc_global)
+
+
+@pytest.mark.parametrize("hidden_dims", [(32, 2), (6, 3), (9, 70, 2)])
+@pytest.mark.parametrize("frames,threads,n_blocks", [
+    (8, 256, 2), (2, 64, 3), (1, 32, 4), (32, 64, 1)])
+def test_tiled_layers(host, hidden_dims, frames, threads, n_blocks):
+    """Layers of 64 inputs and more run register-tiled, forwards (slices of
+    the inputs, their partial sums added in order) and backwards, with
+    output counts that are and are not multiples of four and a tiled layer
+    above the first; the first layer's parameter step runs in rectangles
+    where they fit the thread count."""
+    model, u = peptide_model(12, hidden_dims=hidden_dims, generator=gen(1),
+                             device="cpu")
+    assert model.preprocessing_layer.output_dimension() >= 64
+    x = frames_of(u, 19, 0)
+    check(host, model, x, frames=frames, threads=threads)
+    check_backward(host, model, x, frames=frames, threads=threads,
+                   n_blocks=n_blocks)
+    check_train(host, model, x, frames=frames, threads=threads,
+                n_blocks=n_blocks)
+
+
+def test_tiled_layer_with_alignment(host):
+    """A tiled layer above the first in a model with alignment: the
+    activation's slope in the tiled backward step, sums in shared memory."""
+    model, u = alanine_model(hidden_dims=(70, 3), generator=gen(3),
+                             device="cpu")
+    x = frames_of(u, 21, 1)
+    check(host, model, x, frames=8, threads=64)
+    check_backward(host, model, x, frames=8, threads=64)
+    check_train(host, model, x, train_ref=True, frames=8, threads=64)
+
+
+@pytest.mark.parametrize("acc_global", [FB.SUMS_SHARED, FB.SUMS_ROW,
+                                        FB.SUMS_RECT])
+@pytest.mark.parametrize("build,threads,rectangles", [
+    ("peptide", 64, 1), ("peptide", 256, 0), ("peptide12", 256, 1),
+    ("peptide12", 32, 0), ("fluid", 32, 0), ("alanine", 32, 1),
+    ("alanine", 256, 0)])
+def test_sum_routes(host, build, threads, rectangles, acc_global):
+    """The routes of the running sums: a large layer's weight gradient
+    formed in rectangles of 4 x 6 entries a thread where they fit the
+    thread count (not for a layer too small to matter, not when there are
+    more rectangles than threads), else entry by entry; the sums in shared
+    memory, in the block's row of partials, or in shared memory but for the
+    largest rectangle layer's weight gradient, which lives behind the rows
+    strided by the thread count."""
+    if build == "fluid":
+        model, u, _ = lj_fluid_model(3, generator=gen(2), device="cpu")
+    elif build == "alanine":
+        model, u = alanine_model(generator=gen(3), device="cpu")
+    else:
+        model, u = peptide_model(12 if build == "peptide12" else 6,
+                                 generator=gen(1), device="cpu")
+    x = (frames_of(u, 9, 3, sigma=1.5) if build == "fluid"
+         else frames_of(u, 13, 0))
+    lay, ref_x, params, act, _, _, pair_op = _host_setup(model, x)
+    args, keep = FB.blocked_args(lay, ref_x, params, act, pair_op, "cpu")
+    keep += (FB.set_tile(args, lay, 4, "cpu", threads),)
+    assert host.host_blk_rect_layers(ctypes.addressof(args),
+                                     threads) == rectangles
+    check_backward(host, model, x, threads=threads, acc_global=acc_global)
+    check_train(host, model, x, threads=threads, acc_global=acc_global)
+
+
+@pytest.mark.parametrize("want_gx", [True, False])
+@pytest.mark.parametrize("want_ref", [True, False])
+def test_backward_asks(host, want_gx, want_ref):
+    """Only what was asked for: without gx no pair gradient and no
+    accumulators (and the shared memory they would take), without the
+    ref_x gradient no sum for it; the parameter sums keep their bits."""
+    model, u = alanine_model(generator=gen(3), device="cpu")
+    x = frames_of(u, 21, 1)
+    gy = random_like((21, 3), 20)
+    gx0, gp0, gref0 = run_host_backward(host, model, x, gy)
+    gx, gp, g_ref = run_host_backward(host, model, x, gy, want_gx=want_gx,
+                                      want_ref=want_ref)
+    assert (gx is not None) == want_gx and (g_ref is not None) == want_ref
+    if want_gx:
+        assert torch.equal(gx, gx0)
+    if want_ref:
+        assert torch.equal(g_ref, gref0)
+    for a, b in zip(_flat(gp), _flat(gp0)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("case", [
@@ -646,3 +893,14 @@ def test_choose_frames_backward():
     assert FB.choose_frames(lambda f: 1289 * (f | 1) * 4, backward=True) == 8
     assert FB.choose_frames(lambda f: 100 * (f | 1) * 4, 64,
                             backward=True) == 1
+    # a model that is its pair walk: two blocks at the largest tile first
+    rows = 636 * 4  # the 125-atom contact model's forward rows, in bytes
+    assert FB.choose_frames(lambda f: rows * (f | 1)) == 16
+    assert FB.choose_frames(lambda f: rows * (f | 1), pairs=True) == 32
+    assert FB.choose_frames(lambda f: 1386 * 4 * (f | 1), backward=True,
+                            pairs=True) == 16
+    assert FB.choose_frames(lambda f: rows * (f | 1), 1024, pairs=True) == 8
+    fluid, _, _ = lj_fluid_model(3, generator=gen(2), device="cpu")
+    peptide, _ = peptide_model(6, generator=gen(1), device="cpu")
+    assert FB.pair_heavy(FB.blocked_layout(*F._extract_model(fluid)[:2]))
+    assert not FB.pair_heavy(FB.blocked_layout(*F._extract_model(peptide)[:2]))

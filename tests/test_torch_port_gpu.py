@@ -530,6 +530,148 @@ def test_blocked_backward_and_train_match_plain(cuda, name, layout, l):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["peptide", "lj", "alanine"])
+def test_blocked_backward_without_gx(cuda, name):
+    """K7 asked for the parameter (and ref_x) sums alone: no pair gradient,
+    no accumulators, no gather; against float64, two launches the same
+    bits."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+
+    model, u, sigma, _ = _blocked_models(cuda)[name]()
+    rng = np.random.default_rng(11)
+    l = 517
+    x = torch.as_tensor((u.atoms.positions[None] + sigma * rng.normal(
+        size=(l, u.atoms.n_atoms, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    gy = torch.as_tensor(rng.normal(size=(l, F._out_dim(
+        parts[0], parts[3]))).astype(np.float32), device=cuda)
+    has_ref = FB.blocked_layout(parts[0], parts[1]).has_align
+    _, gp_r, gref_r = FB.blocked_backward_plain(*_f64(parts), x.double(),
+                                                gy.double())
+    leaves = _flat(parts[3])
+    if has_ref:
+        leaves.append(parts[2].requires_grad_(True))
+    y = F.fused_model_forward(model, x, mode="blocked")
+    got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, gy)
+    if has_ref:
+        parts[2].requires_grad_(False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, want in zip(got, _flat(gp_r) + ([gref_r] if has_ref else [])):
+        _close(g, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nn,mm,d_max,box_kind", [
+    (6, 12, 3.6, "ortho"), (4, 8, None, "ortho"), (8, 16, 3.6, None),
+    (6, 12, None, None), (3, 7, 3.6, "ortho"), (6, 12, 3.6, "triclinic")])
+def test_blocked_pair_forms(cuda, nn, mm, d_max, box_kind):
+    """Compiled instances of the pair loop and the generic body (other
+    exponents, a triclinic box), forward only and with the pair gradient:
+    K6, K8, K7 and K5 against float64."""
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import (
+        FeatureLayer,
+        MolANN,
+        PreprocessingANN,
+        create_sequential_nn,
+    )
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import lj_fluid
+
+    u, box = lj_fluid(3)
+    if box_kind == "triclinic":
+        box = np.diag(box)
+        box[1, 0], box[2, 1] = 0.4, -0.3
+    elif box_kind is None:
+        box = None
+    pp = PreprocessingANN(None, FeatureLayer([Feature(
+        "q", "coordination", u.atoms, r0=2.0, nn=nn, mm=mm, pbc_box=box,
+        d_max=d_max)], u.atoms))
+    head = create_sequential_nn([1, 4, 2],
+                                generator=torch.Generator().manual_seed(4),
+                                device=cuda)
+    with torch.no_grad():
+        head.layers[0].weight.mul_(1e-2)
+    model = MolANN(pp, head)
+    rng = np.random.default_rng(12)
+    l = 300
+    x = torch.as_tensor((u.atoms.positions[None] + 0.6 * rng.normal(
+        size=(l, 27, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    gy = torch.as_tensor(rng.normal(size=(l, 2)).astype(np.float32),
+                         device=cuda)
+    slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+    y_ref, g_ref = FB.blocked_cv_forces_plain(*_f64(parts), x.double())
+    y, g = F.fused_cv_forces(model, x, mode="blocked")
+    with torch.no_grad():
+        y6 = F.fused_model_forward(model, x, mode="blocked")
+    np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=5e-5)
+    np.testing.assert_allclose(y6.cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=5e-5)
+    _assert_grads(g, g_ref, slack,
+                  GRAD_RTOL * max(1.0, float(g_ref.abs().max())))
+    gx_r, gp_r, _ = FB.blocked_backward_plain(*_f64(parts), x.double(),
+                                              gy.double())
+    xg = x.clone().requires_grad_(True)
+    got = torch.autograd.grad(F.fused_model_forward(model, xg, mode="blocked"),
+                              [xg, *_flat(parts[3])], gy)
+    _assert_grads(got[0], gx_r, slack,
+                  GRAD_RTOL * max(1.0, float(gx_r.abs().max())))
+    for a, want in zip(got[1:], _flat(gp_r)):
+        _close(a, want)
+    loss_r, gp_r, _ = FB.blocked_train_grads_plain(*_f64(parts), x.double(),
+                                                   gy.double())
+    loss, grads = F.fused_train_grads(model, x, gy, mode="blocked")
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=LOSS_RTOL)
+    for a, want in zip(grads.values(), _flat(gp_r)):
+        _close(a, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden_dims", [(32, 2), (6, 3), (9, 70, 2)])
+@pytest.mark.parametrize("l", [5, 1000])
+def test_blocked_tiled_layers_and_register_sums(cuda, hidden_dims, l):
+    """The full-width peptide: the first layer register-tiled forwards and
+    backwards (output counts that are and are not multiples of four, a
+    tiled layer above the first), its weight gradient summed in the threads'
+    registers, the feature adjoints through the batches."""
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.systems import peptide_model
+
+    model, u = peptide_model(60, hidden_dims=hidden_dims,
+                             generator=torch.Generator().manual_seed(6),
+                             device=cuda)
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor((u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(l, u.atoms.n_atoms, 3))).astype(np.float32), device=cuda)
+    parts = F._extract_model(model)
+    d_out = hidden_dims[-1]
+    gy = torch.as_tensor(rng.normal(size=(l, d_out)).astype(np.float32),
+                         device=cuda)
+    y_ref, g_ref = FB.blocked_cv_forces_plain(*_f64(parts), x.double())
+    y, g = F.fused_cv_forces(model, x)
+    _check(y, g, y_ref, g_ref)
+    gx_r, gp_r, _ = FB.blocked_backward_plain(*_f64(parts), x.double(),
+                                              gy.double())
+    xg = x.clone().requires_grad_(True)
+    yk = F.fused_model_forward(model, xg)
+    leaves = [xg, *_flat(parts[3])]
+    got = torch.autograd.grad(yk, leaves, gy, retain_graph=True)
+    again = torch.autograd.grad(yk, leaves, gy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, want in zip(got, [gx_r, *_flat(gp_r)]):
+        _close(a, want)
+    loss_r, gp_r, _ = FB.blocked_train_grads_plain(*_f64(parts), x.double(),
+                                                   gy.double())
+    loss, grads = F.fused_train_grads(model, x, gy)
+    np.testing.assert_allclose(float(loss), float(loss_r), rtol=LOSS_RTOL)
+    for a, want in zip(grads.values(), _flat(gp_r)):
+        _close(a, want)
+
+
+@pytest.mark.gpu
 def test_blocked_sums_in_device_memory(cuda):
     """A head too wide for shared memory keeps each block's running sums
     in its row of the partials (acc_global)."""
