@@ -25,7 +25,13 @@ Runs the port's serving path on the card and checks it, phase by phase:
    teacher model, with the launch counts of each run, lower losses at the
    end, and a resume from the step-20 checkpoint that repeats steps 21-40
    bit for bit; (e) CUDA-event times of both kernels and their plain
-   versions on 65536 frames, and training steps per second.
+   versions on 65536 frames, and training steps per second; each unrolled
+   kernel's time alone (``torch.profiler``) beside its event time with the
+   wrapper, and the host's share; (f) alanine with a gelu and with a swish
+   head through K1-K4 and, under ``mode="blocked"``, K5-K8, and alanine
+   with a ``[38, 65, 3]`` head (past the unrolled kernels' width) through
+   the blocked kernels under ``mode="auto"``, each against float64 plain
+   versions on 8192 frames with the launch counts.
 
 7. the blocked serving path: (a) the blocked forward and cv+forces kernels
    against float64 plain versions on 8192 and 8191 frames of
@@ -1082,6 +1088,105 @@ def edge_phase(dev, card):
             "bodies_ms": {v: res[v]["ms"] for v in EP.VARIANTS}}
 
 
+def profiled_ms(fn, pattern, calls=20):
+    """``(alone, device)``: ms a call of the kernels whose name matches
+    ``pattern``, and of all the call's device work, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    alone = total = 0.0
+    for event in prof.key_averages():
+        t = getattr(event, "device_time_total", None)
+        if t is None:
+            t = event.cuda_time_total
+        total += t
+        if re.search(pattern, event.key):
+            alone += t
+    return alone / calls / 1e3, total / calls / 1e3
+
+
+def unrolled_split(calls):
+    """``{kernel: (alone, event, host share)}`` of the unrolled kernels'
+    calls ``{kernel: (fn, kernel-name pattern)}``: the kernel alone, the
+    event time of the call with its wrapper, and that less the call's device
+    time."""
+    out = {}
+    for name, (fn, pattern) in calls.items():
+        alone, device = profiled_ms(fn, pattern)
+        event = cuda_ms(fn, 50)
+        if not alone > 0:
+            fail(f"the profiler saw no {name} kernel")
+        out[name] = (alone, event, event - device)
+    return out
+
+
+def head_phase(dev):
+    """Phase 6f: heads the unrolled kernels took only from PR 6 on (gelu and
+    swish, whose derivative needs the pre-activation) through K1-K4 and
+    K5-K8, and a head past the unrolled kernels' width through the blocked
+    kernels under ``mode="auto"``, against float64 plain versions."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.systems import alanine_model
+
+    out = []
+    for label, kw, mode in (
+            ("gelu", dict(activation="gelu"), "unrolled"),
+            ("gelu", dict(activation="gelu"), "blocked"),
+            ("swish", dict(activation="swish"), "unrolled"),
+            ("swish", dict(activation="swish"), "blocked"),
+            ("[38, 65, 3]", dict(hidden_dims=(65, 3)), "auto")):
+        model, u = alanine_model(generator=torch.Generator().manual_seed(11),
+                                 device=dev, **kw)
+        parts = F._extract_model(model)
+        d = parts[3][-1][0].shape[0]
+        x = noisy_frames(u, CHECK_FRAMES, 24, 0.05, dev)
+        gy = torch.as_tensor(np.random.default_rng(25).normal(
+            size=(CHECK_FRAMES, d)).astype(np.float32), device=dev)
+        what = f"{label} head, mode={mode}"
+        reset_counts()
+        with torch.no_grad():
+            y1 = F.fused_model_forward(model, x, mode=mode)
+        y_r, g_r = F.cv_forces_plain(*f64(parts), x.double())
+        y, g = F.fused_cv_forces(model, x, mode=mode)
+        ev = max(float((y1 - y_r).abs().max()), float((y - y_r).abs().max()))
+        if not ev <= VAL_TOL:
+            fail(f"{what}: values {ev}")
+        err = max(ev, worst([g], [g_r], f"{what}, cv+forces"))
+        xg = x.clone().requires_grad_(True)
+        ref_x = parts[2].requires_grad_(True)
+        got = torch.autograd.grad(F.fused_model_forward(model, xg, mode=mode),
+                                  [xg, ref_x, *flat(parts[3])], gy)
+        ref_x.requires_grad_(False)
+        gx_r, gp_r, gref_r = F.backward_plain(*f64(parts), x.double(),
+                                              gy.double())
+        err = max(err, worst(got, [gx_r, gref_r, *flat(gp_r)],
+                             f"{what}, backward"))
+        loss_r, gp_r, gref_r = F.train_grads_plain(*f64(parts), x.double(),
+                                                   gy.double(), True)
+        loss, grads = F.fused_train_grads(model, x, gy, mode=mode,
+                                          train_ref=True)
+        el = abs(float(loss) - float(loss_r))
+        if not el <= LOSS_RTOL * abs(float(loss_r)):
+            fail(f"{what}, train: loss {float(loss)} vs {float(loss_r)}")
+        err = max(err, el, worst(list(grads.values()), [*flat(gp_r), gref_r],
+                                 f"{what}, train"))
+        pre = "" if mode == "unrolled" else "blocked_"
+        want = counts(**{pre + "forward": 2, pre + "cv_forces": 1,
+                         pre + "backward": 1, pre + "train": 1})
+        if dict(F.KERNEL_LAUNCHES) != want:
+            fail(f"launch counts, {what}: {dict(F.KERNEL_LAUNCHES)}")
+        out.append(f"{what}: {'K1-K4' if not pre else 'K5-K8'} max abs err "
+                   f"{err:.3g}")
+    torch.cuda.synchronize()
+    print("heads vs float64 plain on "
+          f"{CHECK_FRAMES} frames (launch counts checked): " + "; ".join(out))
+
+
 def coordination_model(dev):
     """A 22-atom model inside the unrolled envelope with two coordination
     features (9 and 36 pairs, the second under a box with ``d_max``), a bond
@@ -1512,6 +1617,27 @@ def main():
           f"{ms_k2:.4f} ms (plain backward {ms_p2:.4f} ms), train kernel "
           f"[3n, l] {ms_k3:.4f} ms, [l, n, 3] {ms_k3f:.4f} ms (plain "
           f"{ms_p3:.4f} ms); card: {card}")
+    with torch.no_grad():
+        split = unrolled_split({
+            "forward": (lambda: F.fused_model_forward(model, xb),
+                        r"fused_unrolled_kernel<(false|0)")})
+    split.update(unrolled_split({
+        "cv_forces": (lambda: F.fused_cv_forces(model, xb),
+                      r"fused_unrolled_kernel<(true|1)"),
+        "backward": (lambda: torch.autograd.grad(yk, k_leaves, gyb,
+                                                 retain_graph=True),
+                     r"fused_grads_kernel<(false|0)"),
+        "train": (lambda: F.fused_train_grads(model, xbt, ytb,
+                                              transposed_input=True),
+                  r"fused_grads_kernel<(true|1)")}))
+    print(f"unrolled kernels on one {BATCH}-frame batch, ms alone / with "
+          "the wrapper (CUDA events) / the host's share (events less the "
+          "call's device time): " + "; ".join(
+              f"{k} {a:.4f} / {e:.4f} / {h:.4f}"
+              for k, (a, e, h) in split.items()) + f"; card: {card}")
+
+    # (f) the heads PR 6 added, and a wide head under "auto"
+    head_phase(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 7. the blocked serving path
@@ -1537,22 +1663,26 @@ def main():
          "replaces": "molann_tpu/ops/fused.py:1116",
          "launches": launches["cv_forces"],
          "max_abs_err": max_err["cv_forces"], "ms": ms_k4,
-         "plain_ms": ms_p4, **alanine_bound("cv_forces")},
+         "plain_ms": ms_p4, "alone_ms": split["cv_forces"][0],
+         **alanine_bound("cv_forces")},
         {"name": "forward", "route": "cuda", "source": src,
          "replaces": "molann_tpu/ops/fused.py:578",
          "launches": launches["forward"],
          "max_abs_err": max_err["forward"], "ms": ms_k1,
-         "plain_ms": ms_p1, **alanine_bound("forward")},
+         "plain_ms": ms_p1, "alone_ms": split["forward"][0],
+         **alanine_bound("forward")},
         {"name": "backward", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:586",
          "launches": fit_launches["backward"],
          "max_abs_err": max_err["backward"], "ms": ms_k2,
-         "plain_ms": ms_p2, **alanine_bound("backward")},
+         "plain_ms": ms_p2, "alone_ms": split["backward"][0],
+         **alanine_bound("backward")},
         {"name": "train", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:900",
          "launches": fused_launches["train"],
          "max_abs_err": max_err["train"], "ms": ms_k3,
-         "plain_ms": ms_p3, **alanine_bound("train")},
+         "plain_ms": ms_p3, "alone_ms": split["train"][0],
+         **alanine_bound("train")},
         *blocked_kernels,
         edge_kernel,
     ]}))

@@ -60,6 +60,8 @@
 //                      by their cotangents where a gradient is formed
 //   h     [sum dims]   output of every MLP layer; overwritten in place by
 //                      the layer cotangents
+//   z     [sum dims]   the layers' pre-activations (only where the MLP runs
+//                      backwards through gelu or swish, act_needs_z)
 //   st    [21 | 123]   per-frame alignment state (only with alignment)
 //   spart [n_coord * n_act]      per-atom partial switching sums
 //   dk    [3 * n_coord * n_act]  D_k[a] (only where gx is formed)
@@ -165,7 +167,8 @@ struct BlockedIO {
 
 // Offsets in floats. acc: the block's running sums, backward and train
 // kernels only.
-struct BlkSmem { int xs, feat, h, st, spart, dk, gacc, scr, acc, total; };
+// z: -1 where the kernel keeps no pre-activations.
+struct BlkSmem { int xs, feat, h, z, st, spart, dk, gacc, scr, acc, total; };
 
 __host__ __device__ __forceinline__ bool blk_aligned(const BlockedArgs& m) {
   return m.n_align > 0;
@@ -260,8 +263,9 @@ __host__ __device__ inline int blk_build_steps(const BlockedArgs& m, int mode, b
   return n;
 }
 
-// fstate: room for the whole alignment state (dR/dH and the cotangents);
-// gx: room for D_k and the per-atom accumulators.
+// fstate: room for the whole alignment state (dR/dH and the cotangents)
+// and for the pre-activations a backward through gelu or swish reads; gx:
+// room for D_k and the per-atom accumulators.
 __host__ __device__ inline BlkSmem blk_smem_at(const BlockedArgs& m, int nt, bool fstate,
                                                bool gx) {
   BlkSmem s;
@@ -269,7 +273,11 @@ __host__ __device__ inline BlkSmem blk_smem_at(const BlockedArgs& m, int nt, boo
   s.xs = o;   o += 3 * m.n_act * m.pitch;
   s.feat = o; o += m.n_feat * m.pitch;
   s.h = o;
-  for (int L = 0; L < m.n_layers; ++L) o += m.dims[L + 1] * m.pitch;
+  int hrows = 0;
+  for (int L = 0; L < m.n_layers; ++L) hrows += m.dims[L + 1];
+  o += hrows * m.pitch;
+  s.z = -1;
+  if (fstate && act_needs_z(m.activation)) { s.z = o; o += hrows * m.pitch; }
   s.st = o;
   if (blk_aligned(m)) o += (fstate ? BLK_ST_ALL_ROWS : BLK_ST_FWD_ROWS) * m.pitch;
   s.spart = o; o += m.n_coord * m.n_act * m.pitch;
@@ -673,6 +681,8 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
     const float* b = w + blk_pad4(d_o * d_in);
     const float* in = L ? hbuf + blk_h_off(m, L - 1) : feat;
     float* out = hbuf + blk_h_off(m, L);
+    // the pre-activation too, where a backward through gelu or swish reads it
+    float* zo = (so.z >= 0 && L < nl - 1) ? sm + so.z + blk_h_off(m, L) : nullptr;
     const BlkTiling t = blk_tiling(d_in, d_o, F, nt);
     if (ph == BLK_MLP_SUM) {  // the slices' partial sums, in slice order
       if (!t.tiled || t.slices == 1) return;
@@ -681,6 +691,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
         float acc = b[j];
         for (int g = 0; g < t.slices; ++g) acc += scr[(g * d_o + j) * F + f];
         out[j * FP + f] = (L == nl - 1) ? acc : act_fwd(m.activation, acc);
+        if (zo) zo[j * FP + f] = acc;
       }
       return;
     }
@@ -701,6 +712,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
         for (; k < d_in; ++k) a[0] += wj[k * d_o] * inf[k * FP];
         const float acc = ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
         out[j * FP + f] = (L == nl - 1) ? acc : act_fwd(m.activation, acc);
+        if (zo) zo[j * FP + f] = acc;
       }
       return;
     }
@@ -731,6 +743,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
           } else {
             const float acc = b[j] + a[i][u];
             out[j * FP + f] = (L == nl - 1) ? acc : act_fwd(m.activation, acc);
+            if (zo) zo[j * FP + f] = acc;
           }
         }
     }
@@ -755,12 +768,16 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
     const float* w = blk_layer_w(m, L);  // transposed: [d_in, d_o]
     const float* g = hbuf + blk_h_off(m, L);
     float* in = L ? hbuf + blk_h_off(m, L - 1) : feat;
+    // the input's pre-activation (gelu, swish); the derivative of the
+    // others is read from the output stored in `in`
+    const float* zi = (so.z >= 0 && L) ? sm + so.z + blk_h_off(m, L - 1) : nullptr;
     if (d_in < MOLANN_BLK_TILED_MIN_IN) {
       for (int e = tid; e < d_in * F; e += nt) {
         const int f = e & fmask, k = e >> flog;
         float acc = 0.f;
         for (int j = 0; j < d_o; ++j) acc += w[k * d_o + j] * g[j * FP + f];
-        in[k * FP + f] = L ? acc * act_grad(m.activation, in[k * FP + f]) : acc;
+        in[k * FP + f] =
+            L ? acc * act_grad(m.activation, in[k * FP + f], zi ? zi[k * FP + f] : 0.f) : acc;
       }
       return;
     }
@@ -798,7 +815,9 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
         for (int u = 0; u < 2; ++u) {
           const int k = k0 + i, f = fa + u;
           if (k >= d_in || u >= ft) continue;
-          in[k * FP + f] = L ? a[i][u] * act_grad(m.activation, in[k * FP + f]) : a[i][u];
+          in[k * FP + f] = L ? a[i][u] * act_grad(m.activation, in[k * FP + f],
+                                                  zi ? zi[k * FP + f] : 0.f)
+                             : a[i][u];
         }
     }
     return;

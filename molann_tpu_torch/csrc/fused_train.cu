@@ -1,4 +1,4 @@
-// The unrolled fused training kernels for Hopper (sm_90a), one thread per frame.
+// The unrolled fused training kernels for Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels of molann_tpu/ops/fused.py:
 //   - _bwd_kernel (:586, launched from _bwd_impl :720), K2: the VJP of the
@@ -7,34 +7,34 @@
 //   - _train_kernel (:900, launched from fused_train_grads :1076), K3: the
 //     MSE loss over the true frames and its parameter (and, with train_ref,
 //     ref_x) gradients, with no gx.
-// The per-frame math (forward state, per-frame VJP, MSE cotangent) is in
-// frame_math.cuh.
+// The steps are in frame_math.cuh.
 //
 // What bounds it on this card. Per alanine frame (22 atoms, MLP 38 -> 5 ->
 // 3) K2 reads 66 + 3 f32 and writes 66 (540 B), K3 reads 66 + 3 (276 B):
-// some 0.1-0.2 ms per million frames at 3.35 TB/s. Each thread runs a long
-// serial scalar chain: K1's forward, then for K2 K4's adjoint (QCP by
-// Dual9 included), for K3 with train_ref=False only the MLP's backward. On
-// top of that come the sums over frames: 223 entries per frame (the loss,
-// 9 of ref_x, 213 parameters), each summed over the warp by a five-step
-// shuffle tree. So, as for K4, the chain and the occupancy its registers
-// allow bound the kernels, not DRAM.
+// some 0.1-0.2 ms per million frames at 3.35 TB/s. Each frame is a long
+// serial scalar chain: K1's forward, then for K2 K4's adjoint (QCP's
+// included), for K3 with train_ref=False only the MLP's backward; then the
+// sums over frames of 223 entries (the loss, 9 of ref_x, 213 parameters).
+// The first version (PR 2) ran a thread per frame with the frame's arrays
+// sized by the compile-time envelope in local memory (5 KB of stack a
+// thread, so the state lived in L2) and summed every entry over each warp
+// with a five-step shuffle tree as the VJP produced it, one row of partials
+// a warp.
 //
-// What the design does about it. One thread owns one frame, as in K1 and
-// K4, with the same shared-memory staging of frame-major slabs. The TPU
-// carried the sums over frames in its output refs along a sequential grid;
-// Hopper runs blocks in no order. So the sum has two fixed-order passes
-// and no atomics: each warp sums its 32 frames' terms of every entry with
-// a shuffle tree and its lane 0 stores them as the warp's row of a
-// partials tensor that the wrapper allocates; reduce_partials
-// (reduce_partials.cuh) then sums every column over the rows in a fixed
-// order. The same inputs give the same bits on every launch, which a
-// resumed training run relies on. No
-// thread keeps an array of parameter gradients (18.7K entries at the
-// envelope): frame_vjp hands each term to the warp sum as it produces it.
-// Lanes past the last frame recompute the block's last frame, like the
-// TPU's edge padding, and their terms are masked to zero. This is the
-// simple, right first version: it is not tuned.
+// What the design does about it. A thread still owns a frame for its serial
+// chain, but the frame's state is in the block's shared memory, rows with
+// the frame index fastest, sized by the model at launch (unr_smem): no
+// stack. The MLP runs backwards per frame into rows of cotangents, and the
+// parameter gradients are block products over the block's frames
+// (unr_param_sums: gW = dz a^T, 2 x 2 entries a thread from shared memory),
+// one row of partials a block, written in full by the block. The TPU carried
+// the sums over frames in its output refs along a sequential grid; Hopper
+// runs blocks in no order, so reduce_partials (reduce_partials.cuh) then
+// sums every column over the rows in a fixed order. No float atomics: the
+// same inputs give the same bits on every launch, which a resumed training
+// run relies on. The backward with gx, the backward without it and the train
+// kernel are three instances, so that the ones without gx carry none of its
+// registers.
 
 #include <cuda_runtime.h>
 
@@ -43,140 +43,85 @@
 
 namespace {
 
-// Sums a gradient term over the warp's 32 frames by a fixed shuffle tree;
-// lane 0 stores the sum at row[k]. Every lane must call it, in the same
-// order: frame_vjp's control flow depends on the model only.
-struct WarpSink {
-  float* row;
-  bool live;
-  int lane;
-  __host__ __device__ void operator()(int k, float v) const {
-#ifdef __CUDA_ARCH__
-    v = live ? v : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) row[k] = v;
-#endif
-  }
-};
-
-// One row of partials per warp: [loss | G], G as in frame_vjp.
-inline int partial_width(const ModelArgs& m) { return 1 + model_grad_size(m); }
-
-// kTrain = false: K2, aux = gy [l, d_out], x frame-major; gx may be null.
-// kTrain = true: K3, aux = y_target ([l, d] or, with in_t, [d, l]); no gx.
-template <bool kTrain>
-__global__ void __launch_bounds__(128)
-fused_grads_kernel(const ModelArgs m, const float* __restrict__ x,
-                   const float* __restrict__ aux, float* __restrict__ gx,
-                   float* __restrict__ partials, int width, long long l,
-                   int in_t, float inv_count, int want_ref) {
-  extern __shared__ float slab[];
-  const int n3 = 3 * m.n_atoms;
-  const long long f0 = (long long)blockIdx.x * blockDim.x;
-  const long long left = l - f0;
-  const int nf = left < (long long)blockDim.x ? (int)left : (int)blockDim.x;
-  const int t = threadIdx.x;
-  const bool live = t < nf;
-  const int r = live ? t : nf - 1;  // dead lanes redo the last frame
-  const long long f = f0 + r;
-  const int d_out = model_out_dim(m);
-
-  float xs[3 * MOLANN_MAX_ATOMS];
-  if (!in_t) {
-    const float* src = x + f0 * n3;
-    for (int k = t; k < nf * n3; k += blockDim.x) slab[k] = src[k];
-    __syncthreads();
-    for (int k = 0; k < n3; ++k) xs[k] = slab[r * n3 + k];
-  } else {
-    for (int k = 0; k < n3; ++k) xs[k] = x[(long long)k * l + f];
-  }
-
-  FrameFwd st;
-  const float* y = frame_fwd(m, xs, gx != nullptr || want_ref, st);
-  float ga[MOLANN_MAX_COLS];
-  float loss = 0.f;
-  if (kTrain) {
-    float tv[MOLANN_MAX_COLS];
-    for (int j = 0; j < d_out; ++j)
-      tv[j] = in_t ? aux[(long long)j * l + f] : aux[f * d_out + j];
-    loss = mse_cotangent(y, tv, d_out, inv_count, ga);
-  } else {
-    for (int j = 0; j < d_out; ++j) ga[j] = aux[f * d_out + j];
-  }
-
-  const int lane = t & 31;
-  float* row = partials +
-               ((long long)blockIdx.x * (blockDim.x >> 5) + (t >> 5)) * width;
-  WarpSink sink{row + 1, live, lane};
-  sink(-1, loss);
-  if (lane == 0)  // ref_x entries that frame_vjp does not produce
-    for (int k = 0; k < 3 * m.n_align; ++k) row[1 + k] = 0.f;
-  float g[3 * MOLANN_MAX_ATOMS];
-  frame_vjp(m, xs, st, ga, gx != nullptr ? g : nullptr, want_ref != 0, sink);
-  if (gx == nullptr) return;
-
-  __syncthreads();  // every thread has read its row of the input slab
-  if (live)
-    for (int k = 0; k < n3; ++k) slab[t * n3 + k] = g[k];
+// kTrain = false: K2, aux = gy; kGx: it forms gx. kTrain = true: K3.
+// Two threads a frame: thread t takes frame t mod F, half t / F. At most
+// 128 registers, so that four blocks of 64 frames share an SM, as their
+// shared memory allows (left to itself the backward with gx took 170
+// registers and ran 0.256 ms on alanine against 0.148 with one thread a
+// frame).
+template <bool kTrain, bool kGx>
+__global__ void __launch_bounds__(2 * MOLANN_UNR_MAX_FRAMES, 4)
+fused_grads_kernel(const ModelArgs m, const UnrIO io) {
+  extern __shared__ float sm[];
+  constexpr int kMode = kTrain ? UNR_TRAIN : UNR_BACKWARD;
+  const bool want_ref = io.want_ref && needs_alignment(m);
+  const UnrSmem so = unr_smem(m, kMode, kGx, want_ref, io.pitch);
+  const int t = threadIdx.x, nt = blockDim.x, f = t % io.frames, h = t / io.frames;
+  unr_load<kGx>(m, io, sm, so, blockIdx.x, t, nt);
   __syncthreads();
-  float* dst = gx + f0 * n3;
-  for (int k = t; k < nf * n3; k += blockDim.x) dst[k] = slab[k];
+  unr_feat<kGx>(m, io, sm, so, f, h);
+  for (int L = 0; L < m.n_layers; ++L) {
+    __syncthreads();
+    unr_mlp<kMode>(m, io, sm, so, L, f, h);
+  }
+  __syncthreads();
+  unr_seed<kMode>(m, io, sm, so, blockIdx.x, f, h);
+  for (int L = m.n_layers - 1; L > 0; --L) {
+    __syncthreads();
+    unr_bwd(m, io, sm, so, L, f, h);
+  }
+  __syncthreads();
+  unr_param_sums(m, io, sm, so, blockIdx.x, kMode, want_ref, t, nt);
+  if (!kGx && !want_ref) return;
+  __syncthreads();  // the column cotangents overwrite the columns the sums read
+  unr_dcol(m, io, sm, so, f, h);
+  __syncthreads();
+  UnrAlignAdj a;
+  unr_adj_a<kGx>(m, io, sm, so, f, h, want_ref, a);
+  __syncthreads();
+  unr_adj_b<kGx>(m, io, sm, so, f, h, a);
+  __syncthreads();
+  unr_finish<kGx>(m, io, sm, so, blockIdx.x, want_ref, t, nt);
 }
 
-inline long long partial_rows(int n3, long long l) {
-  const int threads = frames_per_block(n3);
-  return (l + threads - 1) / threads * (threads / 32);
-}
-
-template <bool kTrain>
-int launch(const ModelArgs* m, const float* x, const float* aux, float* gx,
-           float* partials, float* out, long long l, int in_t,
-           float inv_count, int want_ref, int device, void* stream) {
-  if (l <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int n3 = 3 * m->n_atoms;
-  const int threads = frames_per_block(n3);
-  const long long blocks = (l + threads - 1) / threads;
-  const int width = partial_width(*m);
-  const size_t smem = in_t ? 0 : (size_t)threads * n3 * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  fused_grads_kernel<kTrain><<<(unsigned)blocks, threads, smem, s>>>(
-      *m, x, aux, gx, partials, width, l, in_t, inv_count, want_ref);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce_partials(partials, out, partial_rows(n3, l), width, s);
+template <bool kTrain, bool kGx>
+cudaError_t launch(const ModelArgs& m, const UnrIO& io, float* out, cudaStream_t s) {
+  const long long blocks = (io.l + io.frames - 1) / io.frames;
+  cudaError_t err = unr_launch(fused_grads_kernel<kTrain, kGx>, m, io,
+                               kTrain ? UNR_TRAIN : UNR_BACKWARD, kGx, blocks, s);
+  if (err != cudaSuccess) return err;
+  return launch_reduce_partials(io.partials, out, blocks, 1 + model_grad_size(m), s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the partials tensor [rows, 1 + G] that the two kernels below
-// need for l frames of n_atoms atoms.
-long long molann_partial_rows(int n_atoms, long long l) {
-  return partial_rows(3 * n_atoms, l);
+// Frames a block of the backward (train = 0, with or without gx) or train
+// kernel takes for this model, with or without the ref_x gradient
+// (unr_choose_frames): the partials need ceil(l / frames) rows of 1 + G
+// floats. 0 when a frame's state does not fit.
+int molann_grads_frames(const ModelArgs* m, int train, int gx, int ref) {
+  return unr_choose_frames(*m, train ? UNR_TRAIN : UNR_BACKWARD, !train && gx,
+                           ref && needs_alignment(*m));
 }
 
-// K2. x [l, 3n], gy [l, d_out] -> gx [l, 3n] (skipped when gx is null) and
-// out [1 + G]: out[0] = 0, then G summed over the frames (its ref_x part
-// zero unless want_ref). partials is scratch of molann_partial_rows rows.
-int molann_fused_backward(const ModelArgs* m, const float* x, const float* gy,
-                          float* gx, float* partials, float* out, long long l,
-                          int want_ref, int device, void* stream) {
-  return launch<false>(m, x, gy, gx, partials, out, l, 0, 0.f, want_ref,
-                       device, stream);
-}
-
-// K3. x [l, 3n] and y_target [l, d_out], or with in_t [3n, l] and
-// [d_out, l] -> out [1 + G]: out[0] = sum (y - t)^2 * inv_count, then the
-// gradients of that loss (the ref_x part zero unless want_ref).
-int molann_fused_train(const ModelArgs* m, const float* x, const float* yt,
-                       float* partials, float* out, long long l, int in_t,
-                       float inv_count, int want_ref, int device,
-                       void* stream) {
-  return launch<true>(m, x, yt, nullptr, partials, out, l, in_t, inv_count,
-                      want_ref, device, stream);
+// K2 (train = 0): x [l, 3n], gy [l, d_out] -> gx [l, 3n] where io->gx is
+// set, and out [1 + G]: out[0] = 0, then G summed over the frames (its ref_x
+// part zero unless io->want_ref). K3 (train = 1): x and y_target in either
+// layout (io->in_t) -> out[0] = sum (y - t)^2 * inv_count, then the
+// gradients of that loss. io->partials is scratch of ceil(l / io->frames)
+// rows.
+int molann_fused_grads(const ModelArgs* m, const UnrIO* io, int train, float* out,
+                       int device, void* stream) {
+  if (io->l <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (train) err = launch<true, false>(*m, *io, out, s);
+  else if (io->gx) err = launch<false, true>(*m, *io, out, s);
+  else err = launch<false, false>(*m, *io, out, s);
+  return (int)err;
 }
 
 }  // extern "C"

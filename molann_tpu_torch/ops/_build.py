@@ -76,19 +76,14 @@ def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.molann_caps.argtypes = [vp]
     lib.molann_caps.restype = i32
-    lib.molann_fused_forward.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+    lib.molann_fused_frames.argtypes = [vp, i32]
+    lib.molann_fused_frames.restype = i32
+    lib.molann_fused_forward.argtypes = [vp, vp, i32, i32, vp]
     lib.molann_fused_forward.restype = i32
-    lib.molann_fused_cv_forces.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                           i32, vp]
-    lib.molann_fused_cv_forces.restype = i32
-    lib.molann_partial_rows.argtypes = [i32, i64]
-    lib.molann_partial_rows.restype = i64
-    lib.molann_fused_backward.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32,
-                                          vp]
-    lib.molann_fused_backward.restype = i32
-    lib.molann_fused_train.argtypes = [vp, vp, vp, vp, vp, i64, i32,
-                                       ctypes.c_float, i32, i32, vp]
-    lib.molann_fused_train.restype = i32
+    lib.molann_grads_frames.argtypes = [vp, i32, i32, i32]
+    lib.molann_grads_frames.restype = i32
+    lib.molann_fused_grads.argtypes = [vp, vp, i32, vp, i32, vp]
+    lib.molann_fused_grads.restype = i32
     lib.molann_blocked_caps.argtypes = [vp]
     lib.molann_blocked_caps.restype = i32
     lib.molann_blocked_threads.argtypes = [vp, i32]

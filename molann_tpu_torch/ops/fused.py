@@ -38,7 +38,6 @@ otherwise ignored, as in the unrolled TPU kernels, which have no matmuls.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -73,10 +72,15 @@ __all__ = [
 UNROLLED_MAX_ATOMS = 64
 UNROLLED_MAX_COLS = 96
 UNROLLED_MAX_COORD_PAIRS = 96
-# ... and the CUDA kernels' own caps on the MLP head (csrc/frame_math.cuh)
+# ... and the unrolled CUDA kernels' caps on the MLP head
+# (csrc/frame_math.cuh); a head past them goes to the blocked kernels
 KERNEL_MAX_WIDTH = 64
 KERNEL_MAX_LAYERS = 4
-KERNEL_ACTIVATIONS = {"identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3}
+# The activations of both kernel families, every name
+# ``molann_tpu.io.serialize`` writes (``MOLANN_ACT_*`` in frame_math.cuh).
+KERNEL_ACTIVATIONS = {"identity": 0, "tanh": 1, "relu": 2, "sigmoid": 3,
+                      "gelu": 4, "elu": 5, "celu": 6, "softplus": 7,
+                      "swish": 8}
 # Floats of one coordination feature's parameters (csrc/frame_math.cuh).
 COORD_FLOATS = 20
 
@@ -96,11 +100,24 @@ def select_mode(spec, n_atoms: int) -> str:
     return "blocked"
 
 
+def head_fits_unrolled(params) -> bool:
+    """Whether an MLP head is inside the unrolled kernels' caps: at most
+    ``KERNEL_MAX_LAYERS`` Linear layers of width ``KERNEL_MAX_WIDTH``."""
+    return len(params) <= KERNEL_MAX_LAYERS and all(
+        w.shape[0] <= KERNEL_MAX_WIDTH for w, _ in params)
+
+
 def model_select_mode(model) -> str:
-    """:func:`select_mode` applied to a model: which fused formulation its
-    system size gets under ``mode="auto"``."""
-    spec = _extract_model(model)[0]
-    return select_mode(spec, spec.n_input_atoms)
+    """Which fused formulation a model gets under ``mode="auto"``:
+    :func:`select_mode` of its system size, and ``"blocked"`` for a small
+    system whose head is wider or deeper than the unrolled kernels take."""
+    spec, _, _, params, _ = _extract_model(model)
+    return _auto_mode(spec, params)
+
+
+def _auto_mode(spec, params):
+    mode = select_mode(spec, spec.n_input_atoms)
+    return mode if head_fits_unrolled(params) else "blocked"
 
 
 def model_chunk_matrix(model):
@@ -180,11 +197,12 @@ def _extract_model(model):
     return flayer.spec, align_idx, ref_x, params, activation
 
 
-def _resolve_mode(spec, mode, c_mat):
-    """``"unrolled"`` or ``"blocked"`` for a call's ``mode``; ``c_mat`` is
-    refused outside the blocked formulation."""
+def _resolve_mode(spec, params, mode, c_mat):
+    """``"unrolled"`` or ``"blocked"`` for a call's ``mode``
+    (:func:`model_select_mode` under ``"auto"``); ``c_mat`` is refused
+    outside the blocked formulation."""
     if mode == "auto":
-        mode = select_mode(spec, spec.n_input_atoms)
+        mode = _auto_mode(spec, params)
     if mode == "blocked":
         return mode
     if mode != "unrolled":
@@ -206,20 +224,18 @@ def _check_envelope(spec, params, activation):
             f"{n_pairs} coordination pairs are outside the unrolled kernels' "
             f"envelope ({UNROLLED_MAX_COORD_PAIRS} pairs): use mode='blocked'")
     if activation not in KERNEL_ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {activation!r} is not in the CUDA kernels "
-            f"(they take {sorted(KERNEL_ACTIVATIONS)})")
+        raise ValueError(f"unknown activation {activation!r}; the CUDA "
+                         f"kernels take {sorted(KERNEL_ACTIVATIONS)}")
     if spec.n_input_atoms > UNROLLED_MAX_ATOMS or spec.out_dim > UNROLLED_MAX_COLS:
         raise ValueError(
             f"{spec.n_input_atoms} atoms / {spec.out_dim} feature columns are "
             f"outside the unrolled kernels' envelope ({UNROLLED_MAX_ATOMS} "
             f"atoms, {UNROLLED_MAX_COLS} columns)")
-    if len(params) > KERNEL_MAX_LAYERS or any(
-            w.shape[0] > KERNEL_MAX_WIDTH for w, _ in params):
+    if not head_fits_unrolled(params):
         raise ValueError(
-            f"the CUDA kernels take at most {KERNEL_MAX_LAYERS} Linear layers "
-            f"of width <= {KERNEL_MAX_WIDTH}; got "
-            f"{[tuple(w.shape) for w, _ in params]}")
+            f"the unrolled CUDA kernels take at most {KERNEL_MAX_LAYERS} "
+            f"Linear layers of width <= {KERNEL_MAX_WIDTH}; got "
+            f"{[tuple(w.shape) for w, _ in params]}: use mode='blocked'")
 
 
 def _out_dim(spec, params):
@@ -364,7 +380,6 @@ class ModelArgs(ctypes.Structure):
         ("n_coord", ctypes.c_int),
         ("use_angle_value", ctypes.c_int),
         ("n_feat", ctypes.c_int),
-        ("has_perm", ctypes.c_int),
         ("n_layers", ctypes.c_int),
         ("activation", ctypes.c_int),
         ("dims", ctypes.c_int * (KERNEL_MAX_LAYERS + 1)),
@@ -373,17 +388,38 @@ class ModelArgs(ctypes.Structure):
         ("dihedral_idx", ctypes.c_void_p),
         ("pos_idx", ctypes.c_void_p),
         ("align_idx", ctypes.c_void_p),
-        ("perm", ctypes.c_void_p),
+        ("col_of", ctypes.c_void_p),
         ("coord_start", ctypes.c_void_p),
         ("coord_pairs", ctypes.c_void_p),
         ("coord_par", ctypes.c_void_p),
         ("ref_x", ctypes.c_void_p),
-        ("params", ctypes.c_void_p),
+        ("w", ctypes.c_void_p * KERNEL_MAX_LAYERS),
+        ("b", ctypes.c_void_p * KERNEL_MAX_LAYERS),
+    ]
+
+
+class UnrIO(ctypes.Structure):
+    """Mirror of ``struct UnrIO`` in ``csrc/frame_math.cuh``."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("y", ctypes.c_void_p),
+        ("gx", ctypes.c_void_p),
+        ("aux", ctypes.c_void_p),
+        ("partials", ctypes.c_void_p),
+        ("l", ctypes.c_longlong),
+        ("in_t", ctypes.c_int),
+        ("out_t", ctypes.c_int),
+        ("component", ctypes.c_int),
+        ("want_ref", ctypes.c_int),
+        ("inv_count", ctypes.c_float),
+        ("frames", ctypes.c_int),
+        ("pitch", ctypes.c_int),
     ]
 
 
 _TABLES = ("angle_idx", "bond_idx", "dihedral_idx", "pos_idx", "align_idx",
-           "perm", "coord_start", "coord_pairs")
+           "col_of", "coord_start", "coord_pairs")
 
 
 def coord_parameters(spec):
@@ -410,75 +446,131 @@ def coord_parameters(spec):
     return par
 
 
-@functools.lru_cache(maxsize=64)
-def _index_tables(spec, align_idx, device):
-    """The spec's index tables as ONE int32 tensor on ``device`` plus the
-    element offset of each table, and the coordination parameters as a
-    float32 tensor (static per model, so cached)."""
-    starts = [0]
-    for _, npairs in spec.coord_slices:
-        starts.append(starts[-1] + npairs)
-    tables = {
-        "angle_idx": [i for t in spec.angle_idx for i in t],
-        "bond_idx": [i for t in spec.bond_idx for i in t],
-        "dihedral_idx": [i for t in spec.dihedral_idx for i in t],
-        "pos_idx": list(spec.position_idx),
-        "align_idx": list(align_idx or ()),
-        "perm": list(spec.perm or ()),
-        "coord_start": starts,
-        "coord_pairs": [i for p in spec.coord_pairs for i in p],
-    }
-    flat, offsets = [], {}
-    for name in _TABLES:
-        offsets[name] = len(flat)
-        flat.extend(tables[name])
-    buf = torch.tensor(flat + [0], dtype=torch.int32, device=device)
-    par = torch.from_numpy(np.concatenate(
-        [coord_parameters(spec).reshape(-1), np.zeros(1, np.float32)])
-    ).to(device)
-    return buf, offsets, par
+class _Statics:
+    """What every kernel call of one model on one device shares, built
+    once: the index tables and coordination parameters on the device, a
+    :class:`ModelArgs` holding them and the model's sizes (the weight and
+    ``ref_x`` pointers are filled per call, as the values change every
+    optimizer step), and each kernel's frames a block."""
+
+    def __init__(self, spec, align_idx, activation, dims, device):
+        self.spec = spec  # keeps id(spec), the cache key, in use
+        self.n_align = len(align_idx) if align_idx is not None else 0
+        self.width = 1 + 3 * self.n_align + sum(
+            o * (i + 1) for i, o in zip(dims, dims[1:]))
+        self.d_out = dims[-1]
+        self.tiles = {}
+        col_of = list(range(spec.out_dim))
+        for k, row in enumerate(spec.perm or ()):
+            col_of[row] = k  # column k holds type-grouped row perm[k]
+        starts = [0]
+        for _, npairs in spec.coord_slices:
+            starts.append(starts[-1] + npairs)
+        tables = {
+            "angle_idx": [i for t in spec.angle_idx for i in t],
+            "bond_idx": [i for t in spec.bond_idx for i in t],
+            "dihedral_idx": [i for t in spec.dihedral_idx for i in t],
+            "pos_idx": list(spec.position_idx),
+            "align_idx": list(align_idx or ()),
+            "col_of": col_of,
+            "coord_start": starts,
+            "coord_pairs": [i for p in spec.coord_pairs for i in p],
+        }
+        flat, offsets = [], {}
+        for name in _TABLES:
+            offsets[name] = len(flat)
+            flat.extend(tables[name])
+        ints = torch.tensor(flat + [0], dtype=torch.int32, device=device)
+        par = torch.from_numpy(np.concatenate(
+            [coord_parameters(spec).reshape(-1), np.zeros(1, np.float32)])
+        ).to(device)
+        self.keep = (ints, par)
+        a = self.args = ModelArgs()
+        a.n_atoms = spec.n_input_atoms
+        a.n_angles, a.n_bonds = spec.n_angles, spec.n_bonds
+        a.n_dihedrals, a.n_pos = spec.n_dihedrals, spec.n_position_atoms
+        a.n_align = self.n_align
+        a.n_coord = spec.n_coordinations
+        a.use_angle_value = int(spec.use_angle_value)
+        a.n_feat = spec.out_dim
+        a.n_layers = len(dims) - 1
+        a.activation = KERNEL_ACTIVATIONS[activation]
+        for i, d in enumerate(dims):
+            a.dims[i] = d
+        base = ints.data_ptr()
+        for name in _TABLES:
+            setattr(a, name, base + 4 * offsets[name])
+        a.coord_par = par.data_ptr()
+
+    def frames(self, lib, kind, ref=False):
+        """Frames a block of kernel ``kind`` (``forward``, ``cv_forces``,
+        ``backward``, ``backward_nogx``, ``train``; ``ref``: with the
+        ``ref_x`` gradient) takes, asked of the library once."""
+        t = self.tiles.get((kind, ref))
+        if t is None:
+            args = ctypes.addressof(self.args)
+            if kind in ("forward", "cv_forces"):
+                t = lib.molann_fused_frames(args, int(kind == "cv_forces"))
+            else:
+                t = lib.molann_grads_frames(args, int(kind == "train"),
+                                            int(kind == "backward"), int(ref))
+            if t <= 0:
+                raise RuntimeError(f"no tile of the {kind} kernel fits this "
+                                   f"model's state in shared memory ({t})")
+            self.tiles[kind, ref] = t
+        return t
+
+    def model_args(self, ref_x, params, device):
+        """``(ModelArgs, keepalive)`` of one call: a copy of the static part
+        with the pointers of ``ref_x`` and of each ``W``, ``b``; tensors
+        that are not float32 and contiguous are converted into
+        ``keepalive``."""
+        a = ModelArgs.from_buffer_copy(self.args)
+        keep = []
+        if self.n_align:
+            a.ref_x = _f32_pointer(ref_x, device, keep)
+        for i, (w, b) in enumerate(params):
+            a.w[i] = _f32_pointer(w, device, keep)
+            a.b[i] = _f32_pointer(b, device, keep)
+        return a, keep
+
+
+def _f32_pointer(t, device, keep):
+    if t.device != device:
+        raise ValueError(f"model tensors are on {t.device}, input on {device}: "
+                         "move the model with model.to(device)")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.detach().to(torch.float32).contiguous()
+        keep.append(t)
+    return t.data_ptr()
+
+
+_STATICS = {}
+_STATICS_MAX = 64
+
+
+def _statics(spec, align_idx, activation, params, device):
+    """The :class:`_Statics` of a model on ``device``, built on first use
+    and kept (at most ``_STATICS_MAX``, the oldest dropped first)."""
+    dims = (spec.out_dim, *(w.shape[0] for w, _ in params))
+    key = (id(spec), align_idx, activation, dims, device)
+    st = _STATICS.get(key)
+    if st is None:
+        if len(_STATICS) >= _STATICS_MAX:
+            del _STATICS[next(iter(_STATICS))]
+        st = _STATICS[key] = _Statics(spec, align_idx, activation, dims,
+                                      device)
+    return st
 
 
 def model_args(spec, align_idx, ref_x, params, activation, device):
     """``(ModelArgs, keepalive)`` for the kernels on ``device``: pointers
-    into an int32 table tensor, the coordination parameters and a float32
-    tensor ``[ref_x | W0 | b0 | W1 | b1 ...]`` that ``keepalive`` holds."""
+    into the cached index tables and to the model's own ``ref_x`` and
+    weights."""
     device = torch.device(device)
-    idx, offsets, par = _index_tables(spec, align_idx, device)
-    with torch.no_grad():
-        pieces = [torch.zeros(1, dtype=torch.float32, device=device)]
-        if align_idx is not None:
-            pieces.append(ref_x.reshape(-1))
-        for w, b in params:
-            pieces.extend((w.reshape(-1), b.reshape(-1)))
-        for p in pieces:
-            if p.device != device:
-                raise ValueError(
-                    f"model tensors are on {p.device}, input on {device}: "
-                    "move the model with model.to(device)")
-        floats = torch.cat([p.to(torch.float32) for p in pieces])
-    a = ModelArgs()
-    a.n_atoms = spec.n_input_atoms
-    a.n_angles, a.n_bonds = spec.n_angles, spec.n_bonds
-    a.n_dihedrals, a.n_pos = spec.n_dihedrals, spec.n_position_atoms
-    a.n_align = len(align_idx) if align_idx is not None else 0
-    a.n_coord = spec.n_coordinations
-    a.use_angle_value = int(spec.use_angle_value)
-    a.n_feat = spec.out_dim
-    a.has_perm = int(spec.perm is not None)
-    a.n_layers = len(params)
-    a.activation = KERNEL_ACTIVATIONS[activation]
-    a.dims[0] = spec.out_dim
-    for i, (w, _) in enumerate(params):
-        a.dims[i + 1] = w.shape[0]
-    base = idx.data_ptr()
-    for name in _TABLES:
-        setattr(a, name, base + 4 * offsets[name])
-    a.coord_par = par.data_ptr()
-    fbase = floats.data_ptr() + 4  # past the leading pad element
-    a.ref_x = fbase
-    a.params = fbase + 4 * (3 * a.n_align)
-    return a, (idx, par, floats)
+    st = _statics(spec, align_idx, activation, params, device)
+    args, keep = st.model_args(ref_x, params, device)
+    return args, (st, keep)
 
 
 def _check_cuda_input(x):
@@ -489,49 +581,56 @@ def _check_cuda_input(x):
                          ".contiguous() first")
 
 
-def _library():
-    """The built kernel library, after checking that it was compiled with
-    the envelope and the ``ModelArgs`` layout this module assumes."""
-    from ._build import load_library
+_LIB = None
 
-    lib = load_library()
-    caps = (ctypes.c_int * 5)()
-    lib.molann_caps(caps)
-    want = [UNROLLED_MAX_ATOMS, UNROLLED_MAX_COLS, KERNEL_MAX_WIDTH,
-            KERNEL_MAX_LAYERS, ctypes.sizeof(ModelArgs)]
-    if list(caps) != want:
-        raise RuntimeError(f"kernel library caps {list(caps)} do not match "
-                           f"ops/fused.py {want}")
-    return lib
+
+def _library():
+    """The built kernel library, after checking once that it was compiled
+    with the envelope and the struct layouts this module assumes."""
+    global _LIB
+    if _LIB is None:
+        from ._build import load_library
+
+        lib = load_library()
+        caps = (ctypes.c_int * 6)()
+        lib.molann_caps(caps)
+        want = [UNROLLED_MAX_ATOMS, UNROLLED_MAX_COLS, KERNEL_MAX_WIDTH,
+                KERNEL_MAX_LAYERS, ctypes.sizeof(ModelArgs),
+                ctypes.sizeof(UnrIO)]
+        if list(caps) != want:
+            raise RuntimeError(f"kernel library caps {list(caps)} do not "
+                               f"match ops/fused.py {want}")
+        _LIB = lib
+    return _LIB
 
 
 def _launch(kind, spec, align_idx, ref_x, params, activation, xm, l, in_t,
             out_t, component=None):
-    """Allocate the outputs, launch one kernel on the current stream and
-    count it. xm is packed ``[l, 3n]`` (in_t=0) or ``[3n, l]`` (in_t=1)."""
+    """Allocate the outputs, launch K1 (``forward``) or K4 (``cv_forces``)
+    on the current stream and count it. xm is packed ``[l, 3n]`` (in_t=0)
+    or ``[3n, l]`` (in_t=1)."""
     lib = _library()
     dev = xm.device
+    st = _statics(spec, align_idx, activation, params, dev)
     n3 = 3 * spec.n_input_atoms
-    d_out = _out_dim(spec, params)
-    y = torch.empty((d_out, l) if out_t else (l, d_out), dtype=torch.float32,
-                    device=dev)
+    y = torch.empty((st.d_out, l) if out_t else (l, st.d_out),
+                    dtype=torch.float32, device=dev)
+    forces = kind == "cv_forces"
     gx = None
-    if kind == "cv_forces":
+    if forces:
         gx = torch.empty((n3, l) if out_t else (l, n3), dtype=torch.float32,
                          device=dev)
     if l == 0:
         return y, gx
-    args, keep = model_args(spec, align_idx, ref_x, params, activation, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if kind == "cv_forces":
-        rc = lib.molann_fused_cv_forces(
-            ctypes.addressof(args), xm.data_ptr(), y.data_ptr(), gx.data_ptr(),
-            l, in_t, out_t, -1 if component is None else component, dev.index,
-            stream)
-    else:
-        rc = lib.molann_fused_forward(ctypes.addressof(args), xm.data_ptr(),
-                                      y.data_ptr(), l, in_t, out_t, dev.index,
-                                      stream)
+    args, keep = st.model_args(ref_x, params, dev)
+    io = UnrIO(x=xm.data_ptr(), y=y.data_ptr(),
+               gx=gx.data_ptr() if forces else None, l=l, in_t=in_t,
+               out_t=out_t, component=-1 if component is None else component)
+    io.frames = st.frames(lib, kind)
+    io.pitch = io.frames + 1
+    rc = lib.molann_fused_forward(
+        ctypes.addressof(args), ctypes.addressof(io), int(forces), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     del keep  # the caching allocator orders reuse on this stream
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} kernel launch failed: cudaError {rc}")
@@ -550,38 +649,36 @@ def _launch_grads(kind, spec, align_idx, ref_x, params, activation, xm, l,
                   aux, *, in_t=0, want_gx=False, want_ref=False,
                   inv_count=0.0):
     """Launch the backward (``aux`` = gy) or train (``aux`` = y_target)
-    kernel on the current stream and count it. Returns ``(out, gx)``:
-    ``out [1 + G]`` holds the loss (0 for the backward) and the flat
-    gradients summed over the frames; ``gx [l, 3n]`` or None."""
+    kernel and the reduction of its rows on the current stream and count
+    it. Returns ``(out, gx)``: ``out [1 + G]`` holds the loss (0 for the
+    backward) and the flat gradients summed over the frames; ``gx [l, 3n]``
+    or None."""
     lib = _library()
     dev = xm.device
-    n3 = 3 * spec.n_input_atoms
-    width = 1 + _grad_width(align_idx, params)
-    gx = (torch.empty((l, n3), dtype=torch.float32, device=dev) if want_gx
-          else None)
+    st = _statics(spec, align_idx, activation, params, dev)
+    width = st.width
+    gx = (torch.empty((l, 3 * spec.n_input_atoms), dtype=torch.float32,
+                      device=dev) if want_gx else None)
     if l == 0:
         return torch.zeros(width, dtype=torch.float32, device=dev), gx
-    out = torch.empty(width, dtype=torch.float32, device=dev)
-    partials = torch.empty(
-        (lib.molann_partial_rows(spec.n_input_atoms, l), width),
-        dtype=torch.float32, device=dev)
-    args, keep = model_args(spec, align_idx, ref_x, params, activation, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if kind == "backward":
-        rc = lib.molann_fused_backward(
-            ctypes.addressof(args), xm.data_ptr(), aux.data_ptr(),
-            None if gx is None else gx.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), l, int(want_ref), dev.index, stream)
-    else:
-        rc = lib.molann_fused_train(
-            ctypes.addressof(args), xm.data_ptr(), aux.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), l, in_t, inv_count,
-            int(want_ref), dev.index, stream)
-    del keep, partials  # the caching allocator orders reuse on this stream
+    frames = st.frames(lib, kind if kind == "train" or want_gx
+                       else "backward_nogx", want_ref)
+    # out first, then the kernel's rows of partials, in one allocation
+    buf = torch.empty((1 + -(-l // frames)) * width, dtype=torch.float32,
+                      device=dev)
+    args, keep = st.model_args(ref_x, params, dev)
+    io = UnrIO(x=xm.data_ptr(), gx=gx.data_ptr() if want_gx else None,
+               aux=aux.data_ptr(), partials=buf.data_ptr() + 4 * width, l=l,
+               in_t=in_t, want_ref=int(want_ref), inv_count=inv_count,
+               frames=frames, pitch=frames + 1)
+    rc = lib.molann_fused_grads(
+        ctypes.addressof(args), ctypes.addressof(io), int(kind == "train"),
+        buf.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    del keep  # the caching allocator orders reuse on this stream
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} kernel launch failed: cudaError {rc}")
     KERNEL_LAUNCHES[kind] += 1
-    return out, gx
+    return buf[:width], gx
 
 
 def _unpack_grads(g, align_idx, ref_x, params):
@@ -673,7 +770,7 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     (:func:`.fused_blocked.blocked_apply`)."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    if _resolve_mode(spec, mode, c_mat) == "blocked":
+    if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_apply
 
         return blocked_apply(spec, align_idx, activation, params, ref_x, x,
@@ -718,7 +815,7 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
     operand of :func:`model_chunk_matrix`."""
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    if _resolve_mode(spec, mode, c_mat) == "blocked":
+    if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_cv_forces
 
         out_layout = "t" if (transposed_input or transposed_outputs) else None
@@ -803,7 +900,7 @@ def fused_train_grads(model, x, y_target, *, tile=None, interpret=False,
     the pair operand of :func:`model_chunk_matrix`."""
     precision = resolve_precision(precision, training=True)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
-    if _resolve_mode(spec, mode, c_mat) == "blocked":
+    if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_train_grads
 
         loss, gparams, g_ref = blocked_train_grads(

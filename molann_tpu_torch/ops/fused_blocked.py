@@ -657,9 +657,8 @@ def check_blocked_envelope(params, activation):
     """What the blocked CUDA kernels compute, checked for every input
     device so that a model behaves the same on the CPU and on the card."""
     if activation not in _F.KERNEL_ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation {activation!r} is not in the CUDA kernels "
-            f"(they take {sorted(_F.KERNEL_ACTIVATIONS)})")
+        raise ValueError(f"unknown activation {activation!r}; the CUDA "
+                         f"kernels take {sorted(_F.KERNEL_ACTIVATIONS)}")
     if len(params) > BLK_MAX_LAYERS:
         raise ValueError(f"the blocked CUDA kernels take at most "
                          f"{BLK_MAX_LAYERS} Linear layers; got {len(params)}")

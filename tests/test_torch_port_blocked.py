@@ -371,8 +371,12 @@ def test_modes_precision_and_refusals(tmp_path):
         F.fused_train_grads(tm, x, torch.zeros(4, 2))
     with pytest.raises(ValueError, match="at most"):
         FB.check_blocked_envelope(((x, x),) * 9, "tanh")
-    with pytest.raises(NotImplementedError, match="gelu"):
-        FB.check_blocked_envelope((), "gelu")
+    # every activation the reference serialises is served; a name it does
+    # not know is refused
+    for act in ("gelu", "elu", "celu", "softplus", "swish"):
+        FB.check_blocked_envelope((), act)
+    with pytest.raises(ValueError, match="activation"):
+        FB.check_blocked_envelope((), "mish")
 
 
 def test_frames_per_block_choice():

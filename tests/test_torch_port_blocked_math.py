@@ -36,6 +36,7 @@ import torch
 
 from molann_tpu_torch.feature import Feature
 from molann_tpu_torch.models.ann import (
+    ACTIVATIONS,
     AlignmentLayer,
     FeatureLayer,
     MolANN,
@@ -60,6 +61,14 @@ HOST_SRC = r"""
 
 #include "blocked_math.cuh"
 #include "reduce_partials.cuh"
+
+// act_fwd and act_grad on n pre-activations, as the MLP steps call them.
+extern "C" void host_act(int act, const float* z, float* t, float* g, int n) {
+  for (int i = 0; i < n; ++i) {
+    t[i] = act_fwd(act, z[i]);
+    g[i] = act_grad(act, t[i], z[i]);
+  }
+}
 
 extern "C" void host_blk_caps(int* out) {
   out[0] = MOLANN_BLK_MAX_LAYERS;
@@ -188,6 +197,7 @@ def host(tmp_path_factory):
     h = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     h.host_blk_caps.argtypes = [vp]
+    h.host_act.argtypes = [i32, vp, vp, vp, i32]
     h.host_blk_smem_bytes.argtypes = [vp, i32, i32]
     h.host_blk_smem_bytes.restype = ctypes.c_longlong
     h.host_blk_run.argtypes = [vp, vp, i32, i32]
@@ -904,3 +914,40 @@ def test_choose_frames_backward():
     peptide, _ = peptide_model(6, generator=gen(1), device="cpu")
     assert FB.pair_heavy(FB.blocked_layout(*F._extract_model(fluid)[:2]))
     assert not FB.pair_heavy(FB.blocked_layout(*F._extract_model(peptide)[:2]))
+
+
+@pytest.mark.parametrize("activation", ["gelu", "elu", "celu", "softplus",
+                                        "swish"])
+def test_activation_forms(host, activation):
+    """act_fwd and act_grad as the blocked steps call them, against the
+    eager model's activation and its derivative by torch.autograd."""
+    z = np.linspace(-12.0, 12.0, 241).astype(np.float32)
+    t, g = np.empty_like(z), np.empty_like(z)
+    host.host_act(F.KERNEL_ACTIVATIONS[activation], z.ctypes.data,
+                  t.ctypes.data, g.ctypes.data, z.size)
+    zz = torch.from_numpy(z).double().requires_grad_(True)
+    tt = ACTIVATIONS[activation](zz)
+    (gg,) = torch.autograd.grad(tt.sum(), zz)
+    np.testing.assert_allclose(t, tt.detach().numpy(), rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(g, gg.numpy(), rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "elu", "celu", "softplus",
+                                        "swish"])
+def test_activations_through_the_steps(host, activation):
+    """Each activation through K6, K8, K7 and K5 on the host: a tiled first
+    layer (70 outputs, slices whose sums meet in the scratch) above a
+    small one, so that gelu and swish read their kept pre-activations in
+    both backward bodies; and alanine with alignment."""
+    model, u = peptide_model(12, hidden_dims=(70, 6, 2), activation=activation,
+                             generator=gen(4), device="cpu")
+    x = frames_of(u, 19, 2)
+    check(host, model, x, frames=8, threads=64)
+    check_backward(host, model, x, frames=8, threads=64)
+    check_train(host, model, x, frames=8, threads=64)
+    model, u = alanine_model(hidden_dims=(8, 6, 3), activation=activation,
+                             generator=gen(5), device="cpu")
+    x = frames_of(u, 21, 3)
+    check(host, model, x)
+    check_backward(host, model, x)
+    check_train(host, model, x, train_ref=True)

@@ -1,17 +1,24 @@
-"""The CUDA kernels' per-frame math, run on the host.
+"""The unrolled CUDA kernels' per-frame math and block steps, run on the host.
 
 ``molann_tpu_torch/csrc/frame_math.cuh`` holds the forward and the
-hand-derived adjoints (QCP alignment included) that the CUDA kernels run
-per frame, and the per-frame VJP whose terms the training kernels sum over
-frames. Compiled here with the host C++ compiler into a small library
-loaded by ctypes, it is checked against the plain PyTorch versions of the
-kernels on 64 alanine frames — adjoint bugs show up before any GPU time is
-spent. The host sums the VJP's terms over frames in order; the kernels sum
-them by warp. Tolerances: values 1e-5 abs; gradients 2e-4·max(1, max|g|)
-(tests/test_parity_torch.py:25,52); the loss 1e-6 relative.
+hand-derived adjoints (QCP alignment included) that the unrolled kernels
+run per frame, and the steps a block of those kernels runs on its frames,
+each a function of (thread index, thread count): staging, the per-frame
+forward and MLP backward into rows of shared memory, the parameter
+gradients as block products, the per-frame adjoints, the block's ref_x
+sums and the gradient store. Compiled here with the host C++ compiler into
+a small library loaded by ctypes, a loop walks every block and the threads
+of each step, with the block's shared memory filled with NaN first so that
+a read of a row nobody wrote shows, and the rows of partial sums are added
+in the order of ``reduce_partials``. The results are checked against the
+plain PyTorch versions of the kernels on alanine frames — adjoint bugs show
+up before any GPU time is spent. Tolerances: values 1e-5 abs; gradients
+2e-4·max(1, max|g|) (tests/test_parity_torch.py:25,52); the loss 1e-6
+relative; against float64, gradients 5e-5·max(1, max|g|).
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,72 +27,171 @@ import numpy as np
 import pytest
 import torch
 
-from molann_tpu_torch.models.ann import MolANN, PreprocessingANN
+from molann_tpu_torch.models.ann import ACTIVATIONS, MolANN, PreprocessingANN
 from molann_tpu_torch.ops import fused as F
 from molann_tpu_torch.systems import alanine_model
 
 CSRC = Path(F.__file__).resolve().parent.parent / "csrc"
 VAL_ATOL = 1e-5
 GRAD_RTOL = 2e-4
+F64_RTOL = 5e-5
+FRAMES = 16  # frames a block of the host walk
 
 HOST_SRC = r"""
+#include <algorithm>
+#include <vector>
+
 #include "frame_math.cuh"
+#include "reduce_partials.cuh"
 
 extern "C" int host_abi(void) { return (int)sizeof(ModelArgs); }
+extern "C" int host_io_abi(void) { return (int)sizeof(UnrIO); }
+
+extern "C" int host_frames(const ModelArgs* m, int mode, int gx, int ref) {
+  return unr_choose_frames(*m, mode, gx != 0, ref != 0);
+}
+
+// act_fwd and act_grad on n pre-activations.
+extern "C" void host_act(int act, const float* z, float* t, float* g, int n) {
+  for (int i = 0; i < n; ++i) {
+    t[i] = act_fwd(act, z[i]);
+    g[i] = act_grad(act, t[i], z[i]);
+  }
+}
+
+// The QCP composite's vector-Jacobian product on n matrices H [n, 3, 3]
+// with cotangents gR: by the reverse pass (R, gH) and by the 9-tangent
+// Dual9 pass (R_d, gH_d).
+extern "C" void host_qcp_vjp(const float* H, const float* gR, float* R, float* gH,
+                             float* R_d, float* gH_d, int n) {
+  for (int e = 0; e < n; ++e) {
+    float h[3][3], g[3][3], r[3][3], gh[3][3], lam0;
+    Dual9 hd[3][3], rd[3][3];
+    for (int k = 0; k < 9; ++k) {
+      h[k / 3][k % 3] = H[9 * e + k];
+      g[k / 3][k % 3] = gR[9 * e + k];
+      hd[k / 3][k % 3] = Dual9(H[9 * e + k]);
+      hd[k / 3][k % 3].d[k] = 1.0f;
+    }
+    qcp_rotation(h, r, &lam0);
+    qcp_rotation_vjp(h, g, lam0, r, gh);
+    qcp_rotation(hd, rd);
+    for (int k = 0; k < 9; ++k) {
+      R[9 * e + k] = r[k / 3][k % 3];
+      gH[9 * e + k] = gh[k / 3][k % 3];
+      R_d[9 * e + k] = rd[k / 3][k % 3].v;
+      float acc = 0.f;
+      for (int ij = 0; ij < 9; ++ij) acc += g[ij / 3][ij % 3] * rd[ij / 3][ij % 3].d[k];
+      gH_d[9 * e + k] = acc;
+    }
+  }
+}
+
+// One launch walked on the host: every block, the threads of each step in
+// a loop, nt = 2 io.frames threads (two a frame) as the kernels run them.
+template <int kMode, bool kGx>
+static void walk(const ModelArgs& m, const UnrIO& io, bool want_ref) {
+  const UnrSmem so = unr_smem(m, kMode, kGx, want_ref, io.pitch);
+  const long long blocks = (io.l + io.frames - 1) / io.frames;
+  const int F = io.frames, nt = 2 * F;
+  constexpr bool kKeep = kMode == UNR_FORCES || kGx;
+  std::vector<float> sm(so.total);
+  std::vector<UnrAlignAdj> a(nt);
+  for (long long b = 0; b < blocks; ++b) {
+    std::fill(sm.begin(), sm.end(), NAN);  // a row read before it is written shows
+    float* s = sm.data();
+    for (int t = 0; t < nt; ++t) unr_load<kKeep>(m, io, s, so, b, t, nt);
+    for (int t = 0; t < nt; ++t) unr_feat<kKeep>(m, io, s, so, t % F, t / F);
+    for (int L = 0; L < m.n_layers; ++L)
+      for (int t = 0; t < nt; ++t) unr_mlp<kMode>(m, io, s, so, L, t % F, t / F);
+    for (int t = 0; t < nt; ++t) unr_seed<kMode>(m, io, s, so, b, t % F, t / F);
+    if (kMode == UNR_FORWARD) continue;
+    for (int L = m.n_layers - 1; L > 0; --L)
+      for (int t = 0; t < nt; ++t) unr_bwd(m, io, s, so, L, t % F, t / F);
+    if (kMode >= UNR_BACKWARD)
+      for (int t = 0; t < nt; ++t) unr_param_sums(m, io, s, so, b, kMode, want_ref, t, nt);
+    if (!kKeep && !want_ref) continue;
+    for (int t = 0; t < nt; ++t) unr_dcol(m, io, s, so, t % F, t / F);
+    for (int t = 0; t < nt; ++t) unr_adj_a<kKeep>(m, io, s, so, t % F, t / F, want_ref, a[t]);
+    for (int t = 0; t < nt; ++t) unr_adj_b<kKeep>(m, io, s, so, t % F, t / F, a[t]);
+    for (int t = 0; t < nt; ++t) unr_finish<kKeep>(m, io, s, so, b, want_ref, t, nt);
+  }
+}
+
+static UnrIO io_of(const float* x, long long l, int frames) {
+  UnrIO io{};
+  io.x = x;
+  io.l = l;
+  io.component = -1;
+  io.frames = frames;
+  io.pitch = frames + 1;
+  return io;
+}
 
 extern "C" void host_forward(const ModelArgs* m, const float* x, float* y,
                              long long l) {
-  const int n3 = 3 * m->n_atoms, d = model_out_dim(*m);
-  for (long long f = 0; f < l; ++f) frame_forward(*m, x + f * n3, y + f * d);
+  UnrIO io = io_of(x, l, FRAMES);
+  io.y = y;
+  walk<UNR_FORWARD, false>(*m, io, false);
 }
 
 extern "C" void host_cv_forces(const ModelArgs* m, const float* x, float* y,
                                float* gx, long long l, int component) {
-  const int n3 = 3 * m->n_atoms, d = model_out_dim(*m);
-  for (long long f = 0; f < l; ++f)
-    frame_cv_forces(*m, x + f * n3, y + f * d, gx + f * n3, component);
+  UnrIO io = io_of(x, l, FRAMES);
+  io.y = y;
+  io.gx = gx;
+  io.component = component;
+  walk<UNR_FORCES, true>(*m, io, false);
 }
 
-struct HostSink {
-  float* g;
-  void operator()(int k, float v) const { g[k] += v; }
-};
+// The backward (train = 0; gx where given) or train kernel on `frames`
+// frames a block, then the rows summed by column in reduce_partials'
+// order: out [1 + G] = [loss | G].
+extern "C" void host_grads(const ModelArgs* m, const float* x, const float* aux,
+                           float* gx, float* out, long long l, int train, int in_t,
+                           int want_ref, int frames) {
+  UnrIO io = io_of(x, l, frames);
+  const int width = 1 + model_grad_size(*m);
+  const long long rows = (l + frames - 1) / frames;
+  std::vector<float> partials(rows * width, NAN);
+  io.aux = aux;
+  io.gx = gx;
+  io.partials = partials.data();
+  io.in_t = in_t;
+  io.want_ref = want_ref;
+  io.inv_count = 1.0f / ((float)l * (float)model_out_dim(*m));
+  const bool ref = want_ref && needs_alignment(*m);
+  if (train) walk<UNR_TRAIN, false>(*m, io, ref);
+  else if (gx) walk<UNR_BACKWARD, true>(*m, io, ref);
+  else walk<UNR_BACKWARD, false>(*m, io, ref);
+  for (int c = 0; c < width; ++c) {
+    float tot = reduce_rows(partials.data(), rows, width, c, 0);
+    for (int y = 1; y < MOLANN_REDUCE_LANES; ++y)
+      tot += reduce_rows(partials.data(), rows, width, c, y);
+    out[c] = tot;
+  }
+}
 
-// The backward kernel's math: gx (unless null) and g [G] += each frame's
-// terms, given gy [l, d].
+// The backward kernel's math: gx (unless null) and g [G] += the sums over
+// frames, given gy [l, d].
 extern "C" void host_backward(const ModelArgs* m, const float* x,
                               const float* gy, float* gx, float* g,
                               long long l, int want_ref) {
-  const int n3 = 3 * m->n_atoms, d = model_out_dim(*m);
-  HostSink sink{g};
-  for (long long f = 0; f < l; ++f) {
-    FrameFwd st;
-    frame_fwd(*m, x + f * n3, gx != nullptr || want_ref, st);
-    float ga[MOLANN_MAX_COLS];
-    for (int j = 0; j < d; ++j) ga[j] = gy[f * d + j];
-    frame_vjp(*m, x + f * n3, st, ga, gx != nullptr ? gx + f * n3 : nullptr,
-              want_ref != 0, sink);
-  }
+  std::vector<float> out(1 + model_grad_size(*m));
+  host_grads(m, x, gy, gx, out.data(), l, 0, 0, want_ref, FRAMES);
+  for (size_t c = 1; c < out.size(); ++c) g[c - 1] += out[c];
 }
 
 // The train kernel's math: returns the loss and g [G] += its gradients.
 extern "C" float host_train(const ModelArgs* m, const float* x,
                             const float* yt, float* g, long long l,
                             int want_ref) {
-  const int n3 = 3 * m->n_atoms, d = model_out_dim(*m);
-  const float inv_count = 1.0f / ((float)l * (float)d);
-  HostSink sink{g};
-  float loss = 0.f;
-  for (long long f = 0; f < l; ++f) {
-    FrameFwd st;
-    const float* y = frame_fwd(*m, x + f * n3, want_ref != 0, st);
-    float ga[MOLANN_MAX_COLS];
-    loss += mse_cotangent(y, yt + f * d, d, inv_count, ga);
-    frame_vjp(*m, x + f * n3, st, ga, nullptr, want_ref != 0, sink);
-  }
-  return loss;
+  std::vector<float> out(1 + model_grad_size(*m));
+  host_grads(m, x, yt, nullptr, out.data(), l, 1, 0, want_ref, FRAMES);
+  for (size_t c = 1; c < out.size(); ++c) g[c - 1] += out[c];
+  return out[0];
 }
-"""
+""".replace("FRAMES", str(FRAMES))
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +213,13 @@ def host_lib(tmp_path_factory):
     h.host_backward.argtypes = [vp, vp, vp, vp, vp, i64, ctypes.c_int]
     h.host_train.argtypes = [vp, vp, vp, vp, i64, ctypes.c_int]
     h.host_train.restype = ctypes.c_float
+    i32 = ctypes.c_int
+    h.host_grads.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32]
+    h.host_act.argtypes = [i32, vp, vp, vp, i32]
+    h.host_qcp_vjp.argtypes = [vp, vp, vp, vp, vp, vp, i32]
+    h.host_frames.argtypes = [vp, i32, i32, i32]
     assert h.host_abi() == ctypes.sizeof(F.ModelArgs)
+    assert h.host_io_abi() == ctypes.sizeof(F.UnrIO)
     return h
 
 
@@ -157,6 +269,11 @@ def test_alanine_forward_and_adjoint(host_lib, component):
     dict(activation="identity"),
     dict(activation="relu"),
     dict(activation="sigmoid"),
+    dict(activation="gelu"),
+    dict(activation="elu"),
+    dict(activation="celu"),
+    dict(activation="softplus"),
+    dict(activation="swish"),
     dict(hidden_dims=(8, 6, 2)),
 ])
 def test_model_variants(host_lib, case):
@@ -203,6 +320,11 @@ def _close_grads(g, g_ref):
     np.testing.assert_allclose(g.numpy(), g_ref.numpy(), atol=GRAD_RTOL * scale)
 
 
+# The activations the kernels took in PR 6; gelu and swish take their
+# derivative from the pre-activation.
+NEW_ACTIVATIONS = ("gelu", "elu", "celu", "softplus", "swish")
+
+
 def _grad_models():
     def seeded(seed, **kw):
         return alanine_model(generator=torch.Generator().manual_seed(seed),
@@ -227,6 +349,9 @@ def _grad_models():
         "no_alignment": unaligned,
         "no_position_features": lambda: seeded(8, include_position=False),
         "deep": lambda: seeded(2, hidden_dims=(8, 6, 2)),
+        **{act: functools.partial(seeded, 10 + i, activation=act,
+                                  hidden_dims=(8, 6, 3))
+           for i, act in enumerate(NEW_ACTIVATIONS)},
     }
 
 
@@ -276,7 +401,7 @@ def test_vjp_parameter_and_ref_grads(host_lib, name, want_gx):
 
 @pytest.mark.parametrize("train_ref", [False, True])
 @pytest.mark.parametrize("name", ["tanh", "uncentred_ref", "relu",
-                                  "no_alignment"])
+                                  "no_alignment", "gelu", "swish"])
 def test_train_loss_and_grads(host_lib, name, train_ref):
     """The train kernel's per-frame math (MSE cotangent, then the VJP with
     no gx): the loss and its gradients against the plain version."""
@@ -299,3 +424,182 @@ def test_train_loss_and_grads(host_lib, name, train_ref):
         _close_grads(g_ref, gref_ref)
         if not train_ref:
             assert not g_ref.any()
+
+
+@pytest.mark.parametrize("activation", sorted(F.KERNEL_ACTIVATIONS))
+def test_activation_forms(host_lib, activation):
+    """act_fwd and act_grad (from the output, or from the pre-activation
+    for gelu and swish) against the eager model's activation and its
+    derivative by torch.autograd in float64."""
+    z = np.concatenate([np.linspace(-12.0, 12.0, 481),
+                        [0.0, 1e-7, -1e-7, 30.0, -30.0]]).astype(np.float32)
+    t = np.empty_like(z)
+    g = np.empty_like(z)
+    code = F.KERNEL_ACTIVATIONS[activation]
+    host_lib.host_act(code, z.ctypes.data, t.ctypes.data, g.ctypes.data,
+                      z.size)
+    zz = torch.from_numpy(z).double().requires_grad_(True)
+    tt = ACTIVATIONS[activation](zz)
+    (gg,) = torch.autograd.grad(tt.sum(), zz)
+    np.testing.assert_allclose(t, tt.detach().numpy(), rtol=2e-6, atol=2e-7)
+    np.testing.assert_allclose(g, gg.numpy(), rtol=2e-5, atol=2e-6)
+
+
+def _walk(host_lib, model, x, aux, frames, *, train, in_t=False,
+          want_gx=True, want_ref=True):
+    """One host walk of the backward (gy = aux) or train (y_target = aux)
+    kernel on ``frames`` frames a block: ``(out [1 + G], gx or None)``."""
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+    l = x.shape[0]
+    xs = x.reshape(l, -1).contiguous()
+    if in_t:
+        xs, aux = xs.T.contiguous(), aux.T.contiguous()
+    gx = torch.empty(l, xs.numel() // l) if want_gx and not train else None
+    out = torch.empty(1 + F._grad_width(align_idx, params))
+    host_lib.host_grads(ctypes.addressof(args), xs.data_ptr(), aux.data_ptr(),
+                        None if gx is None else gx.data_ptr(), out.data_ptr(),
+                        l, int(train), int(in_t), int(want_ref), frames)
+    del keep
+    return out, gx
+
+
+def _f64(parts):
+    spec, align_idx, ref_x, params, act = parts
+    return (spec, align_idx, None if ref_x is None else ref_x.double(),
+            tuple((w.double(), b.double()) for w, b in params), act)
+
+
+def _close64(g, g_ref):
+    scale = max(1.0, float(g_ref.abs().max()))
+    np.testing.assert_allclose(g.double().numpy(), g_ref.numpy(),
+                               atol=F64_RTOL * scale)
+
+
+def _features_only():
+    model, u = GRAD_MODELS["tanh"]()
+    return model.preprocessing_layer, u
+
+
+@pytest.mark.parametrize("frames", [1, 4, 32, 64])
+@pytest.mark.parametrize("name", ["tanh", "gelu", "no_alignment",
+                                  "features_only"])
+def test_block_walk_backward(host_lib, name, frames):
+    """The backward kernel's block steps over a grid of blocks with a ragged
+    last one (37 frames): gx, the parameter block products and the ref_x
+    sums against a float64 plain version; a second walk gives the same
+    bits, and asking for the parameter sums alone gives the same sums."""
+    model, u = (_features_only if name == "features_only"
+                else GRAD_MODELS[name])()
+    x = _frames(u, n=37, seed=21)
+    parts = F._extract_model(model)
+    d = F._out_dim(parts[0], parts[3])
+    gy = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(x.shape[0], d)).astype(np.float32))
+    out, gx = _walk(host_lib, model, x, gy, frames, train=False)
+    out2, gx2 = _walk(host_lib, model, x, gy, frames, train=False)
+    assert torch.equal(out, out2) and torch.equal(gx, gx2)
+    alone, _ = _walk(host_lib, model, x, gy, frames, train=False,
+                     want_gx=False)
+    assert torch.equal(alone, out)
+    gx_ref, gp_ref, gref_ref = F.backward_plain(*_f64(parts), x.double(),
+                                                gy.double())
+    _close64(gx.reshape(x.shape), gx_ref)
+    gparams, g_ref = F._unpack_grads(out[1:], parts[1], parts[2], parts[3])
+    for (gw, gb), (gw_r, gb_r) in zip(gparams, gp_ref):
+        _close64(gw, gw_r)
+        _close64(gb, gb_r)
+    if g_ref is not None:
+        _close64(g_ref, gref_ref)
+    assert out[0] == 0
+
+
+@pytest.mark.parametrize("frames", [1, 8, 64])
+@pytest.mark.parametrize("in_t", [False, True])
+@pytest.mark.parametrize("train_ref", [False, True])
+def test_block_walk_train(host_lib, train_ref, in_t, frames):
+    """The train kernel's block steps on 37 frames in both layouts: the
+    loss and its gradients against float64, the same bits on a repeat."""
+    model, u = GRAD_MODELS["swish"]()
+    x = _frames(u, n=37, seed=23)
+    parts = F._extract_model(model)
+    d = F._out_dim(parts[0], parts[3])
+    yt = torch.from_numpy(np.random.default_rng(24).normal(
+        size=(x.shape[0], d)).astype(np.float32))
+    out, _ = _walk(host_lib, model, x, yt, frames, train=True, in_t=in_t,
+                   want_ref=train_ref)
+    out2, _ = _walk(host_lib, model, x, yt, frames, train=True, in_t=in_t,
+                    want_ref=train_ref)
+    assert torch.equal(out, out2)
+    loss_r, gp_ref, gref_ref = F.train_grads_plain(
+        *_f64(parts), x.double(), yt.double(), train_ref)
+    np.testing.assert_allclose(float(out[0]), float(loss_r), rtol=1e-5)
+    gparams, g_ref = F._unpack_grads(out[1:], parts[1], parts[2], parts[3])
+    for (gw, gb), (gw_r, gb_r) in zip(gparams, gp_ref):
+        _close64(gw, gw_r)
+        _close64(gb, gb_r)
+    _close64(g_ref, gref_ref)
+    if not train_ref:
+        assert not g_ref.any()
+
+
+@pytest.mark.parametrize("kind", ["near_identity", "random", "reflection"])
+def test_qcp_reverse_pass(host_lib, kind):
+    """qcp_rotation_vjp, the reverse pass the unrolled adjoint runs, against
+    the 9-tangent Dual9 pass of the same composite: R to the bit, gH to
+    float rounding. Covariances near a rotation's (thermal frames), random
+    ones, and ones with a negative determinant."""
+    rng = np.random.default_rng({"near_identity": 1, "random": 2,
+                                 "reflection": 3}[kind])
+    n = 256
+    H = rng.normal(size=(n, 3, 3))
+    if kind == "near_identity":
+        H = 20.0 * np.eye(3) + 0.5 * H
+    elif kind == "reflection":
+        H[:, 0] *= -1.0
+        H = H * 4.0
+    H = H.astype(np.float32)
+    gR = rng.normal(size=(n, 3, 3)).astype(np.float32)
+    out = [np.empty((n, 3, 3), np.float32) for _ in range(4)]
+    host_lib.host_qcp_vjp(H.ctypes.data, gR.ctypes.data,
+                          *(o.ctypes.data for o in out), n)
+    R, gH, R_d, gH_d = out
+    np.testing.assert_array_equal(R, R_d)
+    scale = np.maximum(1.0, np.abs(gH_d).max(axis=(1, 2), keepdims=True))
+    np.testing.assert_allclose(gH / scale, gH_d / scale, atol=2e-5)
+
+
+def test_tile_choice(host_lib):
+    """64 frames a block while two blocks fit an SM's shared memory (every
+    kernel on alanine), fewer for a model at the envelope's edge (64 atoms,
+    96 columns, four layers of 64): 32, two blocks of its forward and one
+    of its backward on an SM."""
+    def frames(model, *modes):
+        spec, align_idx, ref_x, params, act = F._extract_model(model)
+        args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+        got = [host_lib.host_frames(ctypes.addressof(args), *mode)
+               for mode in modes]
+        del keep
+        return got
+
+    every = [(0, 0, 0), (1, 1, 0), (2, 1, 1), (2, 0, 1), (3, 0, 0), (3, 0, 1)]
+    model, _ = alanine_model(device="cpu")
+    assert frames(model, *every) == [64] * len(every)
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.models.ann import (
+        AlignmentLayer,
+        FeatureLayer,
+        create_sequential_nn,
+    )
+    from molann_tpu_torch.topology import Universe
+
+    u = Universe.from_arrays(np.random.default_rng(0).normal(size=(64, 3)),
+                             names=["C"] * 64, resids=[1] * 64,
+                             resnames=["ALA"] * 64)
+    pp = PreprocessingANN(
+        AlignmentLayer(u.select_atoms("bynum 1 2 5"), u.atoms),
+        FeatureLayer([Feature("p", "position", u.select_atoms("bynum 1:32"))],
+                     u.atoms))
+    edge = MolANN(pp, create_sequential_nn([96, 64, 64, 64, 64]))
+    assert F.model_select_mode(edge) == "unrolled"
+    assert frames(edge, (0, 0, 0), (2, 1, 1), (2, 1, 0)) == [32, 32, 32]

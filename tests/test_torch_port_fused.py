@@ -174,13 +174,35 @@ def test_errors():
         F.fused_model_forward(big, torch.as_tensor(u.atoms.positions[None]),
                               mode="unrolled")
 
+    # every activation of the reference is served (tests/
+    # test_torch_port_activations.py holds them against the JAX package);
+    # a head past the unrolled kernels' caps goes to the blocked family
+    # under "auto" and raises under "unrolled"; past the blocked kernels'
+    # eight layers it raises under both
     pp = model.preprocessing_layer
-    for head, err in ((create_sequential_nn([38, 5, 3], "gelu"),
-                       NotImplementedError),
-                      (create_sequential_nn([38, 65, 3]), ValueError),
-                      (create_sequential_nn([38, 4, 4, 4, 4, 3]), ValueError)):
-        with pytest.raises(err):
-            F.fused_cv_forces(MolANN(pp, head), x)
+    gen = torch.Generator().manual_seed(2)
+    for head, auto in (
+            (create_sequential_nn([38, 5, 3], "gelu", generator=gen),
+             "unrolled"),
+            (create_sequential_nn([38, 65, 3], generator=gen), "blocked"),
+            (create_sequential_nn([38, 4, 4, 4, 4, 3], generator=gen),
+             "blocked")):
+        m = MolANN(pp, head)
+        assert F.model_select_mode(m) == auto
+        xg = x.clone().requires_grad_(True)
+        y_ref = m(xg)
+        (g_ref,) = torch.autograd.grad(y_ref.sum(), xg)
+        y, g = F.fused_cv_forces(m, x)
+        np.testing.assert_allclose(y.numpy(), y_ref.detach().numpy(),
+                                   atol=VAL_ATOL)
+        _close_grads(g, g_ref)
+        if auto == "blocked":
+            with pytest.raises(ValueError, match="mode='blocked'"):
+                F.fused_cv_forces(m, x, mode="unrolled")
+    deep = MolANN(pp, create_sequential_nn([38] + [4] * 9, generator=gen))
+    for mode in ("auto", "unrolled", "blocked"):
+        with pytest.raises(ValueError, match="at most"):
+            F.fused_cv_forces(deep, x, mode=mode)
 
 
 def test_launch_counters_stay_zero_on_cpu(setup):

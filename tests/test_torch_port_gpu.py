@@ -901,3 +901,66 @@ def test_edge_mm_refuses_what_the_kernel_does_not_take(cuda):
         EP.edge_mm(D + 0.5, torch.zeros(16, 64, device=cuda), "gather")
     with pytest.raises(ValueError, match="D is on"):
         EP.edge_mm(D.cpu(), torch.zeros(16, 64, device=cuda), "f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unrolled", "blocked"])
+@pytest.mark.parametrize("activation", sorted(F.KERNEL_ACTIVATIONS))
+def test_every_activation_in_both_families(cuda, activation, mode):
+    """Each activation the reference serialises through K1, K4, K2 and K3
+    (or K6, K8, K7 and K5) on a head of two hidden layers, against float64
+    plain versions: values, gx, and the parameter and ref_x sums."""
+    model, u = alanine_model(hidden_dims=(8, 6, 3), activation=activation,
+                             generator=torch.Generator().manual_seed(4),
+                             device=cuda)
+    parts = F._extract_model(model)
+    x = _frames(u, 777, cuda, seed=8)
+    gy = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(777, 3)).astype(np.float32), device=cuda)
+    with torch.no_grad():
+        y1 = F.fused_model_forward(model, x, mode=mode)
+    y_ref, g_ref = F.cv_forces_plain(*_f64(parts), x.double())
+    y, g = F.fused_cv_forces(model, x, mode=mode)
+    for v in (y1, y):
+        np.testing.assert_allclose(v.double().cpu().numpy(),
+                                   y_ref.cpu().numpy(), atol=VAL_ATOL)
+    _close(g, g_ref)
+    ref_x = parts[2].requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    leaves = [xg, ref_x, *(t for wb in parts[3] for t in wb)]
+    got = torch.autograd.grad(F.fused_model_forward(model, xg, mode=mode),
+                              leaves, gy)
+    ref_x.requires_grad_(False)
+    gx_ref, gp_ref, gref_ref = F.backward_plain(*_f64(parts), x.double(),
+                                                gy.double())
+    for v, v_ref in zip(got, [gx_ref, gref_ref,
+                              *(t for wb in gp_ref for t in wb)]):
+        _close(v, v_ref)
+    loss, grads = F.fused_train_grads(model, x, gy, mode=mode, train_ref=True)
+    loss_ref, gp_ref, gref_ref = F.train_grads_plain(
+        *_f64(parts), x.double(), gy.double(), True)
+    assert abs(float(loss) - float(loss_ref)) <= LOSS_RTOL * float(loss_ref)
+    for v, v_ref in zip(grads.values(),
+                        [*(t for wb in gp_ref for t in wb), gref_ref]):
+        _close(v, v_ref)
+
+
+@pytest.mark.gpu
+def test_wide_head_runs_blocked_under_auto(cuda):
+    """A [38, 65, 3] head: the blocked kernels under "auto", the unrolled
+    ones refuse it."""
+    model, u = alanine_model(hidden_dims=(65, 3),
+                             generator=torch.Generator().manual_seed(5),
+                             device=cuda)
+    x = _frames(u, 300, cuda)
+    before = dict(F.KERNEL_LAUNCHES)
+    y, g = F.fused_cv_forces(model, x)
+    assert F.KERNEL_LAUNCHES["blocked_cv_forces"] == \
+        before["blocked_cv_forces"] + 1
+    y_ref, g_ref = F.cv_forces_plain(*_f64(F._extract_model(model)),
+                                     x.double())
+    np.testing.assert_allclose(y.double().cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=VAL_ATOL)
+    _close(g, g_ref)
+    with pytest.raises(ValueError, match="mode='blocked'"):
+        F.fused_cv_forces(model, x, mode="unrolled")
