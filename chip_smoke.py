@@ -45,13 +45,17 @@ Runs the port's serving path on the card and checks it, phase by phase:
    files with and without forces, checked on sampled rows, with the launch
    counts of each run; (d) CUDA-event times of both kernels on one
    65536-frame batch of each model, the plain versions' times (the fluid's
-   at 4096 frames) and each kernel's bound.
+   at 4096 frames) and each kernel's bound; then the pair walk as compiled
+   (SASS instructions a pair evaluation under a box, ``cuobjdump``), the
+   pair evaluations a frame of the fluid needed and made, and K6's and K8's
+   time by step (``probes/blocked_probe.py phases``) on both models. (a)
+   and (b) also run alanine with a 12-layer head under ``mode="auto"``.
 
 8. the blocked training path: (a) the blocked backward kernel (autograd
    through ``fused_model_forward``: gx in the layout of x, every weight,
    ``ref_x``) and the blocked train kernel (``train_ref`` False and, where
    the model aligns, True) against float64 plain versions on 8192 and 8191
-   frames of the four models of phase 7 in each input layout, the backward
+   frames of the five models of phase 7 in each input layout, the backward
    kernel also asked for the parameter sums alone (no gx: a kernel of its
    own, one evaluation a pair); two launches of each give the same bits,
    and whether the sums without gx equal those with gx bit for bit is
@@ -128,6 +132,8 @@ PEPTIDE_TRAIN_STEPS = 20
 LJ_TRAIN_STEPS = 10
 BF16_OPS_PER_S = 989e12    # dense bf16 on the tensor cores, same sheet
 LJ_SIGMA = 0.5
+# widths of a 12-layer head on alanine (the blocked kernels take any depth)
+DEEP_HEAD = (8,) * 11 + (2,)
 VAL_TOL_PAIRS = 5e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
@@ -415,14 +421,20 @@ def blocked_phase(dev, card, alanine, x_alanine, tmp):
     from molann_tpu_torch.ops import fused as F
     from molann_tpu_torch.ops import fused_blocked as FB
     from molann_tpu_torch.serve import evaluate_trajectory
-    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+    from molann_tpu_torch.systems import (
+        alanine_model,
+        lj_fluid_model,
+        peptide_model,
+    )
 
     seed = torch.Generator().manual_seed(0)
     peptide, pu = peptide_model(60, generator=seed, device=dev)
     fluid, fu, _ = lj_fluid_model(5, generator=seed, device=dev)
     sparse, su = sparse_peptide_model(400, dev)
+    deep, _ = alanine_model(hidden_dims=DEEP_HEAD, generator=seed, device=dev)
     if F.model_select_mode(peptide) != "blocked" or \
-            F.model_select_mode(fluid) != "blocked":
+            F.model_select_mode(fluid) != "blocked" or \
+            F.model_select_mode(deep) != "blocked":
         fail("mode='auto' does not select the blocked kernels")
     c_fluid = torch.as_tensor(F.model_chunk_matrix(fluid), device=dev)
     if F.model_chunk_matrix(peptide) is not None:
@@ -489,6 +501,8 @@ def blocked_phase(dev, card, alanine, x_alanine, tmp):
           ("[l, n, 3]",), VAL_TOL_PAIRS)
     check("alanine, mode='blocked'", alanine, x_alanine, (None, 0),
           ("[l, n, 3]", "[3n, l]"), VAL_TOL, mode="blocked")
+    check(f"alanine, {len(DEEP_HEAD)}-layer head, mode='auto'", deep,
+          x_alanine, (None, 0), ("[l, n, 3]", "[3n, l]"), VAL_TOL)
     y4, g4 = F.fused_cv_forces(alanine, x_alanine)
     y8, g8 = F.fused_cv_forces(alanine, x_alanine, mode="blocked")
     e_k = max(float((y8 - y4).abs().max()), float((g8 - g4).abs().max()))
@@ -511,8 +525,9 @@ def blocked_phase(dev, card, alanine, x_alanine, tmp):
         fail("the blocked cv+forces kernel was never launched")
     torch.cuda.synchronize()
     print(f"blocked kernels vs float64 plain on {L} and {L - 1} frames "
-          f"(peptide_model(60), lj_fluid_model(5), alanine, 2000-atom sparse "
-          f"peptide with {len(active)} active atoms): max abs err forward "
+          f"(peptide_model(60), lj_fluid_model(5), alanine, alanine with a "
+          f"{len(DEEP_HEAD)}-layer head, 2000-atom sparse peptide with "
+          f"{len(active)} active atoms): max abs err forward "
           f"{err['blocked_forward']:.3g}, cv_forces "
           f"{err['blocked_cv_forces']:.3g}; blocked vs unrolled on alanine "
           f"{e_k:.3g}; repeated launches bit-identical; (atom, frame) entries "
@@ -643,11 +658,52 @@ def blocked_phase(dev, card, alanine, x_alanine, tmp):
         del xb, xpl
     print(f"one {BATCH}-frame batch on the card: " + "; ".join(timed)
           + f"; card: {card}")
+    pair_walk(F, FB, card, {"peptide_model(60)": (peptide, pu, 0.05),
+                            "lj_fluid_model(5)": (fluid, fu, LJ_SIGMA)})
     models = {"peptide_model(60)": (peptide, pu, paths["peptide_model(60)"]),
               "lj_fluid_model(5)": (fluid, fu, paths["lj_fluid_model(5)"]),
-              "sparse": (sparse, su, None), "c_fluid": c_fluid}
+              "sparse": (sparse, su, None), "c_fluid": c_fluid,
+              "deep": (deep, None, None)}
     return blocked_entries(launches, err, out, (
         ("blocked_forward", 1179), ("blocked_cv_forces", 1398))), models
+
+
+def pair_walk(F, FB, card, models):
+    """Phase 7d's second half: the pair walk as compiled (SASS instructions
+    of a pair evaluation under a box, every such loop of the fluid's
+    kernels), the pair evaluations a frame the function needs and the
+    kernels make, and K6's and K8's time by step (``probes/blocked_probe.py
+    phases``) on one batch of each model."""
+    from molann_tpu_torch.ops import _build
+    from molann_tpu_torch.probes import blocked_probe
+
+    loops = blocked_probe.sass_pair_loops(_build.BUILD_INFO["path"])
+    per_pair = {}
+    for kernel, label in (("K6", "blocked_kernel<0,0,1>"),
+                          ("K8", "blocked_kernel<1,0,1>")):
+        found = loops.get(label)
+        if not found:
+            fail(f"no pair loop under a box in {label}'s SASS")
+        per_pair[kernel] = sorted(round(n / p, 1) for n, p, _ in found)
+    fluid = models["lj_fluid_model(5)"][0]
+    lay = FB.blocked_layout(*F._extract_model(fluid)[:2])
+    pairs = sum(lay.coord_npairs)
+    print(f"the pair walk as compiled, SASS instructions a pair evaluation "
+          f"under a box, each loop of the pair kernels (four pairs a loop "
+          f"turn, the last group's loop apart): K6 {per_pair['K6']}, K8 "
+          f"{per_pair['K8']}; pair evaluations a frame of lj_fluid_model(5): "
+          f"needed {pairs} (each pair once, with its derivative for K8); "
+          f"as written, K6 {pairs} (each pair from its owner) and K8 "
+          f"{2 * pairs} (each pair from both its atoms)")
+    blocked_probe.phases(F, FB, _build, {
+        name: (model, noisy_frames(u, BATCH, 15, sigma, model_device(model)))
+        for name, (model, u, sigma) in models.items()},
+        kernels=("K6", "K8"))
+    print(f"card: {card}")
+
+
+def model_device(model):
+    return next(model.parameters()).device
 
 
 def blocked_entries(launches, err, out, kinds,
@@ -810,13 +866,16 @@ def blocked_train_phase(dev, card, alanine, x_alanine, models, tmp):
           ("[l, n, 3]", "[3n, l]"), mode="blocked")
     check("2000-atom sparse peptide", sparse,
           noisy_frames(su, L, 12, 0.05, dev), ("[l, n, 3]", "[3, n, l]"))
+    check(f"alanine, {len(DEEP_HEAD)}-layer head", models["deep"][0],
+          x_alanine, ("[l, n, 3]", "[3n, l]"))
     if not (F.KERNEL_LAUNCHES["blocked_backward"]
             and F.KERNEL_LAUNCHES["blocked_train"]):
         fail("a blocked training kernel was never launched")
     torch.cuda.synchronize()
     print(f"blocked training kernels vs float64 plain on {L} and {L - 1} "
           f"frames (peptide_model(60), lj_fluid_model(5), alanine with "
-          f"train_ref, 2000-atom sparse peptide; every layout): max abs err "
+          f"train_ref, 2000-atom sparse peptide, alanine with a "
+          f"{len(DEEP_HEAD)}-layer head; every layout): max abs err "
           f"backward {err['blocked_backward']:.3g}, train "
           f"{err['blocked_train']:.3g} (sums over {L} frames; as a fraction "
           f"of max(1, max|g|), which the tolerance {GRAD_RTOL} is stated in: "

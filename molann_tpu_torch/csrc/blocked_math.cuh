@@ -18,13 +18,17 @@
 //   - staging. Frame-major rows that are 16-byte aligned are loaded 16 bytes
 //     a thread, four loads in flight; other layouts element by element.
 //   - pairs. Thread (atom, frame) keeps its atom in registers and walks the
-//     atom's row of pair partners once, in a loop whose switching function
-//     and minimum image were chosen outside it (blk_pair_form; the usual
-//     even exponents need no square root). Forward only, it walks the
-//     partners of the pairs the atom OWNS (every pair has one owner, so a
-//     pair is evaluated once) and keeps a compensated partial sum. Where a
-//     coordinate gradient is wanted it walks all its partners, sums s over
-//     the owned ones in the same order (the same bits) and accumulates
+//     atom's pair partners once, in a loop whose switching function and
+//     minimum image were chosen outside it (blk_pair_form; the usual even
+//     exponents need no square root), four partners a loop turn, each a
+//     16-byte shared load of its coordinates; a feature over all pairs of a
+//     run of staged atoms finds them by position on that circle with no
+//     index read (the range form). Forward only, it walks the partners of
+//     the pairs the atom OWNS (every pair has one owner, so a pair is
+//     evaluated once) and sums s in groups of four, each group's plain sum
+//     added compensated. Where a coordinate gradient is wanted it walks all
+//     its partners, sums s over the owned ones in the same runs (the same
+//     bits), the others to a gradient's precision only, and accumulates
 //     D_k[a] = sum_partners -s'(r)/r d, which does not depend on the
 //     feature's cotangent: the gather multiplies it by that cotangent after
 //     the MLP has run backwards, and no pair is looked at again. D_k lives in
@@ -32,11 +36,13 @@
 //     (atom, frame) vary with the model and the tile, so a register array
 //     would need a compile-time bound, and at 8 frames a block the 125-atom
 //     contact model's 27 KB still leave four blocks on an SM.
-//   - bonds, angles and dihedrals backwards. Thread (feature, frame)
-//     computes the adjoint once and adds each atom's share into per-atom
-//     accumulators in shared memory. The host puts the features into batches
-//     in which no two features share an atom (BlockedLayout.feature_batches);
-//     a barrier separates the batches, so the order of the additions is the
+//   - bonds, angles and dihedrals, forwards and backwards, with their square
+//     roots and divisions on the special-function units and a Newton step.
+//     Backwards, thread (feature, frame) computes the adjoint once and adds
+//     each atom's share into per-atom accumulators in shared memory. The
+//     host puts the features into batches in which no two features share an
+//     atom, by kind within a batch (BlockedLayout.feature_batches); a
+//     barrier separates the batches, so the order of the additions is the
 //     table's and the same inputs give the same bits. No float atomics.
 //   - MLP layers with at least 64 inputs run register-tiled in f32: forward,
 //     a thread owns 4 outputs x 2 frames and a slice of the inputs (one
@@ -44,6 +50,8 @@
 //     slices' partial sums meet in a scratch region in slice order;
 //     backwards, 4 inputs x 2 frames over the transposed weights. Smaller
 //     layers keep one thread per (frame, output).
+//   - alignment: QCP on floats, its adjoint by the reverse pass
+//     (qcp_rotation_vjp, frame_math.cuh) from the forward's Newton result.
 //   - the gather: thread (atom, frame) adds its accumulators, the position
 //     and alignment terms of its row of atom_ent and cotangent x D_k, and
 //     stores the gradient in the output's layout.
@@ -51,11 +59,15 @@
 // arithmetic, so what the launchers hold on to is 32 warps an SM: four blocks
 // of 256 threads, or two of 512 where shared memory allows two blocks only.
 //
-// Shared memory of a block: first the list of a tile's steps
-// (MOLANN_BLK_MAX_STEPS words), then rows of `pitch` floats (one float per
-// frame of the tile, pitch odd so that both row-wise and frame-wise walks
-// are bank-conflict free):
+// Shared memory of a block: first the list of a tile's steps (its count,
+// then the steps, then the layout below; blk_steps_words(m) words, sized
+// by the head's depth);
+// with coordination features the pair walk's partner rows xq, one 16-byte
+// word per (staged atom, frame) (see blk_pair_eval); then rows of `pitch`
+// floats (one float per frame of the tile, pitch odd so that both row-wise
+// and frame-wise walks are bank-conflict free):
 //   xs    [3 * n_act]  coordinates of the staged (active) atoms, row 3k+c
+//                      (none for a model of coordination features alone)
 //   feat  [n_feat]     feature columns in final order; overwritten in place
 //                      by their cotangents where a gradient is formed
 //   h     [sum dims]   output of every MLP layer; overwritten in place by
@@ -72,7 +84,6 @@
 
 #include "frame_math.cuh"
 
-#define MOLANN_BLK_MAX_LAYERS 8
 // Threads of a block: 256 with four blocks on an SM where the block's shared
 // memory lets them, and 512 with two where it does not (or where a layer's
 // weight gradient fits 512 threads' registers): either way 32 warps an SM
@@ -97,10 +108,12 @@
 enum { BLK_ENT_ANGLE = 0, BLK_ENT_BOND = 1, BLK_ENT_DIHEDRAL = 2,
        BLK_ENT_POS = 3, BLK_ENT_ALIGN = 4 };
 
-// Rows of the per-frame alignment state.
+// Rows of the per-frame alignment state: the centroid, H and R; where an
+// adjoint is formed also gR, gH, the centroid's cotangent and the result of
+// QCP's 12 Newton steps, which the reverse pass (qcp_rotation_vjp) takes.
 enum { BLK_ST_C = 0, BLK_ST_H = 3, BLK_ST_R = 12, BLK_ST_FWD_ROWS = 21,
-       BLK_ST_GR = 21, BLK_ST_GH = 30, BLK_ST_GC = 39, BLK_ST_DR = 42,
-       BLK_ST_ALL_ROWS = 123 };
+       BLK_ST_GR = 21, BLK_ST_GH = 30, BLK_ST_GC = 39, BLK_ST_LAM = 42,
+       BLK_ST_ALL_ROWS = 43 };
 
 // Model description, passed by value to the kernels; mirrored field by
 // field by the ctypes.Structure in ops/fused_blocked.py. Every atom index
@@ -112,9 +125,8 @@ struct BlockedArgs {
   int n_align;      // 0 unless the model aligns AND has position features
   int use_angle_value;
   int n_feat;       // feature columns
-  int n_layers;
+  int n_layers;     // any number: the head's widths are a table
   int activation;   // MOLANN_ACT_*
-  int dims[MOLANN_BLK_MAX_LAYERS + 1];  // dims[0] = n_feat
   int frames;       // frames per block, a power of two
   int pitch;        // floats per shared-memory row (frames | 1)
   int n_batches;    // batches of bonds, angles and dihedrals
@@ -129,9 +141,18 @@ struct BlockedArgs {
                             // dihedral, coordination feature, position atom
   const int* atom_ptr;      // [n_act + 1] rows of atom_ent
   const int* atom_ent;      // every position and alignment entry of the atom
+  const int* coord_range;   // [n_coord * 2] per coordination feature (s0, n):
+                            // its pairs are all pairs of the staged atoms
+                            // s0..s0+n-1 (the range form), else (0, 0)
   const int* batch_ptr;     // [n_batches + 1] rows of batch_ent
   const int* batch_ent;     // bonds, angles and dihedrals by batch; no two
                             // features of a batch share an atom
+  const int* head;          // [n_layers * 8] per layer d_in, d_out, w_off (its
+                            // weights' offset in params), h_row (its output's
+                            // first row of h), g_off (its weight gradient's
+                            // offset in [loss | G]), 0, 0, 0; on the device
+  const int* head_host;     // the same table in host memory, for the host's
+                            // sizing of a launch (shared memory, threads)
   const int* nbr_ptr;       // [n_coord * (n_act + 1)] rows of nbr
   const int* nbr_mid;       // [n_coord * n_act] end of the partners the atom owns
   const int* nbr;           // [n_pairs * 2] pair partners of each atom, the
@@ -168,13 +189,42 @@ struct BlockedIO {
 // Offsets in floats. acc: the block's running sums, backward and train
 // kernels only.
 // z: -1 where the kernel keeps no pre-activations.
-struct BlkSmem { int xs, feat, h, z, st, spart, dk, gacc, scr, acc, total; };
+struct BlkSmem { int xq, xs, feat, h, z, st, spart, dk, gacc, scr, acc, total; };
+
+// Layer L of the head, from the table the host builds once per head (the
+// device's copy in a kernel, one 16-byte load and one more): a step reads
+// its layer's widths and offsets with no loop over the layers before it.
+// With the offsets summed over the layers in every step, the peptide-like
+// model's kernels ran 3-13% slower than with the widths written in.
+struct BlkLayer { int d_in, d_o, w_off, h_row, g_off; };
+
+__host__ __device__ __forceinline__ BlkLayer blk_layer(const BlockedArgs& m, int L) {
+#ifdef __CUDA_ARCH__
+  const int4 a = *reinterpret_cast<const int4*>(m.head + 8 * L);
+  return BlkLayer{a.x, a.y, a.z, a.w, m.head[8 * L + 4]};
+#else
+  const int* t = m.head_host + 8 * L;
+  return BlkLayer{t[0], t[1], t[2], t[3], t[4]};
+#endif
+}
+
+// Width i of the head: n_feat, then each layer's output.
+__host__ __device__ __forceinline__ int blk_dim(const BlockedArgs& m, int i) {
+  return i == 0 ? m.n_feat : blk_layer(m, i - 1).d_o;
+}
 
 __host__ __device__ __forceinline__ bool blk_aligned(const BlockedArgs& m) {
   return m.n_align > 0;
 }
 
 __host__ __device__ __forceinline__ int blk_pad4(int n) { return (n + 3) & ~3; }
+
+// Whether a step other than the pair walk reads the coordinate rows xs: a
+// model of coordination features alone stages its atoms only as the walk's
+// partner rows.
+__host__ __device__ __forceinline__ bool blk_needs_rows(const BlockedArgs& m) {
+  return m.n_coord == 0 || m.n_angles + m.n_bonds + m.n_dihedrals + m.n_pos + m.n_align > 0;
+}
 
 // Whether the model has features whose adjoints go through the batches.
 __host__ __device__ __forceinline__ bool blk_has_scatter(const BlockedArgs& m) {
@@ -192,13 +242,12 @@ __host__ __device__ __forceinline__ bool blk_has_scatter(const BlockedArgs& m) {
 // alignment, MLP_SUM of a layer that is not cut in slices, everything below
 // the MLP when no adjoint is wanted): an empty step still cost its barrier, 0.02-0.06 ms a
 // batch each. Thread 0 builds the list once, into the first
-// MOLANN_BLK_MAX_STEPS words of the block's shared memory.
+// blk_steps_words(m) words of the block's shared memory: the count, then
+// the steps.
 enum { BLK_LOAD = 0, BLK_FEAT, BLK_REDUCE, BLK_QCP, BLK_POS, BLK_MLP, BLK_MLP_SUM, BLK_OUT,
        BLK_SEED, BLK_PGRAD, BLK_BWD, BLK_GR, BLK_GH, BLK_GREF, BLK_GC,
        BLK_SCATTER, BLK_GATHER };
 enum { BLK_MODE_FORWARD = 0, BLK_MODE_FORCES = 1, BLK_MODE_BACKWARD = 2, BLK_MODE_TRAIN = 3 };
-#define MOLANN_BLK_MAX_STEPS 64
-
 struct BlkStep { int kind, arg; };  // arg: the layer or the batch
 
 __host__ __device__ __forceinline__ BlkStep blk_step_of(int word) {
@@ -222,7 +271,33 @@ __host__ __device__ inline BlkTiling blk_tiling(int d_in, int d_o, int F, int nt
   return t;
 }
 
-// The list of a tile's steps, kind | arg << 8 each (at most 13 + 4 layers);
+// The most steps a tile of any mode can have: 13 and four a layer.
+__host__ __device__ __forceinline__ int blk_max_steps(const BlockedArgs& m) {
+  return 13 + 4 * m.n_layers;
+}
+
+// How many times a step of the list runs, once per batch for SCATTER, its
+// batch as its argument.
+__host__ __device__ __forceinline__ int blk_step_reps(const BlockedArgs& m, int kind) {
+  return kind == BLK_SCATTER ? m.n_batches : 1;
+}
+
+// Words of the list's place at the start of shared memory: its count, the
+// steps and the block's layout (BlkSmem, which the kernels keep there and
+// read as the steps need it: held in registers across the steps, its
+// fields were spilled in every kernel of 64 registers), a multiple of four
+// so that the rows behind it stay 16-byte aligned.
+#define MOLANN_BLK_SMEM_WORDS ((int)(sizeof(BlkSmem) / sizeof(int)))
+__host__ __device__ __forceinline__ int blk_steps_words(const BlockedArgs& m) {
+  return (1 + blk_max_steps(m) + MOLANN_BLK_SMEM_WORDS + 3) & ~3;
+}
+
+// The block's layout in its place behind the list of steps.
+__host__ __device__ __forceinline__ BlkSmem* blk_layout_slot(float* sm, const BlockedArgs& m) {
+  return reinterpret_cast<BlkSmem*>(sm + 1 + blk_max_steps(m));
+}
+
+// The list of a tile's steps, kind | arg << 8 each (blk_max_steps at most);
 // returns their number. `adjoint`: the backward or train call wants something
 // below the MLP (gx or the ref_x gradient); `gx`: it wants gx.
 __host__ __device__ inline int blk_build_steps(const BlockedArgs& m, int mode, bool adjoint,
@@ -236,7 +311,7 @@ __host__ __device__ inline int blk_build_steps(const BlockedArgs& m, int mode, b
   if (al) { out[n++] = BLK_QCP; out[n++] = BLK_POS; }
   for (int L = 0; L < nl; ++L) {
     out[n++] = BLK_MLP | L << 8;
-    const BlkTiling t = blk_tiling(m.dims[L], m.dims[L + 1], m.frames, nt);
+    const BlkTiling t = blk_tiling(blk_dim(m, L), blk_dim(m, L + 1), m.frames, nt);
     if (t.tiled && t.slices > 1) out[n++] = BLK_MLP_SUM | L << 8;
   }
   if (mode == BLK_MODE_FORWARD || mode == BLK_MODE_FORCES) {
@@ -263,18 +338,21 @@ __host__ __device__ inline int blk_build_steps(const BlockedArgs& m, int mode, b
   return n;
 }
 
-// fstate: room for the whole alignment state (dR/dH and the cotangents)
+// fstate: room for the whole alignment state (the cotangents, QCP's Newton result)
 // and for the pre-activations a backward through gelu or swish reads; gx:
 // room for D_k and the per-atom accumulators.
 __host__ __device__ inline BlkSmem blk_smem_at(const BlockedArgs& m, int nt, bool fstate,
                                                bool gx) {
   BlkSmem s;
-  int o = MOLANN_BLK_MAX_STEPS;  // the list of steps comes first
-  s.xs = o;   o += 3 * m.n_act * m.pitch;
+  int o = blk_steps_words(m);  // the list of steps comes first
+  s.xq = o;  // 16-byte aligned: the list's words are a multiple of four
+  if (m.n_coord > 0) o += 4 * m.n_act * m.frames;
+  s.xs = o;
+  if (blk_needs_rows(m)) o += 3 * m.n_act * m.pitch;
   s.feat = o; o += m.n_feat * m.pitch;
   s.h = o;
   int hrows = 0;
-  for (int L = 0; L < m.n_layers; ++L) hrows += m.dims[L + 1];
+  for (int L = 0; L < m.n_layers; ++L) hrows += blk_dim(m, L + 1);
   o += hrows * m.pitch;
   s.z = -1;
   if (fstate && act_needs_z(m.activation)) { s.z = o; o += hrows * m.pitch; }
@@ -288,9 +366,9 @@ __host__ __device__ inline BlkSmem blk_smem_at(const BlockedArgs& m, int nt, boo
   s.scr = o;
   int scr = 0;
   for (int L = 0; L < m.n_layers; ++L) {
-    const BlkTiling t = blk_tiling(m.dims[L], m.dims[L + 1], m.frames, nt);
-    if (t.tiled && t.slices > 1 && t.slices * m.dims[L + 1] * m.frames > scr)
-      scr = t.slices * m.dims[L + 1] * m.frames;
+    const BlkTiling t = blk_tiling(blk_dim(m, L), blk_dim(m, L + 1), m.frames, nt);
+    if (t.tiled && t.slices > 1 && t.slices * blk_dim(m, L + 1) * m.frames > scr)
+      scr = t.slices * blk_dim(m, L + 1) * m.frames;
   }
   o += scr;
   s.acc = o;
@@ -305,20 +383,16 @@ __host__ __device__ inline BlkSmem blk_smem(const BlockedArgs& m, int nt, bool f
 
 // Offset of layer L's output inside the h region.
 __host__ __device__ __forceinline__ int blk_h_off(const BlockedArgs& m, int L) {
-  int o = 0;
-  for (int i = 0; i < L; ++i) o += m.dims[i + 1] * m.pitch;
-  return o;
+  return blk_layer(m, L).h_row * m.pitch;
 }
 
 // Layer L's transposed weights inside params; its bias follows them.
 __host__ __device__ __forceinline__ const float* blk_layer_w(const BlockedArgs& m, int L) {
-  const float* w = m.params;
-  for (int i = 0; i < L; ++i) w += blk_pad4(m.dims[i + 1] * m.dims[i]) + blk_pad4(m.dims[i + 1]);
-  return w;
+  return m.params + blk_layer(m, L).w_off;
 }
 
 __host__ __device__ __forceinline__ int blk_out_dim(const BlockedArgs& m) {
-  return m.n_layers ? m.dims[m.n_layers] : m.n_feat;
+  return m.n_layers ? blk_dim(m, m.n_layers) : m.n_feat;
 }
 
 // One step of a compensated (Kahan) sum: a switching sum runs over
@@ -351,87 +425,173 @@ __host__ __device__ __forceinline__ int blk_pair_form(const CoordPar& cp) {
   return 1 + 2 * i + (cp.has_box ? 1 : 0);
 }
 
-// One partner j of atom (xa, ya, za) in frame f: s and, with kGrad,
-// coef = s'(r)/r and the displacement d.
-template <bool kGrad, int kNN, int kBox>
+// The partner rows of the walk: per staged atom and frame one 16-byte word
+// (x, y, z, and a fourth float nobody reads), atom a of frame f at
+// xq[a * frames + f]. A warp's partner load is one 16-byte shared load, 32
+// neighbouring words (or two runs of 16): no bank conflicts.
+#ifndef __CUDACC__
+struct float4 { float x, y, z, w; };
+#endif
+
+// One partner pj of atom (xa, ya, za): s and, with kGrad, coef = s'(r)/r and
+// the displacement d (kRough: coef alone, see switch_eval_even).
+template <bool kGrad, int kNN, int kBox, bool kRough = false>
 __host__ __device__ __forceinline__ void blk_pair_eval(const CoordPar& cp, const SwitchEven& ev,
-                                                       const float* xs, int FP, int f, int j,
-                                                       float xa, float ya, float za, float& s,
-                                                       float& coef, V3& d) {
-  const float* xj = xs + (3 * j) * FP + f;
-  d = min_image_as<kBox>(xj[0] - xa, xj[FP] - ya, xj[2 * FP] - za, cp);
-  if (kNN > 0) switch_eval_even<kGrad, (kNN > 0 ? kNN : 4)>(cp, ev, dot3(d, d), s, coef);
+                                                       const float4 pj, float xa, float ya,
+                                                       float za, float& s, float& coef, V3& d) {
+  d = min_image_as<kBox>(pj.x - xa, pj.y - ya, pj.z - za, cp);
+  if (kNN > 0)
+    switch_eval_even<kGrad, (kNN > 0 ? kNN : 4), kRough>(cp, ev, dot3(d, d), s, coef);
   else switch_eval<kGrad>(cp, dot3(d, d), s, coef);
 }
 
-// Atom a of frame f against its partners nbr[q0..q1). s is summed
-// (compensated) over the partners before `mid`, the pairs the atom owns,
-// into two sums, partner q into sum (q - q0) & 1. Forward only, the walk
-// ends at `mid` and takes two partners at a time, so that two pairs' loads
-// and arithmetic are in flight. With kGrad it goes on to q1 and D[c]
-// accumulates -s'(r)/r d_c of every partner, one partner at a time with the
-// two sums changing places: two pairs in flight beside D and the sums do
-// not fit the 64 registers of four blocks on an SM. Both walks give the same
-// s to the last bit.
-template <bool kGrad, int kNN, int kBox>
-__host__ __device__ __forceinline__ void blk_pair_walk(const CoordPar& cp, const float* xs,
-                                                       int FP, int f, int a, const int* nbr,
-                                                       int q0, int mid, int q1, float& s_sum,
-                                                       float* D) {
-  const float xa = xs[(3 * a) * FP + f], ya = xs[(3 * a + 1) * FP + f],
-              za = xs[(3 * a + 2) * FP + f];
-  const SwitchEven ev = switch_even_r02(cp);
-  float acc0 = 0.f, comp0 = 0.f, acc1 = 0.f, comp1 = 0.f;
-  float s, coef;
-  V3 d;
-  if (kGrad) {
-    float dx = 0.f, dy = 0.f, dz = 0.f;
-    for (int q = q0; q < mid; ++q) {  // the owned partners: s and D
-      blk_pair_eval<true, kNN, kBox>(cp, ev, xs, FP, f, nbr[q], xa, ya, za, s, coef, d);
-      blk_kahan(s, acc0, comp0);
-      float t = acc0; acc0 = acc1; acc1 = t;
-      t = comp0; comp0 = comp1; comp1 = t;
-      dx -= coef * d.x; dy -= coef * d.y; dz -= coef * d.z;
-    }
-    for (int q = mid; q < q1; ++q) {  // the others: D alone
-      blk_pair_eval<true, kNN, kBox>(cp, ev, xs, FP, f, nbr[q], xa, ya, za, s, coef, d);
-      dx -= coef * d.x; dy -= coef * d.y; dz -= coef * d.z;
-    }
-    D[0] = dx; D[1] = dy; D[2] = dz;
-  } else {
-    int q = q0;
-    for (; q + 1 < mid; q += 2) {
-      blk_pair_eval<false, kNN, kBox>(cp, ev, xs, FP, f, nbr[q], xa, ya, za, s, coef, d);
-      blk_kahan(s, acc0, comp0);
-      blk_pair_eval<false, kNN, kBox>(cp, ev, xs, FP, f, nbr[q + 1], xa, ya, za, s, coef, d);
-      blk_kahan(s, acc1, comp1);
-    }
-    if (q < mid) {
-      blk_pair_eval<false, kNN, kBox>(cp, ev, xs, FP, f, nbr[q], xa, ya, za, s, coef, d);
-      blk_kahan(s, acc0, comp0);
-    }
+// Where a run of partners is found: the range form steps a pointer through
+// neighbouring rows (partners s0 + k of a feature over all pairs of the
+// staged atoms s0..s0+n-1), the table form reads each partner's index from
+// the pair operand.
+struct BlkRangeCursor {
+  const float4* p;
+  int F;
+  __host__ __device__ __forceinline__ float4 next() {
+    const float4 v = *p;
+    p += F;
+    return v;
   }
-  s_sum = acc0 + acc1;
+};
+struct BlkTableCursor {
+  const float4* xq;
+  const int* nbr;
+  int F, f;
+  __host__ __device__ __forceinline__ float4 next() { return xq[*nbr++ * F + f]; }
+};
+
+// cnt partners from `cur`, four at a time so that four pairs' loads are in
+// flight and the loop's branch is paid once. kSum: their s in groups of
+// four, a plain sum of the group and then one compensated add of it (the
+// last group may be shorter); kGrad: D -= s'(r)/r d of each, to a
+// gradient's precision where the run sums no s (kRough). The grouping
+// depends on the run alone, so two walks that run the same partners in the
+// same runs give the same sum to the last bit.
+template <bool kGrad, bool kSum, int kNN, int kBox, class Cursor>
+__host__ __device__ __forceinline__ void blk_pair_run(const CoordPar& cp, const SwitchEven& ev,
+                                                      Cursor cur, int cnt, float xa, float ya,
+                                                      float za, float& acc, float& comp,
+                                                      float* D) {
+  int k = 0;
+  for (; k + 4 <= cnt; k += 4) {
+    float s[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float coef;
+      V3 d;
+      blk_pair_eval<kGrad, kNN, kBox, kGrad && !kSum>(cp, ev, cur.next(), xa, ya, za, s[u],
+                                                        coef, d);
+      if (kGrad) { D[0] -= coef * d.x; D[1] -= coef * d.y; D[2] -= coef * d.z; }
+    }
+    if (kSum) blk_kahan((s[0] + s[1]) + (s[2] + s[3]), acc, comp);
+  }
+  if (k < cnt) {
+    float g = 0.f;
+    for (; k < cnt; ++k) {
+      float s, coef;
+      V3 d;
+      blk_pair_eval<kGrad, kNN, kBox, kGrad && !kSum>(cp, ev, cur.next(), xa, ya, za, s,
+                                                      coef, d);
+      g += s;
+      if (kGrad) { D[0] -= coef * d.x; D[1] -= coef * d.y; D[2] -= coef * d.z; }
+    }
+    if (kSum) blk_kahan(g, acc, comp);
+  }
 }
 
-#define BLK_WALK_ARGS cp, xs, FP, f, a, nbr, q0, mid, q1, s_sum, D
-#define BLK_WALK_CASES(I, NN)                                             \
-  case 1 + 2 * I: blk_pair_walk<kGrad, NN, 0>(BLK_WALK_ARGS); break;      \
-  case 2 + 2 * I: blk_pair_walk<kGrad, NN, 1>(BLK_WALK_ARGS); break;
+// The pairs a feature over all pairs of the staged atoms s0..s0+n-1 gives
+// atom s0 + pos to own in the range form: the next h on the circle, h =
+// (n - 1) / 2, and for even n the one opposite too when pos < n / 2. Every
+// pair has one owner.
+__host__ __device__ __forceinline__ int blk_range_owned(int pos, int n) {
+  return (n - 1) / 2 + ((n % 2 == 0 && pos < n / 2) ? 1 : 0);
+}
 
-// The walk in the instance `form` names (blk_pair_form). Inlined: as a
-// function of its own on the card (__noinline__) the cv+forces kernel of the
-// 125-atom contact model took 6.24 ms against 5.01.
+// Partners pos + 1 + first .. pos + first + cnt of the circle of n rows
+// from `base` (frame f's row of atom s0), as at most two runs of
+// neighbouring rows.
+template <bool kGrad, bool kSum, int kNN, int kBox>
+__host__ __device__ __forceinline__ void blk_range_runs(const CoordPar& cp, const SwitchEven& ev,
+                                                        const float4* base, int F, int n,
+                                                        int start, int cnt, float xa, float ya,
+                                                        float za, float& acc, float& comp,
+                                                        float* D) {
+  if (start >= n) start -= n;
+  const int first = cnt < n - start ? cnt : n - start;
+  blk_pair_run<kGrad, kSum, kNN, kBox>(cp, ev, BlkRangeCursor{base + start * F, F}, first, xa,
+                                       ya, za, acc, comp, D);
+  if (cnt > first)
+    blk_pair_run<kGrad, kSum, kNN, kBox>(cp, ev, BlkRangeCursor{base, F}, cnt - first, xa, ya,
+                                         za, acc, comp, D);
+}
+
+// Atom a of frame f against its partners: s summed over the pairs it owns
+// (compensated, in groups of four) and, with kGrad, D[c] = -sum s'(r)/r d_c
+// over all its partners, the owned ones first with s. Forward only each
+// pair is evaluated once, from its owner; with kGrad from both its atoms.
+// kRange: the partners of a feature over all pairs of the staged atoms
+// rs..rs+rn-1, found by position on that circle with no index read; else
+// the partners nbr[q0..q1) of the pair operand, owned before `mid`. Both
+// kernels run the owned partners in the same runs, so the forward's and the
+// cv+forces kernel's sums agree to the last bit.
+template <bool kGrad, int kNN, int kBox, bool kRange>
+__host__ __device__ __forceinline__ void blk_pair_walk(const CoordPar& cp, const float4* xq,
+                                                       int F, int f, int a, const int* nbr,
+                                                       int q0, int mid, int q1, int rs, int rn,
+                                                       float& s_sum, float* D) {
+  const float4 own = xq[a * F + f];
+  const SwitchEven ev = switch_even_r02(cp);
+  float acc = 0.f, comp = 0.f;
+  D[0] = 0.f; D[1] = 0.f; D[2] = 0.f;
+  if (kRange) {
+    const int pos = a - rs, h = blk_range_owned(pos, rn);
+    const float4* base = xq + rs * F + f;
+    blk_range_runs<kGrad, true, kNN, kBox>(cp, ev, base, F, rn, pos + 1, h, own.x, own.y, own.z,
+                                           acc, comp, D);
+    if (kGrad)
+      blk_range_runs<true, false, kNN, kBox>(cp, ev, base, F, rn, pos + 1 + h, rn - 1 - h,
+                                             own.x, own.y, own.z, acc, comp, D);
+  } else {
+    blk_pair_run<kGrad, true, kNN, kBox>(cp, ev, BlkTableCursor{xq, nbr + q0, F, f}, mid - q0,
+                                         own.x, own.y, own.z, acc, comp, D);
+    if (kGrad)
+      blk_pair_run<true, false, kNN, kBox>(cp, ev, BlkTableCursor{xq, nbr + mid, F, f},
+                                           q1 - mid, own.x, own.y, own.z, acc, comp, D);
+  }
+  s_sum = acc;
+}
+
+#define BLK_WALK_ARGS cp, xq, F, f, a, nbr, q0, mid, q1, rs, rn, s_sum, D
+#define BLK_WALK_CASES(I, NN)                                                          \
+  case 1 + 2 * I:                                                                      \
+    if (range) blk_pair_walk<kGrad, NN, 0, true>(BLK_WALK_ARGS);                       \
+    else blk_pair_walk<kGrad, NN, 0, false>(BLK_WALK_ARGS);                            \
+    break;                                                                             \
+  case 2 + 2 * I:                                                                      \
+    if (range) blk_pair_walk<kGrad, NN, 1, true>(BLK_WALK_ARGS);                       \
+    else blk_pair_walk<kGrad, NN, 1, false>(BLK_WALK_ARGS);                            \
+    break;
+
+// The walk in the instance `form` names (blk_pair_form), in the range form
+// where `range` says so (even forms only; the generic body reads the
+// table). Inlined: as a function of its own on the card (__noinline__) the
+// cv+forces kernel of the 125-atom contact model took 6.24 ms against 5.01.
 template <bool kGrad>
-__host__ __device__ __forceinline__ void blk_pair_walk_as(int form, const CoordPar& cp,
-                                                          const float* xs, int FP, int f, int a,
+__host__ __device__ __forceinline__ void blk_pair_walk_as(int form, bool range, const CoordPar& cp,
+                                                          const float4* xq, int F, int f, int a,
                                                           const int* nbr, int q0, int mid,
-                                                          int q1, float& s_sum, float* D) {
+                                                          int q1, int rs, int rn, float& s_sum,
+                                                          float* D) {
   switch (form) {
     BLK_WALK_CASES(0, 4)
     BLK_WALK_CASES(1, 6)
     BLK_WALK_CASES(2, 8)
-    default: blk_pair_walk<kGrad, 0, -1>(BLK_WALK_ARGS);
+    default: blk_pair_walk<kGrad, 0, -1, false>(BLK_WALK_ARGS);
   }
 }
 
@@ -446,6 +606,17 @@ __host__ __device__ __forceinline__ void blk_local_atoms(const float* xs, int FP
   for (int i = 0; i < cnt; ++i)
 #pragma unroll
     for (int c = 0; c < 3; ++c) loc[3 * i + c] = xs[(3 * idx[i] + c) * FP + f];
+}
+
+// Coordinate jj = 3 k + c of staged atom k in frame f, into the rows (where
+// a step reads them) and into the partner rows (where the model has pairs).
+__host__ __device__ __forceinline__ void blk_stage(float* xs, float* xq, bool rows, int FP, int F,
+                                                   int jj, int f, float v) {
+  if (rows) xs[jj * FP + f] = v;
+  if (xq) {
+    const int k = jj / 3;
+    xq[4 * (k * F + f) + jj - 3 * k] = v;
+  }
 }
 
 // Four weights of consecutive outputs: one 16-byte load where the row is
@@ -465,13 +636,17 @@ __host__ __device__ __forceinline__ void blk_load4(const float* row, int j0, int
 }
 
 // kAligned must equal blk_aligned(m): a model without alignment gets a
-// kernel without the QCP solve and its 9-tangent duals, which would
-// otherwise set every phase's register count. kForces: the step as the
-// cv+forces kernel runs it (dR/dH in QCP, D_k in FEAT, the accumulators
+// kernel without the QCP solve and its reverse pass, which would otherwise
+// set every phase's register count. kPairs: a model without alignment that
+// has coordination features gets a kernel of its own with the pair walk;
+// the walk's registers (four pairs in flight) made every step of the other
+// models' kernels spill. A model with alignment takes the walk's generic
+// body in its own kernel either way. kForces: the step as the cv+forces
+// kernel runs it (QCP's Newton result kept, D_k in FEAT, the accumulators
 // zeroed in LOAD). `so` is the block's shared-memory layout; `block` the
 // tile of frames.
-template <bool kForces, bool kAligned>
-__host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const BlockedIO& io,
+template <bool kForces, bool kAligned, bool kPairs>
+__host__ __device__ __forceinline__ void blk_phase_at(const BlockedArgs& m, const BlockedIO& io,
                                              float* sm, const BlkSmem& so, long long block,
                                              BlkStep step, int tid, int nt) {
   const int F = m.frames, FP = m.pitch, fmask = F - 1;
@@ -499,13 +674,16 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
   if (ph == BLK_LOAD) {
     // the ragged last block repeats its last frame, so all math stays finite
     const int n3 = 3 * m.n_act;
+    float* xq = (kAligned || kPairs) && m.n_coord > 0 ? sm + so.xq : nullptr;
+    const bool rows = !kPairs || blk_needs_rows(m);  // a pair walk's kernel may have none
     if (io.x_sf == 1) {  // frames minor: neighbouring threads, neighbouring frames
       for (int e = tid; e < n3 * F; e += nt) {
         const int f = e & fmask, jj = e >> flog;
         const int k = jj / 3, c = jj - 3 * k;
         const int a = m.active_idx ? m.active_idx[k] : k;
         const int ff = f < nf ? f : nf - 1;
-        xs[jj * FP + f] = io.x[f0 + ff + (long long)a * io.x_sa + c * io.x_sc];
+        blk_stage(xs, xq, rows, FP, F, jj, f,
+                  io.x[f0 + ff + (long long)a * io.x_sa + c * io.x_sc]);
       }
     } else if (io.x_sc == 1 && io.x_sa == 3 && !m.active_idx && (n3 & 3) == 0 &&
                (io.x_sf & 3) == 0 && (reinterpret_cast<size_t>(io.x) & 15) == 0) {
@@ -531,7 +709,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
           if (e < q4 * F) {
             const int f = e / q4, q = e - f * q4;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) xs[(4 * q + c) * FP + f] = v[u][c];
+            for (int c = 0; c < 4; ++c) blk_stage(xs, xq, rows, FP, F, 4 * q + c, f, v[u][c]);
           }
         }
       }
@@ -551,7 +729,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            if (fb + u < F) xs[jj * FP + fb + u] = v[u];
+            if (fb + u < F) blk_stage(xs, xq, rows, FP, F, jj, fb + u, v[u]);
         }
     }
     if (kForces && blk_has_scatter(m))
@@ -567,14 +745,14 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
       float loc[12];
       if (it < c_bond) {
         blk_local_atoms(xs, FP, f, m.angle_idx + 3 * it, 3, loc);
-        feat[m.item_col[it] * FP + f] = angle_fwd(loc, loc4, m.use_angle_value);
+        feat[m.item_col[it] * FP + f] = angle_fwd<true>(loc, loc4, m.use_angle_value);
       } else if (it < c_dih) {
         blk_local_atoms(xs, FP, f, m.bond_idx + 2 * (it - c_bond), 2, loc);
-        feat[m.item_col[it] * FP + f] = bond_fwd(loc, loc4);
+        feat[m.item_col[it] * FP + f] = bond_fwd<true>(loc, loc4);
       } else if (it < c_coord) {
         blk_local_atoms(xs, FP, f, m.dihedral_idx + 4 * (it - c_dih), 4, loc);
         float out[2];
-        const int cnt = dihedral_fwd(loc, loc4, m.use_angle_value, out);
+        const int cnt = dihedral_fwd<true>(loc, loc4, m.use_angle_value, out);
         feat[m.item_col[it] * FP + f] = out[0];
         if (cnt > 1) feat[(m.item_col[it] + 1) * FP + f] = out[1];
       } else {  // position without alignment
@@ -586,18 +764,24 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
       }
     }
     // the pair walk: thread (atom, frame), see blk_pair_walk
-    for (int k = 0; k < m.n_coord; ++k) {
+    for (int k = 0; k < ((kAligned || kPairs) ? m.n_coord : 0); ++k) {
       const CoordPar cp = coord_load(m.coord_par + k * MOLANN_COORD_FLOATS);
       // a model with alignment takes the generic body: its kernels are the
       // largest to compile, and such models' pair counts are small
       const int form = kAligned ? 0 : blk_pair_form(cp);
+      // the range form for a feature over all pairs of a run of staged
+      // atoms, where the loop is one of the even forms
+      const int rs = m.coord_range[2 * k], rn = m.coord_range[2 * k + 1];
+      const bool range = form != 0 && rn > 0;
       const int* row = m.nbr_ptr + k * (m.n_act + 1);
       const int* mids = m.nbr_mid + k * m.n_act;
+      const float4* xq = reinterpret_cast<const float4*>(sm + so.xq);
       for (int e = tid; e < m.n_act * F; e += nt) {
         const int f = e & fmask, a = e >> flog;
-        float s, D[3];
-        blk_pair_walk_as<kForces>(form, cp, xs, FP, f, a, m.nbr, row[a], mids[a], row[a + 1],
-                                  s, D);
+        float s = 0.f, D[3] = {0.f, 0.f, 0.f};
+        if (!range || (a >= rs && a < rs + rn))  // off the range: no pairs
+          blk_pair_walk_as<kForces>(form, range, cp, xq, F, f, a, m.nbr, range ? 0 : row[a],
+                                    range ? 0 : mids[a], range ? 0 : row[a + 1], rs, rn, s, D);
         spart[(k * m.n_act + a) * FP + f] = s;
         if (kForces)
 #pragma unroll
@@ -633,27 +817,14 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
     return;
   }
 
-  if (ph == BLK_QCP) {
+  if (ph == BLK_QCP) {  // thread (frame); with kForces the Newton result is kept for GH
     if (!aligned || tid >= F) return;
     const int f = tid;
-    if (kForces) {  // the last QCP steps on duals give dR/dH
-      Dual9 H[3][3], R[3][3];
-      for (int k = 0; k < 9; ++k) {
-        H[k / 3][k % 3] = Dual9(st[(BLK_ST_H + k) * FP + f]);
-        H[k / 3][k % 3].d[k] = 1.0f;
-      }
-      qcp_rotation(H, R);
-      for (int k = 0; k < 9; ++k) {
-        st[(BLK_ST_R + k) * FP + f] = R[k / 3][k % 3].v;
-        for (int q = 0; q < 9; ++q)
-          st[(BLK_ST_DR + 9 * k + q) * FP + f] = R[k / 3][k % 3].d[q];
-      }
-    } else {
-      float H[3][3], R[3][3];
-      for (int k = 0; k < 9; ++k) H[k / 3][k % 3] = st[(BLK_ST_H + k) * FP + f];
-      qcp_rotation(H, R);
-      for (int k = 0; k < 9; ++k) st[(BLK_ST_R + k) * FP + f] = R[k / 3][k % 3];
-    }
+    float H[3][3], R[3][3], lam0;
+    for (int k = 0; k < 9; ++k) H[k / 3][k % 3] = st[(BLK_ST_H + k) * FP + f];
+    qcp_rotation<float, true>(H, R, kForces ? &lam0 : nullptr);
+    for (int k = 0; k < 9; ++k) st[(BLK_ST_R + k) * FP + f] = R[k / 3][k % 3];
+    if (kForces) st[BLK_ST_LAM * FP + f] = lam0;
     return;
   }
 
@@ -676,7 +847,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
 
   if (ph == BLK_MLP || ph == BLK_MLP_SUM) {  // layer L forward
     const int L = step.arg;
-    const int d_in = m.dims[L], d_o = m.dims[L + 1];
+    const int d_in = blk_dim(m, L), d_o = blk_dim(m, L + 1);
     const float* w = blk_layer_w(m, L);
     const float* b = w + blk_pad4(d_o * d_in);
     const float* in = L ? hbuf + blk_h_off(m, L - 1) : feat;
@@ -764,7 +935,7 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
 
   if (ph == BLK_BWD) {  // layer L backward, in place over the layer's input
     const int L = step.arg;
-    const int d_in = m.dims[L], d_o = m.dims[L + 1];
+    const int d_in = blk_dim(m, L), d_o = blk_dim(m, L + 1);
     const float* w = blk_layer_w(m, L);  // transposed: [d_in, d_o]
     const float* g = hbuf + blk_h_off(m, L);
     float* in = L ? hbuf + blk_h_off(m, L - 1) : feat;
@@ -836,14 +1007,16 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
     return;
   }
 
-  if (ph == BLK_GH) {  // GH = GR : dR/dH
-    for (int e = tid; e < 9 * F; e += nt) {
-      const int f = e & fmask, k = e >> flog;
-      float acc = 0.f;
-      for (int ij = 0; ij < 9; ++ij)
-        acc += st[(BLK_ST_GR + ij) * FP + f] * st[(BLK_ST_DR + 9 * ij + k) * FP + f];
-      st[(BLK_ST_GH + k) * FP + f] = acc;
+  if (ph == BLK_GH) {  // GH = GR : dR/dH by QCP's reverse pass, thread (frame)
+    if (tid >= F) return;
+    const int f = tid;
+    float H[3][3], gR[3][3], R[3][3], gH[3][3];
+    for (int k = 0; k < 9; ++k) {
+      H[k / 3][k % 3] = st[(BLK_ST_H + k) * FP + f];
+      gR[k / 3][k % 3] = st[(BLK_ST_GR + k) * FP + f];
     }
+    qcp_rotation_vjp(H, gR, st[BLK_ST_LAM * FP + f], R, gH);
+    for (int k = 0; k < 9; ++k) st[(BLK_ST_GH + k) * FP + f] = gH[k / 3][k % 3];
     return;
   }
 
@@ -884,18 +1057,18 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
       if (kind == BLK_ENT_ANGLE) {
         idx = m.angle_idx + 3 * it; cnt_atoms = 3;
         blk_local_atoms(xs, FP, f, idx, 3, loc);
-        angle_bwd(loc, loc4, m.use_angle_value, feat[m.item_col[it] * FP + f], ga);
+        angle_bwd<true>(loc, loc4, m.use_angle_value, feat[m.item_col[it] * FP + f], ga);
       } else if (kind == BLK_ENT_BOND) {
         idx = m.bond_idx + 2 * it; cnt_atoms = 2;
         blk_local_atoms(xs, FP, f, idx, 2, loc);
-        bond_bwd(loc, loc4, feat[m.item_col[c_bond + it] * FP + f], ga);
+        bond_bwd<true>(loc, loc4, feat[m.item_col[c_bond + it] * FP + f], ga);
       } else {
         idx = m.dihedral_idx + 4 * it; cnt_atoms = 4;
         blk_local_atoms(xs, FP, f, idx, 4, loc);
         float gd[2];
         gd[0] = feat[m.item_col[c_dih + it] * FP + f];
         gd[1] = dcols > 1 ? feat[(m.item_col[c_dih + it] + 1) * FP + f] : 0.f;
-        dihedral_bwd(loc, loc4, m.use_angle_value, gd, ga);
+        dihedral_bwd<true>(loc, loc4, m.use_angle_value, gd, ga);
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -910,13 +1083,17 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
   if (ph != BLK_GATHER) return;
   // GATHER: thread (output atom, frame) adds its accumulators, the position
   // and alignment entries of its row, and every coordination feature's
-  // cotangent times D_k; nothing is scattered here. Frames run fastest
-  // across threads whatever the gradient's layout: the table reads are then
-  // warp-wide broadcasts, which on the card outweighs the frame-major
-  // layouts' strided stores.
+  // cotangent times D_k; nothing is scattered here. Where the gradient is
+  // frame-major ([l, n, 3], [l, 3n]) atoms run fastest across threads, so
+  // that a warp's stores are one frame's neighbouring floats (with frames
+  // fastest the peptide-like model's gather took 0.18 ms a 65,536-frame
+  // batch for 0.07 of bytes); otherwise frames do, and a warp stores a row's
+  // neighbouring frames.
   const bool scattered = blk_has_scatter(m);
+  const bool atoms_fastest = io.g_sc == 1 && io.g_sa == 3;
   for (int e = tid; e < m.n_out * F; e += nt) {
-    const int f = e & fmask, o = e >> flog;
+    const int o = atoms_fastest ? e % m.n_out : e >> flog;
+    const int f = atoms_fastest ? e / m.n_out : e & fmask;
     const int k = m.out_map ? m.out_map[o] : o;
     float g[3] = {0.f, 0.f, 0.f};
     if (k >= 0) {
@@ -963,10 +1140,11 @@ __host__ __device__ inline void blk_phase_at(const BlockedArgs& m, const Blocked
 
 // A step of the forward (kForces = false) or cv+forces kernel on its own
 // shared-memory layout.
-template <bool kForces, bool kAligned>
+template <bool kForces, bool kAligned, bool kPairs>
 __host__ __device__ inline void blk_phase(const BlockedArgs& m, const BlockedIO& io, float* sm,
                                           long long block, BlkStep step, int tid, int nt) {
-  blk_phase_at<kForces, kAligned>(m, io, sm, blk_smem(m, nt, kForces), block, step, tid, nt);
+  blk_phase_at<kForces, kAligned, kPairs>(m, io, sm, blk_smem(m, nt, kForces), block, step, tid,
+                                          nt);
 }
 
 // Threads of a forward or cv+forces block (see MOLANN_BLK_THREADS).
@@ -993,7 +1171,7 @@ __host__ __device__ inline int blk_threads(const BlockedArgs& m, bool forces) {
 // [d_out, d_in] order; a row of partials is [loss | G].
 __host__ __device__ __forceinline__ int blk_grad_size(const BlockedArgs& m) {
   int n = 3 * m.n_align;
-  for (int L = 0; L < m.n_layers; ++L) n += m.dims[L + 1] * (m.dims[L] + 1);
+  for (int L = 0; L < m.n_layers; ++L) n += blk_dim(m, L + 1) * (blk_dim(m, L) + 1);
   return n;
 }
 
@@ -1030,7 +1208,7 @@ __host__ __device__ inline BlkRectMap blk_rect_map(const BlockedArgs& m, int nt)
   BlkRectMap r = {-1, 0, 0};
   int off = 1 + 3 * m.n_align;
   for (int L = 0; L < m.n_layers; ++L) {
-    const int d_in = m.dims[L], d_o = m.dims[L + 1];
+    const int d_in = blk_dim(m, L), d_o = blk_dim(m, L + 1);
     if (blk_rect_layer(d_in, d_o, nt) && d_o * d_in > r.wsize) {
       r.layer = L; r.w0 = off; r.wsize = d_o * d_in;
     }
@@ -1089,7 +1267,7 @@ __host__ __device__ inline void blk_grad_end(const BlockedArgs& m, const Blocked
   const int width = 1 + blk_grad_size(m) - cut;
   for (int e = tid; e < width; e += nt) row[e < r.w0 || !rect ? e : e + cut] = acc[e];
   if (!rect || r.layer < 0) return;
-  const int d_in = m.dims[r.layer], d_o = m.dims[r.layer + 1];
+  const int d_in = blk_dim(m, r.layer), d_o = blk_dim(m, r.layer + 1);
   const int n_jt = (d_o + MOLANN_BLK_RSUM_J - 1) / MOLANN_BLK_RSUM_J;
   const int j0 = MOLANN_BLK_RSUM_J * (tid % n_jt), k0 = MOLANN_BLK_RSUM_K * (tid / n_jt);
   for (int i = 0; i < MOLANN_BLK_RSUM_J; ++i)
@@ -1116,7 +1294,7 @@ __host__ __device__ inline void blk_grad_end(const BlockedArgs& m, const Blocked
 // compiler's register allocation slowed every step (the peptide-like model's
 // parameter sums alone took 2.22 ms in that kernel against 0.99 in the train
 // kernel, which runs the same steps).
-template <bool kTrain, bool kGx, bool kAligned>
+template <bool kTrain, bool kGx, bool kAligned, bool kPairs>
 __host__ __device__ __forceinline__ void blk_grad_phase(const BlockedArgs& m, const BlockedIO& io,
                                                float* sm, const BlkSmem& so, float* acc,
                                                float* rect, long long tile, BlkStep step,
@@ -1139,7 +1317,7 @@ __host__ __device__ __forceinline__ void blk_grad_phase(const BlockedArgs& m, co
 
   if (kGx && step.kind != BLK_SEED && step.kind != BLK_PGRAD && step.kind != BLK_GREF) {
     // every other step as the cv+forces kernel runs it, through one call
-    blk_phase_at<true, kAligned>(m, io, sm, so, tile, step, tid, nt);
+    blk_phase_at<true, kAligned, kPairs>(m, io, sm, so, tile, step, tid, nt);
     return;
   }
   switch (step.kind) {
@@ -1147,32 +1325,35 @@ __host__ __device__ __forceinline__ void blk_grad_phase(const BlockedArgs& m, co
     // keeps only its own step of blk_phase_at)
     case BLK_LOAD:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_LOAD, 0}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile, BlkStep{BLK_LOAD, 0}, tid, nt);
       return;
     case BLK_FEAT:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_FEAT, 0}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile, BlkStep{BLK_FEAT, 0}, tid, nt);
       return;
-    case BLK_QCP:  // dR/dH only where an adjoint needs it
+    case BLK_QCP:  // the Newton result kept only where an adjoint needs it
       if (kGx) return;  // went through the call above
-      if (adjoint) blk_phase_at<true, kAligned>(m, io, sm, so, tile, BlkStep{BLK_QCP, 0}, tid, nt);
-      else blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_QCP, 0}, tid, nt);
+      if (adjoint) blk_phase_at<true, kAligned, kPairs>(m, io, sm, so, tile,
+                                                        BlkStep{BLK_QCP, 0}, tid, nt);
+      else blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile, BlkStep{BLK_QCP, 0}, tid, nt);
       return;
     case BLK_REDUCE:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_REDUCE, 0}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile, BlkStep{BLK_REDUCE, 0}, tid, nt);
       return;
     case BLK_POS:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_POS, 0}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile, BlkStep{BLK_POS, 0}, tid, nt);
       return;
     case BLK_MLP:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_MLP, step.arg}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile,
+                                            BlkStep{BLK_MLP, step.arg}, tid, nt);
       return;
     case BLK_MLP_SUM:
       if (kGx) return;  // went through the call above
-      blk_phase_at<false, kAligned>(m, io, sm, so, tile, BlkStep{BLK_MLP_SUM, step.arg}, tid, nt);
+      blk_phase_at<false, kAligned, kPairs>(m, io, sm, so, tile,
+                                            BlkStep{BLK_MLP_SUM, step.arg}, tid, nt);
       return;
     case BLK_SEED:  // the cotangent of the output, in place
       for (int e = tid; e < d_out * F; e += nt) {
@@ -1191,15 +1372,16 @@ __host__ __device__ __forceinline__ void blk_grad_phase(const BlockedArgs& m, co
     case BLK_BWD:  // the cotangent of the layer's input, in place
       if (kGx) return;  // went through the call above
       if (step.arg > 0 || adjoint)
-        blk_phase_at<true, kAligned>(m, io, sm, so, tile, BlkStep{BLK_BWD, step.arg}, tid, nt);
+        blk_phase_at<true, kAligned, kPairs>(m, io, sm, so, tile,
+                                             BlkStep{BLK_BWD, step.arg}, tid, nt);
       return;
     case BLK_PGRAD: {
       // gW[j][k] += sum_f gz[j][f] a[k][f], gb[j] += sum_f gz[j][f], before
       // BWD L overwrites the layer's input a
       const int L = step.arg;
-      const int d_in = m.dims[L], d_o = m.dims[L + 1];
-      int off = 1 + 3 * m.n_align;
-      for (int i = 0; i < L; ++i) off += m.dims[i + 1] * (m.dims[i] + 1);
+      const BlkLayer lay = blk_layer(m, L);
+      const int d_in = lay.d_in, d_o = lay.d_o;
+      int off = lay.g_off;
       const float* gz = hbuf + blk_h_off(m, L);
       const float* a = L ? hbuf + blk_h_off(m, L - 1) : feat;
       // with BLK_SUMS_RECT one layer's weight gradient is not in acc
@@ -1282,11 +1464,13 @@ __host__ __device__ __forceinline__ void blk_grad_phase(const BlockedArgs& m, co
     }
     case BLK_GR:
       if (kGx) return;  // went through the call above
-      if (adjoint) blk_phase_at<true, kAligned>(m, io, sm, so, tile, BlkStep{BLK_GR, 0}, tid, nt);
+      if (adjoint) blk_phase_at<true, kAligned, kPairs>(m, io, sm, so, tile,
+                                                        BlkStep{BLK_GR, 0}, tid, nt);
       return;
     case BLK_GH:
       if (kGx) return;  // went through the call above
-      if (adjoint) blk_phase_at<true, kAligned>(m, io, sm, so, tile, BlkStep{BLK_GH, 0}, tid, nt);
+      if (adjoint) blk_phase_at<true, kAligned, kPairs>(m, io, sm, so, tile,
+                                                        BlkStep{BLK_GH, 0}, tid, nt);
       return;
     case BLK_GREF: {  // g_ref[n][j] += sum_f sum_i gH[i][j] (x[a_n][i] - c_i)
       if (!want_ref) return;

@@ -211,7 +211,11 @@ __host__ __device__ __forceinline__ T newton_step_t(float lam, const T& c2,
 // floats, then one step in T) and the largest-norm adjugate column
 // (strict '>' priority select, first column wins ties). With lam_out, the
 // result of the 12 Newton steps goes there too (qcp_rotation_vjp takes it).
-template <typename T>
+// kUnrolledSelect: the chosen column's entries formed with compile-time
+// indices only, four guarded copies of them; the blocked kernels take it
+// (their 80-byte stack frame gone, K6 and K8 with alignment 4-6% faster),
+// while it made K4 10% and K3 8% slower.
+template <typename T, bool kUnrolledSelect = false>
 __host__ __device__ void qcp_rotation(const T (&H)[3][3], T (&R)[3][3],
                                       float* lam_out = nullptr) {
   const T &Sxx = H[0][0], &Sxy = H[0][1], &Sxz = H[0][2];
@@ -277,7 +281,15 @@ __host__ __device__ void qcp_rotation(const T (&H)[3][3], T (&R)[3][3],
     if (col == 0 || nrm > best_n) { best = col; best_n = nrm; }
   }
   T q[4];
-  for (int i = 0; i < 4; ++i) q[i] = adj_entry(m, best, i);
+  if (kUnrolledSelect) {
+#pragma unroll
+    for (int col = 0; col < 4; ++col)
+      if (col == best)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[i] = adj_entry(m, col, i);
+  } else {
+    for (int i = 0; i < 4; ++i) q[i] = adj_entry(m, best, i);
+  }
   T qn = tsqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   T w = q[0] / qn, x = q[1] / qn, y = q[2] / qn, z = q[3] / qn;
 
@@ -559,16 +571,22 @@ __host__ __device__ __forceinline__ void switch_geometric(float t, int k, float&
   for (int i = 1; i < k; ++i) { dv = v + t * dv; v = 1.f + t * v; }
 }
 
-// Reciprocal and reciprocal square root of the pair loops. On the card the
-// special-function unit and one Newton step (about 1 ulp) replace
-// IEEE division and square root, which cost some ten operations each and
-// were most of a pair's work; on the host the exact forms stand in.
+// Reciprocal and reciprocal square root of the pair loops and of the
+// blocked kernels' adjoints. On the card the special-function unit and one
+// Newton step (about 1 ulp) replace IEEE division and square root, which
+// cost some ten operations each and were most of a pair's work.
 #ifdef __CUDA_ARCH__
-__device__ __forceinline__ float switch_rcp(float v) {
+// The special-function unit's estimate alone (about 1 ulp).
+__device__ __forceinline__ float switch_rcp_est(float v) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  const float c = v * r;  // NaN for v = inf (r = 0): keep the 0
-  return c == c ? r * (2.0f - c) : r;
+  return r;
+}
+__device__ __forceinline__ float switch_rcp(float v) {
+  const float r = switch_rcp_est(v);
+  // the Newton step as two fused multiply-adds; for v = inf (r = 0) it
+  // would give NaN: keep the 0
+  return r == 0.f ? r : fmaf(r, fmaf(-v, r, 1.0f), r);
 }
 __device__ __forceinline__ float switch_rsqrt(float v) {
   float r;
@@ -576,8 +594,18 @@ __device__ __forceinline__ float switch_rsqrt(float v) {
   return r * (1.5f - 0.5f * v * r * r);
 }
 #else
-inline float switch_rcp(float v) { return 1.0f / v; }
-inline float switch_rsqrt(float v) { return 1.0f / sqrtf(v); }
+// On the host the special-function unit's estimate is stood in for by the
+// exact value moved one ulp toward zero (its error bound), so that the
+// host tests run the card's Newton steps on an estimate that needs them.
+inline float switch_rcp_est(float v) { return nextafterf(1.0f / v, 0.0f); }
+inline float switch_rcp(float v) {
+  const float r = switch_rcp_est(v);
+  return r == 0.f ? r : fmaf(r, fmaf(-v, r, 1.0f), r);
+}
+inline float switch_rsqrt(float v) {
+  const float r = nextafterf(1.0f / sqrtf(v), 0.0f);
+  return r * (1.5f - 0.5f * v * r * r);
+}
 #endif
 
 // A coordination feature's parameters, read once per thread into registers
@@ -661,15 +689,19 @@ __host__ __device__ __forceinline__ SwitchEven switch_even_r02(const CoordPar& c
   return e;
 }
 
-template <bool kGrad, int kNN>
+// kRough: for s'(r)/r alone, to a gradient's precision (a few ulp): no
+// correction of r^2 / r0^2 and the reciprocal's estimate without its Newton
+// step, seven instructions less; the pair walk of the cv+forces and
+// backward kernels takes it for the partners whose s the atom does not sum.
+template <bool kGrad, int kNN, bool kRough = false>
 __host__ __device__ __forceinline__ void switch_eval_even(const CoordPar& cp,
                                                           const SwitchEven& e, float r2,
                                                           float& s, float& ds_over_r) {
   static_assert(kNN >= 4 && kNN % 2 == 0, "an even exponent of at least 4");
   float t2 = r2 * e.inv_r02;
-  t2 = fmaf(fmaf(-t2, e.r02_lo, fmaf(-t2, e.r02, r2)), e.inv_r02, t2);
+  if (!kRough) t2 = fmaf(fmaf(-t2, e.r02_lo, fmaf(-t2, e.r02, r2)), e.inv_r02, t2);
   const float lower = switch_ipow(t2, kNN / 2 - 1);  // t^(nn - 2)
-  const float raw = switch_rcp(1.0f + lower * t2);
+  const float raw = kRough ? switch_rcp_est(1.0f + lower * t2) : switch_rcp(1.0f + lower * t2);
   const bool inside = !cp.has_dmax || r2 < cp.dmax2;
   const float scale = cp.has_dmax ? cp.stretch : 1.0f;
   s = inside ? (cp.has_dmax ? (raw - cp.sdmax) * cp.stretch : raw) : 0.f;
@@ -714,19 +746,46 @@ __host__ __device__ __forceinline__ V3 min_image(float d0, float d1, float d2,
 // Features (molann_tpu/ops/fused.py:364-389) and their adjoints
 // ---------------------------------------------------------------------------
 
+// The features take kFast as the adjoints below do: square roots and
+// divisions on the special-function units with a Newton step, as the
+// blocked kernels' feature step runs them.
+template <bool kFast = false>
 __host__ __device__ __forceinline__ float angle_fwd(const float* xs, const int* idx,
                                                     int use_angle_value) {
   V3 r21 = sub3(atom(xs, idx[0]), atom(xs, idx[1]));
   V3 r23 = sub3(atom(xs, idx[2]), atom(xs, idx[1]));
-  float cs = dot3(r21, r23) / (norm3(r21) * norm3(r23));
+  float cs = kFast ? dot3(r21, r23) * switch_rsqrt(dot3(r21, r21)) * switch_rsqrt(dot3(r23, r23))
+                   : dot3(r21, r23) / (norm3(r21) * norm3(r23));
   return use_angle_value ? acosf(cs) : cs;  // unclamped, as the reference
 }
 
+// The adjoints take kFast: their square roots and divisions on the
+// special-function units with a Newton step (switch_rsqrt, switch_rcp, about
+// 1 ulp each), as the blocked kernels' feature step runs them; IEEE forms
+// otherwise.
+template <bool kFast = false>
 __host__ __device__ __forceinline__ void angle_bwd(const float* xs, const int* idx,
                                                    int use_angle_value, float g,
                                                    float* gx) {
   V3 r21 = sub3(atom(xs, idx[0]), atom(xs, idx[1]));
   V3 r23 = sub3(atom(xs, idx[2]), atom(xs, idx[1]));
+  if (kFast) {
+    const float d = dot3(r21, r23), l1 = dot3(r21, r21), l2 = dot3(r23, r23);
+    const float i1 = switch_rsqrt(l1), i2 = switch_rsqrt(l2), inn = i1 * i2;
+    float gcos = g;
+    if (use_angle_value) {
+      const float cs = d * inn;
+      gcos = -g * switch_rsqrt(1.0f - cs * cs);  // d acos(c)/dc, NaN for |c| > 1
+    }
+    const float gd = gcos * inn, gnn = -gcos * d * inn * inn;
+    const float n1 = l1 * i1, n2 = l2 * i2;
+    V3 g21 = add3(scale3(gd, r23), scale3(gnn * n2 * i1, r21));
+    V3 g23 = add3(scale3(gd, r21), scale3(gnn * n1 * i2, r23));
+    acc_atom(gx, idx[0], g21);
+    acc_atom(gx, idx[2], g23);
+    acc_atom(gx, idx[1], scale3(-1.f, add3(g21, g23)));
+    return;
+  }
   float d = dot3(r21, r23), n1 = norm3(r21), n2 = norm3(r23);
   float nn = n1 * n2;
   float gcos = g;
@@ -743,19 +802,27 @@ __host__ __device__ __forceinline__ void angle_bwd(const float* xs, const int* i
   acc_atom(gx, idx[1], scale3(-1.f, add3(g21, g23)));
 }
 
+template <bool kFast = false>
 __host__ __device__ __forceinline__ float bond_fwd(const float* xs, const int* idx) {
-  return norm3(sub3(atom(xs, idx[1]), atom(xs, idx[0])));
+  const V3 r = sub3(atom(xs, idx[1]), atom(xs, idx[0]));
+  if (kFast) {  // 0 for coincident atoms, as the IEEE form (r2 * inf is NaN)
+    const float r2 = dot3(r, r);
+    return r2 > 0.f ? r2 * switch_rsqrt(r2) : 0.f;
+  }
+  return norm3(r);
 }
 
+template <bool kFast = false>
 __host__ __device__ __forceinline__ void bond_bwd(const float* xs, const int* idx,
                                                   float g, float* gx) {
   V3 r = sub3(atom(xs, idx[1]), atom(xs, idx[0]));
-  V3 gr = scale3(g / norm3(r), r);
+  V3 gr = scale3(kFast ? g * switch_rsqrt(dot3(r, r)) : g / norm3(r), r);
   acc_atom(gx, idx[1], gr);
   acc_atom(gx, idx[0], scale3(-1.f, gr));
 }
 
 // Writes 1 (phi) or 2 ([cos, sin]) rows; returns the count.
+template <bool kFast = false>
 __host__ __device__ __forceinline__ int dihedral_fwd(const float* xs, const int* idx,
                                                      int use_angle_value, float* out) {
   V3 r12 = sub3(atom(xs, idx[1]), atom(xs, idx[0]));
@@ -763,14 +830,27 @@ __host__ __device__ __forceinline__ int dihedral_fwd(const float* xs, const int*
   V3 r34 = sub3(atom(xs, idx[3]), atom(xs, idx[2]));
   V3 n1 = cross3(r12, r23), n2 = cross3(r23, r34);
   float c = dot3(n1, n2);
-  float s = dot3(n1, r34) * norm3(r23);
+  float s;
+  if (kFast) {
+    const float l23 = dot3(r23, r23);
+    s = dot3(n1, r34) * (l23 > 0.f ? l23 * switch_rsqrt(l23) : 0.f);
+  } else {
+    s = dot3(n1, r34) * norm3(r23);
+  }
   if (use_angle_value) { out[0] = atan2f(s, c); return 1; }
+  if (kFast) {  // NaN at a degenerate dihedral (rho = 0), as the reference
+    const float irho = switch_rsqrt(c * c + s * s);
+    out[0] = c * irho;
+    out[1] = s * irho;
+    return 2;
+  }
   float rho = sqrtf(c * c + s * s);
   out[0] = c / rho;  // NaN at a degenerate dihedral (rho = 0), as the reference
   out[1] = s / rho;
   return 2;
 }
 
+template <bool kFast = false>
 __host__ __device__ __forceinline__ void dihedral_bwd(const float* xs, const int* idx,
                                                       int use_angle_value, const float* g,
                                                       float* gx) {
@@ -779,11 +859,29 @@ __host__ __device__ __forceinline__ void dihedral_bwd(const float* xs, const int
   V3 r34 = sub3(atom(xs, idx[3]), atom(xs, idx[2]));
   V3 n1 = cross3(r12, r23), n2 = cross3(r23, r34);
   float c = dot3(n1, n2);
-  float len23 = norm3(r23);
+  float len23, inv23 = 0.f;
+  if (kFast) {
+    const float l23 = dot3(r23, r23);
+    inv23 = switch_rsqrt(l23);
+    len23 = l23 > 0.f ? l23 * inv23 : 0.f;
+  } else {
+    len23 = norm3(r23);
+  }
   float p = dot3(n1, r34);
   float s = p * len23;
   float gc, gs;
-  if (use_angle_value) {  // phi = atan2(s, c)
+  if (kFast) {
+    if (use_angle_value) {
+      const float ir2 = switch_rcp(c * c + s * s);
+      gc = -g[0] * s * ir2;
+      gs = g[0] * c * ir2;
+    } else {
+      const float irho = switch_rsqrt(c * c + s * s);
+      const float grho = -(g[0] * c + g[1] * s) * irho;  // times irho: d/drho
+      gc = (g[0] + grho * c * irho) * irho;
+      gs = (g[1] + grho * s * irho) * irho;
+    }
+  } else if (use_angle_value) {  // phi = atan2(s, c)
     float r2 = c * c + s * s;
     gc = -g[0] * s / r2;
     gs = g[0] * c / r2;
@@ -797,7 +895,7 @@ __host__ __device__ __forceinline__ void dihedral_bwd(const float* xs, const int
   V3 gn1 = add3(scale3(gc, n2), scale3(gs * len23, r34));
   V3 gn2 = scale3(gc, n1);
   V3 g34 = scale3(gs * len23, n1);
-  V3 g23 = scale3(gs * p / len23, r23);
+  V3 g23 = scale3(kFast ? gs * p * inv23 : gs * p / len23, r23);
   // n1 = r12 x r23 ; n2 = r23 x r34  (adjoint of a x b: b x g, g x a)
   V3 g12 = cross3(r23, gn1);
   g23 = add3(g23, cross3(gn1, r12));

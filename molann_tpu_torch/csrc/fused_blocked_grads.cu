@@ -40,27 +40,27 @@
 //     the gather only multiplies; where nothing below the MLP is wanted
 //     (the train kernel with a frozen ref_x) every pair is evaluated once,
 //     forward only, and the tile stops after the first layer's parameter
-//     step: no feature adjoint, no dR/dH, no gather.
+//     step: no feature adjoint, no QCP backward, no gather.
 //   - Each bond, angle and dihedral adjoint is computed once and added into
 //     per-atom accumulators in shared memory batch by batch.
 // At the end the block stores its row of partials and reduce_partials adds
 // the rows of each column in a fixed order. No float atomics: the same
 // inputs give the same bits, which a resumed training run relies on.
-// Measured on an H100 80GB HBM3 at 700 W, 65,536 frames (PERF.md has the
-// steps): the peptide-like model's backward kernel 2.14 ms with gx and 0.93
-// for the parameter sums alone (2.97 before this design), its train kernel
-// 0.88 ms; the contact model's 4.71, 2.30 and 2.35 ms (12.69 and 3.82
-// before), nine tenths of it the pair walk.
+// Measured on an H100 80GB HBM3 at 700 W, 65,536 frames, each kernel alone
+// (PERF.md has the steps): the peptide-like model's backward kernel 1.89 ms
+// with gx and 0.81 for the parameter sums alone, its train kernel 0.81 ms;
+// the contact model's 3.80, 1.68 and 1.69 ms, nine tenths of it the pair
+// walk, which the forward and cv+forces kernels share (blocked_math.cuh).
 // Instances: with alignment (128 registers, two blocks of 256 threads an
-// SM); without, 512 threads (two blocks an SM, 64 registers) for a block past
-// a quarter of an SM's shared memory; without, four blocks of 256 threads on
-// an SM (64 registers).
+// SM); without, 64 registers, blocks of 512 threads (two an SM) for a block
+// past a quarter of an SM's shared memory, else of 256 (four an SM), one
+// instance for models without pairs and one with the pair walk.
 
 // Built once per kernel: variant v holds the backward kernel with gx for
 // v / 3 == 0, the backward kernel without for 1 and the train kernel for 2;
-// v % 3 is 0 with alignment, 1 without and 512 threads a block, 2 without
-// and four blocks of 256 on an SM. Variant 0 also holds the functions the
-// wrapper calls.
+// v % 3 is 0 with alignment, 1 without alignment or pairs, 2 without
+// alignment with pairs (kPairs: the pair walk's kernel). Variant 0 also
+// holds the functions the wrapper calls.
 // nvcc-variants: MOLANN_VARIANT 9
 
 #include <cuda_runtime.h>
@@ -76,52 +76,56 @@
 
 namespace {
 
-// kWide: blocks of 512 threads, two on an SM.
-template <bool kTrain, bool kGx, bool kAligned, int kBlocks, bool kWide>
-__global__ void __launch_bounds__(kWide ? MOLANN_BLK_THREADS_WIDE : MOLANN_BLK_THREADS, kBlocks)
+// Without alignment the bounds (512 threads, two blocks an SM) give 64
+// registers, as four blocks of 256 would: blocks of 256 threads run the
+// same code.
+template <bool kTrain, bool kGx, bool kAligned, bool kPairs>
+__global__ void __launch_bounds__(kAligned ? MOLANN_BLK_THREADS : MOLANN_BLK_THREADS_WIDE, 2)
 blocked_grads_kernel(const BlockedArgs m, const BlockedIO io, int width) {
   extern __shared__ float sm[];
   const int tid = (int)threadIdx.x, nt = (int)blockDim.x;
-  const BlkSmem so = blk_grad_smem(m, nt, kGx, io.acc_global);
   float* row = io.partials + (long long)blockIdx.x * width;
-  float* acc = io.acc_global == BLK_SUMS_ROW ? row : sm + so.acc;
+  float* acc = io.acc_global == BLK_SUMS_ROW
+      ? row : sm + blk_grad_smem(m, nt, kGx, io.acc_global).acc;
   float* rect = io.acc_global == BLK_SUMS_RECT
       ? io.partials + (long long)gridDim.x * width +
             (long long)blockIdx.x * (MOLANN_BLK_RSUM_J * MOLANN_BLK_RSUM_K) * nt
       : nullptr;
   blk_grad_begin(m, io, acc, rect, tid, nt);
   __syncthreads();
-  int* steps = reinterpret_cast<int*>(sm);
-  if (tid == 0)
-    steps[MOLANN_BLK_MAX_STEPS - 1] = blk_build_steps(
-        m, kTrain ? BLK_MODE_TRAIN : BLK_MODE_BACKWARD, blk_grad_adjoint<kGx, kAligned>(io), kGx,
-        nt, steps);
+  int* steps = reinterpret_cast<int*>(sm);  // its count, then the steps and the layout
+  if (tid == 0) {
+    steps[0] = blk_build_steps(m, kTrain ? BLK_MODE_TRAIN : BLK_MODE_BACKWARD,
+                               blk_grad_adjoint<kGx, kAligned>(io), kGx, nt, steps + 1);
+    *blk_layout_slot(sm, m) = blk_grad_smem(m, nt, kGx, io.acc_global);
+  }
   __syncthreads();
-  const int n_steps = steps[MOLANN_BLK_MAX_STEPS - 1];
+  const BlkSmem& so = *blk_layout_slot(sm, m);
+  const int n_steps = steps[0];
   const long long tiles = (io.l + m.frames - 1) / m.frames;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x)
     for (int i = 0; i < n_steps; ++i) {
-      const BlkStep st = blk_step_of(steps[i]);
-      const int reps = st.kind == BLK_SCATTER ? m.n_batches : 1;
+      const BlkStep st = blk_step_of(steps[1 + i]);
+      const int reps = blk_step_reps(m, st.kind);
       for (int b = 0; b < reps; ++b) {
-        blk_grad_phase<kTrain, kGx, kAligned>(m, io, sm, so, acc, rect, tile,
-                                              BlkStep{st.kind, reps > 1 ? b : st.arg}, tid, nt);
+        blk_grad_phase<kTrain, kGx, kAligned, kPairs>(m, io, sm, so, acc, rect, tile,
+                                                      BlkStep{st.kind, reps > 1 ? b : st.arg},
+                                                      tid, nt);
         __syncthreads();  // the step's barrier
       }
     }
   blk_grad_end(m, io, acc, rect, row, tid, nt);
 }
 
-template <bool kTrain, bool kGx, bool kAligned, int kBlocks, bool kWide>
+template <bool kTrain, bool kGx, bool kAligned, bool kPairs>
 int launch_grads_kernel(const BlockedArgs* m, const BlockedIO* io, float* out, int nt,
                         size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_grads_kernel<kTrain, kGx, kAligned, kBlocks, kWide>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(blocked_grads_kernel<kTrain, kGx, kAligned, kPairs>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = blk_grad_blocks(*m, io->l);
   const int width = 1 + blk_grad_size(*m);
-  blocked_grads_kernel<kTrain, kGx, kAligned, kBlocks, kWide>
+  blocked_grads_kernel<kTrain, kGx, kAligned, kPairs>
       <<<(unsigned)blocks, nt, smem, (cudaStream_t)stream>>>(*m, *io, width);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -135,8 +139,8 @@ extern "C" int MOLANN_CAT(molann_blocked_grads_v, MOLANN_VARIANT)(
     const BlockedArgs* m, const BlockedIO* io, float* out, int nt, size_t smem,
     void* stream) {
   return launch_grads_kernel<(MOLANN_VARIANT / 3 == 2), (MOLANN_VARIANT / 3 == 0),
-                             (MOLANN_VARIANT % 3 == 0), (MOLANN_VARIANT % 3 == 2 ? 4 : 2),
-                             (MOLANN_VARIANT % 3 == 1)>(m, io, out, nt, smem, stream);
+                             (MOLANN_VARIANT % 3 == 0), (MOLANN_VARIANT % 3 == 2)>(
+      m, io, out, nt, smem, stream);
 }
 
 #if MOLANN_VARIANT == 0
@@ -168,9 +172,8 @@ int launch_grads(bool train, const BlockedArgs* m, const BlockedIO* io, float* o
       molann_blocked_grads_v0, molann_blocked_grads_v1, molann_blocked_grads_v2,
       molann_blocked_grads_v3, molann_blocked_grads_v4, molann_blocked_grads_v5,
       molann_blocked_grads_v6, molann_blocked_grads_v7, molann_blocked_grads_v8};
-  // with alignment; else 512 threads, two blocks an SM; else 256: the block
-  // fits four times on an SM
-  const int shape = blk_aligned(*m) ? 0 : nt == MOLANN_BLK_THREADS_WIDE ? 1 : 2;
+  // with alignment; else without pairs; else the pair walk's kernel
+  const int shape = blk_aligned(*m) ? 0 : m->n_coord > 0 ? 2 : 1;
   return variants[3 * (train ? 2 : want_gx ? 0 : 1) + shape](m, io, out, nt, smem, stream);
 }
 

@@ -14,6 +14,9 @@ import numpy as np
 __all__ = ["open_frame_reader"]
 
 _NOT_PORTED = (".dcd", ".trr", ".xtc", ".nc", ".ncdf")
+_NATIVE_TODO = ("backend='native' (the native trajectory loader) is not "
+                "ported to molann_tpu_torch yet (ROADMAP.md, queue 2, "
+                "item 4); use backend='auto' or 'numpy'")
 
 
 def _frames_3d(arr, what):
@@ -25,17 +28,26 @@ def _frames_3d(arr, what):
     return arr
 
 
-def open_frame_reader(traj):
+def open_frame_reader(traj, *, backend="auto"):
     """-> ``(read, n_frames, n_atoms)`` with
     ``read(start, count) -> [count, n_atoms, 3] float32`` numpy.
 
     ``traj``: an in-memory ``[l, n, 3]`` (or packed ``[l, 3n]``) array, or
     a path to a ``.npy`` file (memory-mapped; each read copies its frames
-    out of the map).
+    out of the map). ``backend``: ``"auto"`` or ``"numpy"`` read both as
+    above (the port has only the numpy readers); ``"native"``, which the
+    reference reserves for its native loader, raises
+    ``NotImplementedError`` for a path, as that loader is not ported. An
+    in-memory array never reaches a loader, under any backend.
     """
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"backend must be auto/native/numpy, "
+                         f"got {backend!r}")
     if isinstance(traj, np.ndarray) or hasattr(traj, "shape"):
         arr = _frames_3d(np.asarray(traj, dtype=np.float32), "trajectory")
         return (lambda s, c: arr[s:s + c]), arr.shape[0], arr.shape[1]
+    if backend == "native":
+        raise NotImplementedError(_NATIVE_TODO)
     low = str(traj).lower()
     if low.endswith(_NOT_PORTED):
         raise NotImplementedError(

@@ -73,7 +73,6 @@ __all__ = [
 # whether a model has a pair operand the caller may pass as ``c_mat``.
 COORD_RESIDENT_MAX = 512
 # Mirrors of csrc/blocked_math.cuh, checked against the built library.
-BLK_MAX_LAYERS = 8
 BLK_COORD_FLOATS = _F.COORD_FLOATS
 BLK_THREADS = 256
 BLK_GRAD_BLOCKS = 528
@@ -189,6 +188,7 @@ class BlockedLayout:
         atom_ent = np.asarray([v for e in entries for v in e], dtype=np.int64)
 
         out_map = staged if self.active_idx is not None else np.zeros(0)
+        self.coord_range = self._coord_ranges()
         self.tables = {
             "active_idx": (self.active_idx if self.active_idx is not None
                            else np.zeros(0)),
@@ -196,12 +196,34 @@ class BlockedLayout:
             "angle_idx": angle, "bond_idx": bond, "dihedral_idx": dihedral,
             "pos_idx": pos, "align_idx": align, "item_col": item_col,
             "atom_ptr": atom_ptr, "atom_ent": atom_ent,
+            "coord_range": np.asarray(self.coord_range).reshape(-1),
         }
         self.tables = {k: np.ascontiguousarray(v, dtype=np.int32).reshape(-1)
                        for k, v in self.tables.items()}
 
         self.coord_par = _F.coord_parameters(spec).reshape(-1)
         self._on_device: dict = {}  # device tensors, built once per device
+
+    def _coord_ranges(self):
+        """Per coordination feature ``(s0, n)`` when its pairs are all
+        pairs of the staged atoms ``s0..s0+n-1`` (each once, none with
+        itself), else ``(0, 0)``. The kernels walk such a feature's partners
+        by position on the circle of those atoms, with no partner table:
+        atom ``s0 + i`` owns the pairs with the next ``(n - 1) // 2`` atoms
+        (and, for even ``n`` and ``i < n / 2``, with the one opposite)."""
+        out, start = [], 0
+        for npairs in self.coord_npairs:
+            p = self._staged[self._pairs[start:start + npairs]]
+            start += npairs
+            lo, hi = p.min(axis=1), p.max(axis=1)
+            s0, n = (int(lo.min()), int(hi.max()) - int(lo.min()) + 1) \
+                if npairs else (0, 0)
+            if (n >= 2 and npairs == n * (n - 1) // 2 and (lo < hi).all()
+                    and np.unique((lo - s0) * n + (hi - s0)).size == npairs):
+                out.append((s0, n))
+            else:
+                out.append((0, 0))
+        return tuple(out)
 
     @property
     def n_pairs(self):
@@ -256,7 +278,8 @@ class BlockedLayout:
         per feature can add its adjoint into per-atom accumulators without
         a race; the kernels put a barrier between batches. Greedy in table
         order (angles, bonds, dihedrals): a feature joins the first batch
-        that has room and none of its atoms."""
+        that has room and none of its atoms; within a batch the entries go
+        by kind, so that the threads of a warp run one kind of adjoint."""
         if group not in self._batches:
             batches, open_ = [], []  # open_: indices of batches with room
             for kind, item, atoms in self._scattered:
@@ -275,7 +298,9 @@ class BlockedLayout:
                     open_.remove(b)
             ptr = np.zeros(len(batches) + 1, dtype=np.int32)
             ptr[1:] = np.cumsum([len(e) for e, _ in batches])
-            ent = np.asarray([v for e, _ in batches for v in e],
+            # a batch's entries by kind, so that a warp runs one adjoint
+            ent = np.asarray([v for e, _ in batches
+                              for v in sorted(e, key=lambda v: v >> 28)],
                              dtype=np.int32)
             self._batches[group] = (ptr, ent)
         return self._batches[group]
@@ -308,6 +333,29 @@ class BlockedLayout:
             self._on_device[key] = (ints, offsets, par)
         return self._on_device[key]
 
+    def device_head(self, dims, device):
+        """The head table of the kernels (``BlockedArgs.head``) for the
+        widths ``dims`` (``[n_feat, d_1, ..., d_out]``): per layer ``d_in,
+        d_out``, its weights' offset in the parameter block, its output's
+        first row among the layers' outputs, its weight gradient's offset in
+        ``[loss | ref_x | W0 | b0 ...]``, then three zeros. An int32 tensor
+        on ``device`` and the numpy array the host's sizing functions read,
+        built once per head and device: the kernels take a head of any
+        depth."""
+        key = ("head", tuple(dims), torch.device(device))
+        if key not in self._on_device:
+            rows, w_off, h_row, g_off = [], 0, 0, 1 + 3 * self.n_align
+            for d_in, d_o in zip(dims[:-1], dims[1:]):
+                rows.append((d_in, d_o, w_off, h_row, g_off, 0, 0, 0))
+                w_off += -(-d_o * d_in // 4) * 4 + -(-d_o // 4) * 4
+                h_row += d_o
+                g_off += d_o * (d_in + 1)
+            host = np.ascontiguousarray(
+                np.asarray(rows, dtype=np.int32).reshape(-1)
+                if rows else np.zeros(8, np.int32))
+            self._on_device[key] = (torch.from_numpy(host).to(device), host)
+        return self._on_device[key]
+
     def device_pair_operand(self, device):
         """:meth:`pair_operand` as a tensor on ``device``."""
         key = ("pairs", torch.device(device))
@@ -319,7 +367,7 @@ class BlockedLayout:
 
 _INT_TABLES = ("active_idx", "out_map", "angle_idx", "bond_idx",
                "dihedral_idx", "pos_idx", "align_idx", "item_col", "atom_ptr",
-               "atom_ent")
+               "atom_ent", "coord_range")
 # The one cache of this module: layouts by spec identity; a layout holds its
 # own device tensors, so dropping it frees them.
 _LAYOUTS: dict = {}
@@ -595,11 +643,11 @@ class BlockedArgs(ctypes.Structure):
         ("n_pos", ctypes.c_int), ("n_align", ctypes.c_int),
         ("use_angle_value", ctypes.c_int), ("n_feat", ctypes.c_int),
         ("n_layers", ctypes.c_int), ("activation", ctypes.c_int),
-        ("dims", ctypes.c_int * (BLK_MAX_LAYERS + 1)),
         ("frames", ctypes.c_int), ("pitch", ctypes.c_int),
         ("n_batches", ctypes.c_int),
         *((name, ctypes.c_void_p) for name in _INT_TABLES),
         ("batch_ptr", ctypes.c_void_p), ("batch_ent", ctypes.c_void_p),
+        ("head", ctypes.c_void_p), ("head_host", ctypes.c_void_p),
         ("nbr_ptr", ctypes.c_void_p), ("nbr_mid", ctypes.c_void_p),
         ("nbr", ctypes.c_void_p), ("coord_par", ctypes.c_void_p),
         ("ref_x", ctypes.c_void_p), ("params", ctypes.c_void_p),
@@ -659,9 +707,6 @@ def check_blocked_envelope(params, activation):
     if activation not in _F.KERNEL_ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}; the CUDA "
                          f"kernels take {sorted(_F.KERNEL_ACTIVATIONS)}")
-    if len(params) > BLK_MAX_LAYERS:
-        raise ValueError(f"the blocked CUDA kernels take at most "
-                         f"{BLK_MAX_LAYERS} Linear layers; got {len(params)}")
 
 
 def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
@@ -701,9 +746,9 @@ def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
     a.n_feat = spec.out_dim
     a.n_layers = len(params)
     a.activation = _F.KERNEL_ACTIVATIONS[activation]
-    a.dims[0] = spec.out_dim
-    for i, (w, _) in enumerate(params):
-        a.dims[i + 1] = w.shape[0]
+    head_dev, head_host = lay.device_head(
+        (spec.out_dim, *(int(w.shape[0]) for w, _ in params)), device)
+    a.head, a.head_host = head_dev.data_ptr(), head_host.ctypes.data
     base = ints.data_ptr()
     for name in _INT_TABLES:
         setattr(a, name, base + 4 * offsets[name])
@@ -723,7 +768,7 @@ def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
     a.params = fbase + 4 * (-(-3 * lay.n_align // 4) * 4)
     if floats.data_ptr() % 16:
         raise RuntimeError("the parameter block is not 16-byte aligned")
-    return a, (ints, par, floats, pair_op)
+    return a, (ints, par, floats, pair_op, head_dev, head_host)
 
 
 def set_tile(args, lay, frames, device, threads):
@@ -772,9 +817,9 @@ def _library():
     """The built kernel library, after checking that it was compiled with
     the caps and struct layouts this module assumes."""
     lib = _F._library()
-    caps = (ctypes.c_int * 6)()
+    caps = (ctypes.c_int * 5)()
     lib.molann_blocked_caps(caps)
-    want = [BLK_MAX_LAYERS, BLK_COORD_FLOATS, BLK_THREADS,
+    want = [BLK_COORD_FLOATS, BLK_THREADS,
             ctypes.sizeof(BlockedArgs), ctypes.sizeof(BlockedIO),
             BLK_GRAD_BLOCKS]
     if list(caps) != want:

@@ -40,12 +40,15 @@ from .ops.fused import (
 __all__ = ["evaluate_trajectory"]
 
 _QUANTUM = 8
+_MESH_TODO = ("mesh= (serving over several devices) is not ported to "
+              "molann_tpu_torch yet (ROADMAP.md, queue 2, item 5)")
 
 
-def evaluate_trajectory(model, traj, *, device=None, forces=False,
+def evaluate_trajectory(model, traj, *, mesh=None, device=None, forces=False,
                         batch_size=None, mode="auto", tile=None,
                         precision="exact", component=None, cvs_out=None,
-                        grads_out=None, grads_transform=None, c_mat="auto"):
+                        grads_out=None, grads_transform=None, backend="auto",
+                        c_mat="auto"):
     """Evaluate every frame of ``traj``; returns ``cvs [n_frames, d]`` (and
     ``grads [n_frames, n, 3]`` with ``forces=True``) as numpy arrays.
 
@@ -63,9 +66,17 @@ def evaluate_trajectory(model, traj, *, device=None, forces=False,
     ``None`` to leave it to the ops' own cache. ``device``: ``None`` means
     the card (an error without one), ``"cpu"`` the host. The model is
     copied to ``device``; the caller's model is left where it is.
+    ``backend``: the trajectory reader, as the reference names it
+    (``"auto"``, ``"numpy"``; ``"native"`` is not ported and raises
+    ``NotImplementedError`` for a path, see
+    :func:`~molann_tpu_torch.io.reader.open_frame_reader`). ``mesh``: only
+    ``None`` (one device); serving over several devices is not ported and
+    any other value raises ``NotImplementedError``.
     """
+    if mesh is not None:
+        raise NotImplementedError(_MESH_TODO)
     device = resolve_device(device)
-    read, n_frames, n_atoms = open_frame_reader(traj)
+    read, n_frames, n_atoms = open_frame_reader(traj, backend=backend)
     if batch_size is None:
         batch_size = min(-(-n_frames // _QUANTUM) * _QUANTUM, 65536)
     batch_size = max(_QUANTUM, (batch_size // _QUANTUM) * _QUANTUM)

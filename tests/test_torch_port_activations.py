@@ -10,7 +10,9 @@ blocked: their ``blocked_*`` twins), also through the public wrappers on
 the CPU, are held against the JAX model's values and its gradients by
 ``jax.vjp`` and ``jax.grad`` on the same frames. A wide head (``[38, 65,
 3]``, past the unrolled kernels' width cap) goes to the blocked family
-under ``mode="auto"`` and gives the reference's values and gradients.
+under ``mode="auto"`` and gives the reference's values and gradients, and
+so do heads of 12 (tanh) and 10 (gelu) Linear layers on alanine and on
+``peptide_model(8)``, held against the JAX package's fused ops.
 Tolerances: values 1e-5 abs; parameter and coordinate gradients
 5e-5·max(1, max|g|).
 """
@@ -25,7 +27,9 @@ from molann_tpu.io import save_model
 from molann_tpu.io.serialize import ACTIVATIONS as JAX_ACTIVATIONS
 from molann_tpu.models.ann import MolANN as JMolANN
 from molann_tpu.models.ann import create_sequential_nn as jax_sequential_nn
+from molann_tpu.ops import fused as JF
 from molann_tpu.systems import alanine_model as jalanine_model
+from molann_tpu.systems import peptide_model as jpeptide_model
 from molann_tpu_torch.io import load_model
 from molann_tpu_torch.ops import fused as F
 from molann_tpu_torch.ops import fused_blocked as FB
@@ -151,3 +155,66 @@ def test_wide_head_goes_blocked(tmp_path, dims):
     for fn in (F.fused_cv_forces, F.fused_model_forward):
         with pytest.raises(ValueError, match="mode='blocked'"):
             fn(tm, x, mode="unrolled")
+
+
+# A head of 12 tanh layers and one of 10 gelu layers: past the eight the
+# blocked kernels' argument block once had room for.
+DEEP_HEADS = {"tanh": (8,) * 11 + (2,), "gelu": (6,) * 9 + (3,)}
+
+
+@pytest.mark.parametrize("system", ["alanine", "peptide_model(8)"])
+@pytest.mark.parametrize("activation", sorted(DEEP_HEADS))
+def test_deep_heads_match_jax_fused(tmp_path, system, activation):
+    """A head of any depth: under ``mode="auto"`` (the blocked family past
+    four layers) and through the blocked plain versions, the port gives the
+    values, coordinate gradients, loss and parameter gradients of the JAX
+    package's ``fused_model_forward``, ``fused_cv_forces`` and
+    ``fused_train_grads`` (their blocked kernels in interpret mode)."""
+    if system == "alanine":
+        jm, u = jalanine_model()
+    else:
+        jm, u = jpeptide_model(8)
+    d_in = jm.preprocessing_layer.output_dimension()
+    dims = (d_in, *DEEP_HEADS[activation])
+    head = jax_sequential_nn(list(dims), JAX_ACTIVATIONS[activation],
+                             key=jax.random.PRNGKey(7))
+    jm = JMolANN(jm.preprocessing_layer, head)
+    tm = load_model(save_model(str(tmp_path / "deep.npz"), jm), device="cpu")
+    assert len(tm.ann_layers.layers) == len(dims) - 1 > 8
+    assert F.model_select_mode(tm) == "blocked"
+    rng = np.random.default_rng(9)
+    l = 16
+    x = (u.atoms.positions[None]
+         + 0.05 * rng.normal(size=(l, u.atoms.n_atoms, 3))).astype(np.float32)
+    yt = rng.normal(size=(l, dims[-1])).astype(np.float32)
+    xj, ytj = jnp.asarray(x), jnp.asarray(yt)
+    jkw = dict(tile=16, interpret=True, mode="blocked")
+    y_ref = np.asarray(JF.fused_model_forward(jm, xj, **jkw))
+    y2_ref, g_ref = JF.fused_cv_forces(jm, xj, **jkw)
+    loss_ref, gt = JF.fused_train_grads(jm, xj, ytj, **jkw)
+    np.testing.assert_allclose(np.asarray(y2_ref), y_ref, atol=VAL_ATOL)
+    params_ref = [(np.asarray(w).T, np.asarray(b))
+                  for w, b in gt.ann_layers.params]
+
+    xt, ytt = torch.from_numpy(x), torch.from_numpy(yt)
+    with torch.no_grad():
+        y = F.fused_model_forward(tm, xt)
+    np.testing.assert_allclose(y.numpy(), y_ref, atol=VAL_ATOL)
+    y, g = F.fused_cv_forces(tm, xt)
+    np.testing.assert_allclose(y.numpy(), y_ref, atol=VAL_ATOL)
+    close_grads(g, g_ref)
+    loss, grads = F.fused_train_grads(tm, xt, ytt)
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5)
+    for i, (rw, rb) in enumerate(params_ref):
+        close_grads(grads[f"ann_layers.layers.{i}.weight"], rw)
+        close_grads(grads[f"ann_layers.layers.{i}.bias"], rb)
+
+    parts = F._extract_model(tm)
+    y, g = FB.blocked_cv_forces_plain(*parts, xt)
+    np.testing.assert_allclose(y.numpy(), y_ref, atol=VAL_ATOL)
+    close_grads(g, g_ref)
+    loss, gparams, _ = FB.blocked_train_grads_plain(*parts, xt, ytt)
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-5)
+    for (gw, gb), (rw, rb) in zip(gparams, params_ref):
+        close_grads(gw, rw)
+        close_grads(gb, rb)

@@ -369,8 +369,8 @@ def test_modes_precision_and_refusals(tmp_path):
         F.fused_train_grads(tm.preprocessing_layer, x, torch.zeros(3, 355))
     with pytest.raises(ValueError, match="y_target"):
         F.fused_train_grads(tm, x, torch.zeros(4, 2))
-    with pytest.raises(ValueError, match="at most"):
-        FB.check_blocked_envelope(((x, x),) * 9, "tanh")
+    for depth in (9, 40):  # no cap on the head's depth
+        FB.check_blocked_envelope(((x, x),) * depth, "tanh")
     # every activation the reference serialises is served; a name it does
     # not know is refused
     for act in ("gelu", "elu", "celu", "softplus", "swish"):

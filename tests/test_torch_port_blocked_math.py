@@ -57,6 +57,7 @@ CSRC = Path(F.__file__).resolve().parent.parent / "csrc"
 
 HOST_SRC = r"""
 #include <cmath>
+#include <cstdlib>
 #include <vector>
 
 #include "blocked_math.cuh"
@@ -70,13 +71,39 @@ extern "C" void host_act(int act, const float* z, float* t, float* g, int n) {
   }
 }
 
+// One angle (kind 0), bond (1) or dihedral (2) of the packed atoms xs
+// [4, 3] in the form the blocked feature step runs (fast: kFast, square
+// roots and divisions on the special-function units) or the IEEE form:
+// its values into val (returns their count) and its adjoint for the
+// cotangent g into gx [4, 3].
+extern "C" int host_feature(int kind, int fast, int use_angle, const float* xs, const float* g,
+                            float* val, float* gx) {
+  const int idx[4] = {0, 1, 2, 3};
+  for (int i = 0; i < 12; ++i) gx[i] = 0.f;
+  if (kind == 0) {
+    val[0] = fast ? angle_fwd<true>(xs, idx, use_angle) : angle_fwd<false>(xs, idx, use_angle);
+    if (fast) angle_bwd<true>(xs, idx, use_angle, g[0], gx);
+    else angle_bwd<false>(xs, idx, use_angle, g[0], gx);
+    return 1;
+  }
+  if (kind == 1) {
+    val[0] = fast ? bond_fwd<true>(xs, idx) : bond_fwd<false>(xs, idx);
+    if (fast) bond_bwd<true>(xs, idx, g[0], gx);
+    else bond_bwd<false>(xs, idx, g[0], gx);
+    return 1;
+  }
+  if (fast) dihedral_bwd<true>(xs, idx, use_angle, g, gx);
+  else dihedral_bwd<false>(xs, idx, use_angle, g, gx);
+  return fast ? dihedral_fwd<true>(xs, idx, use_angle, val)
+              : dihedral_fwd<false>(xs, idx, use_angle, val);
+}
+
 extern "C" void host_blk_caps(int* out) {
-  out[0] = MOLANN_BLK_MAX_LAYERS;
-  out[1] = MOLANN_COORD_FLOATS;
-  out[2] = MOLANN_BLK_THREADS;
-  out[3] = (int)sizeof(BlockedArgs);
-  out[4] = (int)sizeof(BlockedIO);
-  out[5] = MOLANN_BLK_GRAD_BLOCKS;
+  out[0] = MOLANN_COORD_FLOATS;
+  out[1] = MOLANN_BLK_THREADS;
+  out[2] = (int)sizeof(BlockedArgs);
+  out[3] = (int)sizeof(BlockedIO);
+  out[4] = MOLANN_BLK_GRAD_BLOCKS;
 }
 
 extern "C" long long host_blk_smem_bytes(const BlockedArgs* m, int nt, int forces) {
@@ -95,18 +122,21 @@ extern "C" void host_blk_run(const BlockedArgs* m, const BlockedIO* io, int nt,
   for (long long b = 0; b < blocks; ++b) {
     for (float& v : sm) v = NAN;
     const int n_steps = blk_build_steps(*m, forces ? BLK_MODE_FORCES : BLK_MODE_FORWARD,
-                                        forces != 0, forces != 0, nt, steps);
+                                        forces != 0, forces != 0, nt, steps + 1);
+    if (n_steps > blk_max_steps(*m)) abort();
     for (int i = 0; i < n_steps; ++i) {
-      const BlkStep st = blk_step_of(steps[i]);
-      const int reps = st.kind == BLK_SCATTER ? m->n_batches : 1;
+      const BlkStep st = blk_step_of(steps[1 + i]);
+      const int reps = blk_step_reps(*m, st.kind);
       for (int r = 0; r < reps; ++r) {
         const BlkStep ph = {st.kind, reps > 1 ? r : st.arg};
-        for (int tid = 0; tid < nt; ++tid) {
-          const bool al = blk_aligned(*m);
-          if (forces && al) blk_phase<true, true>(*m, *io, sm.data(), b, ph, tid, nt);
-          else if (forces) blk_phase<true, false>(*m, *io, sm.data(), b, ph, tid, nt);
-          else if (al) blk_phase<false, true>(*m, *io, sm.data(), b, ph, tid, nt);
-          else blk_phase<false, false>(*m, *io, sm.data(), b, ph, tid, nt);
+        for (int tid = 0; tid < nt; ++tid) {  // the kernels' instances
+          const bool al = blk_aligned(*m), pairs = !al && m->n_coord > 0;
+          if (forces && al) blk_phase<true, true, false>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (forces && pairs) blk_phase<true, false, true>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (forces) blk_phase<true, false, false>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (al) blk_phase<false, true, false>(*m, *io, sm.data(), b, ph, tid, nt);
+          else if (pairs) blk_phase<false, false, true>(*m, *io, sm.data(), b, ph, tid, nt);
+          else blk_phase<false, false, false>(*m, *io, sm.data(), b, ph, tid, nt);
         }
       }
     }
@@ -122,7 +152,8 @@ extern "C" long long host_blk_grad_smem_bytes(const BlockedArgs* m, int nt, int 
 // How many layers' parameter steps run in rectangles of 4 x 6 entries.
 extern "C" int host_blk_rect_layers(const BlockedArgs* m, int nt) {
   int n = 0;
-  for (int L = 0; L < m->n_layers; ++L) n += blk_rect_layer(m->dims[L], m->dims[L + 1], nt);
+  for (int L = 0; L < m->n_layers; ++L)
+    n += blk_rect_layer(blk_dim(*m, L), blk_dim(*m, L + 1), nt);
   return n;
 }
 
@@ -130,7 +161,7 @@ extern "C" long long host_blk_grad_rows(const BlockedArgs* m, long long l) {
   return blk_grad_blocks(*m, l);
 }
 
-template <bool kTrain, bool kGx, bool kAligned>
+template <bool kTrain, bool kGx, bool kAligned, bool kPairs>
 static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int nt,
                       int n_blocks) {
   const int width = 1 + blk_grad_size(m);
@@ -147,14 +178,15 @@ static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int
         ? io.partials + (long long)n_blocks * width + (long long)b * rect_floats : nullptr;
     for (int tid = 0; tid < nt; ++tid) blk_grad_begin(m, io, acc, rect, tid, nt);
     const int n_steps = blk_build_steps(m, kTrain ? BLK_MODE_TRAIN : BLK_MODE_BACKWARD,
-                                        blk_grad_adjoint<kGx, kAligned>(io), kGx, nt, steps);
+                                        blk_grad_adjoint<kGx, kAligned>(io), kGx, nt, steps + 1);
+    if (n_steps > blk_max_steps(m)) abort();
     for (long long tile = b; tile < tiles; tile += n_blocks)
       for (int i = 0; i < n_steps; ++i) {
-        const BlkStep st = blk_step_of(steps[i]);
-        const int reps = st.kind == BLK_SCATTER ? m.n_batches : 1;
+        const BlkStep st = blk_step_of(steps[1 + i]);
+        const int reps = blk_step_reps(m, st.kind);
         for (int r = 0; r < reps; ++r)
           for (int tid = 0; tid < nt; ++tid)
-            blk_grad_phase<kTrain, kGx, kAligned>(m, io, sm.data(), so, acc, rect, tile,
+            blk_grad_phase<kTrain, kGx, kAligned, kPairs>(m, io, sm.data(), so, acc, rect, tile,
                                                   BlkStep{st.kind, reps > 1 ? r : st.arg},
                                                   tid, nt);
       }
@@ -171,20 +203,22 @@ static void run_grads(const BlockedArgs& m, const BlockedIO& io, float* out, int
 // The backward (train = 0) or train kernel as a grid of n_blocks blocks.
 extern "C" void host_blk_grads(const BlockedArgs* m, const BlockedIO* io, float* out, int nt,
                                int train, int n_blocks) {
-  const bool al = blk_aligned(*m);
+  const bool al = blk_aligned(*m), pairs = !al && m->n_coord > 0;
   const bool gx = !train && io->gx != nullptr;  // the kernels' three kinds
-  if (train && al) run_grads<true, false, true>(*m, *io, out, nt, n_blocks);
-  else if (train) run_grads<true, false, false>(*m, *io, out, nt, n_blocks);
-  else if (gx && al) run_grads<false, true, true>(*m, *io, out, nt, n_blocks);
-  else if (gx) run_grads<false, true, false>(*m, *io, out, nt, n_blocks);
-  else if (al) run_grads<false, false, true>(*m, *io, out, nt, n_blocks);
-  else run_grads<false, false, false>(*m, *io, out, nt, n_blocks);
+  if (train && al) run_grads<true, false, true, false>(*m, *io, out, nt, n_blocks);
+  else if (train && pairs) run_grads<true, false, false, true>(*m, *io, out, nt, n_blocks);
+  else if (train) run_grads<true, false, false, false>(*m, *io, out, nt, n_blocks);
+  else if (gx && al) run_grads<false, true, true, false>(*m, *io, out, nt, n_blocks);
+  else if (gx && pairs) run_grads<false, true, false, true>(*m, *io, out, nt, n_blocks);
+  else if (gx) run_grads<false, true, false, false>(*m, *io, out, nt, n_blocks);
+  else if (al) run_grads<false, false, true, false>(*m, *io, out, nt, n_blocks);
+  else if (pairs) run_grads<false, false, false, true>(*m, *io, out, nt, n_blocks);
+  else run_grads<false, false, false, false>(*m, *io, out, nt, n_blocks);
 }
 """
 
 
-@pytest.fixture(scope="module")
-def host(tmp_path_factory):
+def build_host(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
@@ -197,6 +231,7 @@ def host(tmp_path_factory):
     h = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     h.host_blk_caps.argtypes = [vp]
+    h.host_feature.argtypes = [i32, i32, i32, vp, vp, vp, vp]
     h.host_act.argtypes = [i32, vp, vp, vp, i32]
     h.host_blk_smem_bytes.argtypes = [vp, i32, i32]
     h.host_blk_smem_bytes.restype = ctypes.c_longlong
@@ -208,12 +243,17 @@ def host(tmp_path_factory):
     h.host_blk_grad_rows.argtypes = [vp, ctypes.c_longlong]
     h.host_blk_grad_rows.restype = ctypes.c_longlong
     h.host_blk_grads.argtypes = [vp, vp, vp, i32, i32, i32]
-    caps = (ctypes.c_int * 6)()
+    caps = (ctypes.c_int * 5)()
     h.host_blk_caps(caps)
-    assert list(caps) == [FB.BLK_MAX_LAYERS, FB.BLK_COORD_FLOATS,
+    assert list(caps) == [FB.BLK_COORD_FLOATS,
                           FB.BLK_THREADS, ctypes.sizeof(FB.BlockedArgs),
                           ctypes.sizeof(FB.BlockedIO), FB.BLK_GRAD_BLOCKS]
     return h
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    return build_host(tmp_path_factory)
 
 
 def host_launch(host, frames, threads):
@@ -951,3 +991,103 @@ def test_activations_through_the_steps(host, activation):
     check(host, model, x)
     check_backward(host, model, x)
     check_train(host, model, x, train_ref=True)
+
+
+@pytest.mark.parametrize("build,hidden,activation", [
+    ("alanine", (8,) * 11 + (2,), "tanh"),
+    ("peptide", (70,) + (6,) * 8 + (3,), "gelu")])
+def test_deep_heads(host, build, hidden, activation):
+    """Heads of 12 and 10 Linear layers through K6, K8, K7 and K5: the
+    widths come from a table the host builds, and the list of a tile's
+    steps is sized by the depth (a tiled first layer in the gelu case, so
+    that its pre-activations are kept)."""
+    if build == "alanine":
+        model, u = alanine_model(hidden_dims=hidden, activation=activation,
+                                 generator=gen(3), device="cpu")
+        x = frames_of(u, 21, 1)
+    else:
+        model, u = peptide_model(12, hidden_dims=hidden, activation=activation,
+                                 generator=gen(4), device="cpu")
+        x = frames_of(u, 19, 2)
+    assert len(model.ann_layers.layers) == len(hidden) > 8
+    check(host, model, x, frames=8, threads=64)
+    check_backward(host, model, x, frames=8, threads=64)
+    check_train(host, model, x, train_ref=build == "alanine", frames=8,
+                threads=64)
+
+
+# ---------------------------------------------------------------------------
+# The features' fast forms, one at a time
+# ---------------------------------------------------------------------------
+
+FEATURE_KINDS = {"angle": (0, 0), "angle value": (0, 1), "bond": (1, 0),
+                 "dihedral cos sin": (2, 0), "dihedral atan2": (2, 1)}
+
+
+def host_feature(host, name, fast, xs, g):
+    """One feature of ``xs [4, 3]`` on the host: its values and its
+    adjoint for the cotangent ``g``."""
+    kind, use_angle = FEATURE_KINDS[name]
+    xs = torch.as_tensor(xs, dtype=torch.float32).contiguous()
+    g = torch.as_tensor(g, dtype=torch.float32).contiguous()
+    val, gx = torch.zeros(2), torch.zeros(4, 3)
+    n = host.host_feature(kind, int(fast), use_angle, xs.data_ptr(),
+                          g.data_ptr(), val.data_ptr(), gx.data_ptr())
+    return val[:n], gx
+
+
+def feature_f64(name, xs):
+    """The feature in float64, as the reference defines it."""
+    a, b, c, d = xs
+    if name.startswith("angle"):
+        r21, r23 = a - b, c - b
+        cs = (r21 @ r23) / (r21.norm() * r23.norm())
+        return (torch.acos(cs) if name == "angle value" else cs).reshape(1)
+    if name == "bond":
+        return (b - a).norm().reshape(1)
+    r12, r23, r34 = b - a, c - b, d - c
+    n1, n2 = torch.linalg.cross(r12, r23), torch.linalg.cross(r23, r34)
+    cs, sn = n1 @ n2, (n1 @ r34) * r23.norm()
+    if name == "dihedral atan2":
+        return torch.atan2(sn, cs).reshape(1)
+    return torch.stack([cs, sn]) / torch.sqrt(cs * cs + sn * sn)
+
+
+@pytest.mark.parametrize("name", list(FEATURE_KINDS))
+def test_fast_features_against_float64(host, name):
+    """The square roots and divisions of the feature step and its adjoints
+    on the special-function units with a Newton step (the host stands the
+    estimate in by the exact value one ulp off): values within 1e-5 and
+    gradients within 5e-5·max(1, max|g|) of float64, over random frames."""
+    rng = np.random.default_rng(31)
+    for _ in range(64):
+        xs = rng.normal(size=(4, 3)).astype(np.float32)
+        x64 = torch.tensor(xs, dtype=torch.float64, requires_grad=True)
+        want = feature_f64(name, x64)
+        g = rng.normal(size=want.shape[0]).astype(np.float32)
+        (gx_r,) = torch.autograd.grad(want @ torch.tensor(g, dtype=torch.float64), x64)
+        val, gx = host_feature(host, name, True, xs, g)
+        assert float((val.double() - want.detach()).abs().max()) <= 1e-5
+        close(gx, gx_r)
+
+
+@pytest.mark.parametrize("name,atoms", [("bond", (0, 1)),
+                                        ("dihedral atan2", (1, 2)),
+                                        ("dihedral cos sin", (1, 2))])
+def test_fast_features_at_coincident_atoms(host, name, atoms):
+    """Two coincident atoms (a bond of length 0, a dihedral whose middle
+    bond is 0): the fast forms give what the IEEE forms give, bit for bit
+    and NaN where they are NaN; the bond's length and the atan2 dihedral
+    are finite and equal the float64 value."""
+    xs = np.random.default_rng(32).normal(size=(4, 3)).astype(np.float32)
+    xs[atoms[1]] = xs[atoms[0]]
+    g = np.ones(2, np.float32)
+    val, gx = host_feature(host, name, True, xs, g)
+    val_ieee, gx_ieee = host_feature(host, name, False, xs, g)
+    np.testing.assert_array_equal(val.numpy(), val_ieee.numpy())
+    np.testing.assert_array_equal(gx.isnan().numpy(), gx_ieee.isnan().numpy())
+    np.testing.assert_allclose(gx.nan_to_num().numpy(),
+                               gx_ieee.nan_to_num().numpy(), atol=1e-6)
+    if name != "dihedral cos sin":  # rho = 0: NaN in every form
+        want = feature_f64(name, torch.tensor(xs, dtype=torch.float64))
+        np.testing.assert_array_equal(val.numpy(), want.float().numpy())

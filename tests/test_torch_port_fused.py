@@ -177,8 +177,8 @@ def test_errors():
     # every activation of the reference is served (tests/
     # test_torch_port_activations.py holds them against the JAX package);
     # a head past the unrolled kernels' caps goes to the blocked family
-    # under "auto" and raises under "unrolled"; past the blocked kernels'
-    # eight layers it raises under both
+    # under "auto" and raises under "unrolled"; the blocked kernels take a
+    # head of any depth
     pp = model.preprocessing_layer
     gen = torch.Generator().manual_seed(2)
     for head, auto in (
@@ -200,9 +200,17 @@ def test_errors():
             with pytest.raises(ValueError, match="mode='blocked'"):
                 F.fused_cv_forces(m, x, mode="unrolled")
     deep = MolANN(pp, create_sequential_nn([38] + [4] * 9, generator=gen))
-    for mode in ("auto", "unrolled", "blocked"):
-        with pytest.raises(ValueError, match="at most"):
-            F.fused_cv_forces(deep, x, mode=mode)
+    assert F.model_select_mode(deep) == "blocked"
+    xg = x.clone().requires_grad_(True)
+    y_ref = deep(xg)
+    (g_ref,) = torch.autograd.grad(y_ref.sum(), xg)
+    for mode in ("auto", "blocked"):
+        y, g = F.fused_cv_forces(deep, x, mode=mode)
+        np.testing.assert_allclose(y.numpy(), y_ref.detach().numpy(),
+                                   atol=VAL_ATOL)
+        _close_grads(g, g_ref)
+    with pytest.raises(ValueError, match="mode='blocked'"):
+        F.fused_cv_forces(deep, x, mode="unrolled")
 
 
 def test_launch_counters_stay_zero_on_cpu(setup):

@@ -964,3 +964,47 @@ def test_wide_head_runs_blocked_under_auto(cuda):
     _close(g, g_ref)
     with pytest.raises(ValueError, match="mode='blocked'"):
         F.fused_cv_forces(model, x, mode="unrolled")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden_dims,activation", [
+    ((8,) * 11 + (2,), "tanh"), ((6,) * 9 + (3,), "gelu")])
+def test_deep_heads_through_the_blocked_kernels(cuda, hidden_dims,
+                                                activation):
+    """Heads of 12 and 10 layers go to K5-K8 under "auto" (the blocked
+    kernels take any depth) and hold float64 plain versions: values, gx,
+    the parameter and ref_x sums, the loss."""
+    model, u = alanine_model(hidden_dims=hidden_dims, activation=activation,
+                             generator=torch.Generator().manual_seed(6),
+                             device=cuda)
+    assert F.model_select_mode(model) == "blocked"
+    parts = F._extract_model(model)
+    x = _frames(u, 1001, cuda, seed=10)
+    gy = torch.as_tensor(np.random.default_rng(11).normal(
+        size=(1001, hidden_dims[-1])).astype(np.float32), device=cuda)
+    before = dict(F.KERNEL_LAUNCHES)
+    with torch.no_grad():
+        y1 = F.fused_model_forward(model, x)
+    y_ref, g_ref = F.cv_forces_plain(*_f64(parts), x.double())
+    y, g = F.fused_cv_forces(model, x)
+    for v in (y1, y):
+        np.testing.assert_allclose(v.double().cpu().numpy(),
+                                   y_ref.cpu().numpy(), atol=VAL_ATOL)
+    _close(g, g_ref)
+    xg = x.clone().requires_grad_(True)
+    leaves = [xg, *(t for wb in parts[3] for t in wb)]
+    got = torch.autograd.grad(F.fused_model_forward(model, xg), leaves, gy)
+    gx_ref, gp_ref, _ = F.backward_plain(*_f64(parts), x.double(),
+                                         gy.double())
+    for v, v_ref in zip(got, [gx_ref, *(t for wb in gp_ref for t in wb)]):
+        _close(v, v_ref)
+    loss, grads = F.fused_train_grads(model, x, gy, train_ref=True)
+    loss_ref, gp_ref, gref_ref = F.train_grads_plain(
+        *_f64(parts), x.double(), gy.double(), True)
+    assert abs(float(loss) - float(loss_ref)) <= LOSS_RTOL * float(loss_ref)
+    for v, v_ref in zip(grads.values(),
+                        [*(t for wb in gp_ref for t in wb), gref_ref]):
+        _close(v, v_ref)
+    for kind in ("blocked_forward", "blocked_cv_forces", "blocked_backward",
+                 "blocked_train"):
+        assert F.KERNEL_LAUNCHES[kind] > before[kind]

@@ -95,3 +95,26 @@ def test_reader_formats(setup, tmp_path):
             open_frame_reader(str(tmp_path / f"t{ext}"))
     with pytest.raises(ValueError, match="expected"):
         open_frame_reader(np.zeros((4, 5)))
+
+
+@pytest.mark.parametrize("backend", ["auto", "numpy"])
+def test_backend_and_mesh_keywords(setup, backend):
+    """``backend=`` and ``mesh=`` are the reference's keywords: "auto" and
+    "numpy" read the ``.npy`` as the reference's numpy reader does, with
+    its values; ``backend="native"`` (its native loader) and a mesh (serving
+    over several devices) are not ported and raise, naming their ROADMAP
+    items; an unknown backend is the reference's ValueError."""
+    jm, tm, frames, path, _ = setup
+    cvs_ref = jevaluate(jm, path, batch_size=64, backend="numpy")
+    cvs = evaluate_trajectory(tm, path, device="cpu", batch_size=64,
+                              backend=backend, mesh=None)
+    np.testing.assert_allclose(cvs, cvs_ref, atol=VAL_ATOL)
+    cvs_arr = evaluate_trajectory(tm, frames, device="cpu", batch_size=64,
+                                  backend="native")
+    np.testing.assert_array_equal(cvs_arr, cvs)
+    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
+        evaluate_trajectory(tm, path, device="cpu", backend="native")
+    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+        evaluate_trajectory(tm, path, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="auto/native/numpy"):
+        open_frame_reader(path, backend="mmap")
