@@ -8,12 +8,19 @@ Runs the port's serving path on the card and checks it, phase by phase:
 3. goldens: the fixture frame through the forward kernel (FeatureLayer
    only) must give d1 = [-1, 0], b1 = 1.5296831, a1 = -0.33281142 (1e-6);
 4. kernels vs plain: both kernels against their plain PyTorch versions on
-   8192 alanine frames, components None and 0, layouts [l, n, 3] and
-   [3n, l]; values within 1e-5, gradients within 2e-4·max(1, max|g|);
+   8192 and 8191 alanine frames (a ragged tile), components None and 0,
+   layouts [l, n, 3] and [3n, l]; values within 1e-5, gradients within
+   2e-4·max(1, max|g|);
 5. serving: 1,048,576 frames from a ``.npy`` file through
    ``serve.evaluate_trajectory`` with and without forces (16 batches of
    65536 each), checked on 4096 sampled rows, with each kernel's launch
    count over that run and the CUDA-event time of one 65536-frame batch;
+   (b) the bench op as ``bench.py`` runs it, ``fused_cv_forces(model, x,
+   tile=2048, transposed_input=True)``, on 1,048,576 ``[3n, l]`` frames made
+   on the card from a seeded generator: 4096 sampled frames against the
+   float64 plain version, a repeat to the same bits, the kernel's time
+   alone, frames/s and its share of its bound (492 B a frame: the 18
+   atoms the model reads, then gx and y);
 6. training: (a) the backward kernel (autograd through
    ``fused_model_forward``, ``ref_x`` requiring grad) and (b) the train
    kernel (``train_ref`` False and True, ``[l, n, 3]`` and ``[3n, l]``,
@@ -27,7 +34,9 @@ Runs the port's serving path on the card and checks it, phase by phase:
    bit for bit; (e) CUDA-event times of both kernels and their plain
    versions on 65536 frames, and training steps per second; each unrolled
    kernel's time alone (``torch.profiler``) beside its event time with the
-   wrapper, and the host's share; (f) alanine with a gelu and with a swish
+   wrapper, and the host's share; K4's and K1's time by step
+   (``probes/unrolled_probe.py phases``), their registers and warps an SM;
+   (f) alanine with a gelu and with a swish
    head through K1-K4 and, under ``mode="blocked"``, K5-K8, and alanine
    with a ``[38, 65, 3]`` head (past the unrolled kernels' width) through
    the blocked kernels under ``mode="auto"``, each against float64 plain
@@ -76,8 +85,9 @@ Runs the port's serving path on the card and checks it, phase by phase:
    aligned position through the forward, cv+forces, backward and train
    kernels against float64 plain versions.
 
-Each kernel's bound is the larger of its bytes (every staged input
-coordinate read once, every output written once) over 3.35 TB/s and the
+Each kernel's bound is the larger of its bytes (every input coordinate
+the model reads once, every output written once; for the unrolled kernels
+``unrolled_probe.frame_bytes``) over 3.35 TB/s and the
 f32 operations the function needs (every feature, adjoint and pair once),
 counted from the model's sizes and this run's share of pairs inside
 ``d_max``, over 67 TFLOP/s. What the blocked kernels do beyond that, by
@@ -115,6 +125,7 @@ import numpy as np
 import torch
 
 N_FRAMES = 1 << 20
+BENCH_FRAMES = 1 << 20
 BATCH = 65536
 CHECK_FRAMES = 8192
 SAMPLE_ROWS = 4096
@@ -151,8 +162,6 @@ OPS = {"angle": 25, "bond": 9, "dihedral": 50, "angle_bwd": 70,
 # columns, MLP 38 -> 5 -> 3).
 ALANINE_OPS = {"forward": 1500, "cv_forces": 5000, "backward": 6000,
                "train": 2400}
-ALANINE_BYTES = {"forward": 276, "cv_forces": 540, "backward": 540,
-                 "train": 276}
 GOLDEN = np.array([-1.0, 0.0, 1.5296831, -0.33281142], np.float32)
 
 
@@ -1184,6 +1193,58 @@ def unrolled_split(calls):
     return out
 
 
+def bench_op_phase(F, model, parts, u, dev, card):
+    """Phase 5b: the bench op, ``fused_cv_forces(model, x, tile=2048,
+    transposed_input=True)`` (``bench.py:44-54``), on ``BENCH_FRAMES``
+    ``[3n, l]`` frames made on the card from a seeded generator: finite
+    outputs of the expected shapes, ``SAMPLE_ROWS`` sampled frames against
+    the float64 plain version, a repeat to the same bits, and the kernel's
+    time alone, frames/s and share of its bound (the bytes a frame of
+    ``unrolled_probe.frame_bytes``: the coordinates read, gx and y)."""
+    from molann_tpu_torch.probes.unrolled_probe import frame_bytes
+
+    n = u.atoms.n_atoms
+    pos = torch.as_tensor(u.atoms.positions, dtype=torch.float32,
+                          device=dev).reshape(3 * n, 1)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = pos + 0.05 * torch.randn(3 * n, BENCH_FRAMES, generator=gen,
+                                 device=dev)
+
+    def op():
+        return F.fused_cv_forces(model, x, tile=2048, transposed_input=True)
+
+    y, g = op()
+    y2, g2 = op()
+    torch.cuda.synchronize()
+    if y.shape != (3, BENCH_FRAMES) or g.shape != (3 * n, BENCH_FRAMES):
+        fail(f"bench op output shapes {tuple(y.shape)}, {tuple(g.shape)}")
+    if not (torch.isfinite(y).all() and torch.isfinite(g).all()):
+        fail("non-finite bench op outputs")
+    if not (torch.equal(y, y2) and torch.equal(g, g2)):
+        fail("two launches of the bench op differ")
+    rows = torch.as_tensor(np.sort(np.random.default_rng(12).choice(
+        BENCH_FRAMES, SAMPLE_ROWS, replace=False)), device=dev)
+    xs = x[:, rows].T.reshape(-1, n, 3)
+    y_ref, g_ref = F.cv_forces_plain(*f64(parts), xs.double())
+    ev = float((y[:, rows].T.double() - y_ref).abs().max())
+    eg = float((g[:, rows].T.reshape(-1, n, 3).double() - g_ref).abs().max())
+    if not (ev <= VAL_TOL and eg <= grad_tol(g_ref)):
+        fail(f"bench op vs float64 plain on {SAMPLE_ROWS} sampled frames: "
+             f"values {ev}, gradients {eg}")
+    alone, _ = profiled_ms(op, r"fused_unrolled_kernel<(true|1)")
+    event = cuda_ms(op, 20)
+    n_bytes = frame_bytes(F, model, True, True, 3)
+    b_ms, _ = bound(BENCH_FRAMES * n_bytes, 0)
+    print(f"bench op on {BENCH_FRAMES} [3n, l] frames on the card: kernel "
+          f"alone {alone:.4f} ms ({BENCH_FRAMES / alone * 1e3:.6g} frames/s, "
+          f"{100 * b_ms / alone:.1f}% of its {b_ms:.4f} ms bound, "
+          f"{n_bytes:g} B a frame), "
+          f"{event:.4f} ms with the wrapper; {SAMPLE_ROWS} sampled frames vs "
+          f"float64 plain: values {ev:.3g}, gradients {eg:.3g}; repeat "
+          f"bit-identical; card: {card}")
+    del x, y, g, y2, g2
+
+
 def head_phase(dev):
     """Phase 6f: heads the unrolled kernels took only from PR 6 on (gelu and
     swish, whose derivative needs the pre-activation) through K1-K4 and
@@ -1405,29 +1466,31 @@ def main():
         device=dev)
     x_t = x.reshape(CHECK_FRAMES, 3 * n).T.contiguous()
     max_err = {"forward": 0.0, "cv_forces": 0.0}
-    y_ref = F.forward_plain(*parts, x).detach()
-    for xin in (x, x.reshape(CHECK_FRAMES, 3 * n)):
-        y = F.fused_model_forward(model, xin).detach()
-        e = float((y - y_ref).abs().max())
-        if not e <= VAL_TOL:
-            fail(f"forward kernel vs plain on {tuple(xin.shape)}: {e}")
-        max_err["forward"] = max(max_err["forward"], e)
-    for comp in (None, 0):
-        y_ref, g_ref = F.cv_forces_plain(*parts, x, comp)
-        y, g = F.fused_cv_forces(model, x, component=comp)
-        yt, gt = F.fused_cv_forces(model, x_t, component=comp,
-                                   transposed_input=True)
-        for name, yy, gg in (("[l, n, 3]", y, g),
-                             ("[3n, l]", yt.T, gt.T.reshape(-1, n, 3))):
-            ev = float((yy - y_ref).abs().max())
-            eg = float((gg - g_ref).abs().max())
-            if not (ev <= VAL_TOL and eg <= grad_tol(g_ref)):
-                fail(f"cv+forces kernel vs plain, {name}, component={comp}: "
-                     f"values {ev}, gradients {eg}")
-            max_err["cv_forces"] = max(max_err["cv_forces"], ev, eg)
+    for l in (CHECK_FRAMES, CHECK_FRAMES - 1):  # the second: a ragged tile
+        xl = x[:l]
+        y_ref = F.forward_plain(*parts, xl).detach()
+        for xin in (xl, xl.reshape(l, 3 * n)):
+            y = F.fused_model_forward(model, xin).detach()
+            e = float((y - y_ref).abs().max())
+            if not e <= VAL_TOL:
+                fail(f"forward kernel vs plain on {tuple(xin.shape)}: {e}")
+            max_err["forward"] = max(max_err["forward"], e)
+        for comp in (None, 0):
+            y_ref, g_ref = F.cv_forces_plain(*parts, xl, comp)
+            y, g = F.fused_cv_forces(model, xl, component=comp)
+            yt, gt = F.fused_cv_forces(model, x_t[:, :l].contiguous(),
+                                       component=comp, transposed_input=True)
+            for name, yy, gg in (("[l, n, 3]", y, g),
+                                 ("[3n, l]", yt.T, gt.T.reshape(-1, n, 3))):
+                ev = float((yy - y_ref).abs().max())
+                eg = float((gg - g_ref).abs().max())
+                if not (ev <= VAL_TOL and eg <= grad_tol(g_ref)):
+                    fail(f"cv+forces kernel vs plain, {name}, {l} frames, "
+                         f"component={comp}: values {ev}, gradients {eg}")
+                max_err["cv_forces"] = max(max_err["cv_forces"], ev, eg)
     torch.cuda.synchronize()
-    print(f"kernels vs plain on {CHECK_FRAMES} frames: max abs err "
-          f"forward {max_err['forward']:.3g}, cv_forces "
+    print(f"kernels vs plain on {CHECK_FRAMES} and {CHECK_FRAMES - 1} frames: "
+          f"max abs err forward {max_err['forward']:.3g}, cv_forces "
           f"{max_err['cv_forces']:.3g}")
 
     # 5. serving from a .npy trajectory
@@ -1490,6 +1553,9 @@ def main():
           f"on the card: cv_forces kernel {ms_k4:.4f} ms (plain "
           f"{ms_p4:.4f} ms), forward kernel {ms_k1:.4f} ms (plain "
           f"{ms_p1:.4f} ms); card: {card}")
+
+    # 5b. the bench op as bench.py runs it, on frames made on the card
+    bench_op_phase(F, model, parts, u, dev, card)
 
     # 6. training
     from molann_tpu_torch.train import (
@@ -1695,6 +1761,15 @@ def main():
               f"{k} {a:.4f} / {e:.4f} / {h:.4f}"
               for k, (a, e, h) in split.items()) + f"; card: {card}")
 
+    from molann_tpu_torch.probes import unrolled_probe
+
+    steps = unrolled_probe.phase_table(dev)
+    print("K4 and K1 by step (probes/unrolled_probe.py phases: a clock read "
+          "in every warp before each step, each step's share of the warps' "
+          f"cycles times the kernel's time with the reads, ms; one {BATCH}-"
+          f"frame batch), with resources and warps an SM: "
+          f"{json.dumps(steps)}; card: {card}")
+
     # (f) the heads PR 6 added, and a wide head under "auto"
     head_phase(dev)
 
@@ -1711,8 +1786,10 @@ def main():
     coordination_phase(dev)
 
     def alanine_bound(kind):
-        b_ms, b_by = bound(BATCH * ALANINE_BYTES[kind],
-                           BATCH * ALANINE_OPS[kind])
+        # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
+        n_bytes = unrolled_probe.frame_bytes(
+            F, model, kind == "train", kind in ("cv_forces", "backward"), 3)
+        b_ms, b_by = bound(BATCH * n_bytes, BATCH * ALANINE_OPS[kind])
         return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
     src = "molann_tpu_torch/csrc/fused_unrolled.cu"

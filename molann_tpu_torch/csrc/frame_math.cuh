@@ -23,6 +23,7 @@
 #define __host__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #endif
 
 #include <math.h>
@@ -71,6 +72,15 @@ struct ModelArgs {
   const float* ref_x;       // [n_align * 3] centred reference
   const float* w[MOLANN_MAX_LAYERS];  // W_L [d_out, d_in] row-major (Linear.weight)
   const float* b[MOLANN_MAX_LAYERS];  // b_L [d_out]
+  // The forward and cv+forces kernels keep the atoms some feature or the
+  // alignment reads, n_slots of them: their tables above number atoms by
+  // slot, slot_col [3 n_slots] is the input column of each slot column and
+  // col_slot [3 n_atoms] the slot column of each input column (-1: an atom
+  // nothing reads, its gradient 0). The other kernels take the tables in
+  // atom numbers and leave these three unset.
+  int n_slots;
+  const int* slot_col;
+  const int* col_slot;
 };
 
 __host__ __device__ __forceinline__ int model_out_dim(const ModelArgs& m) {
@@ -210,14 +220,15 @@ __host__ __device__ __forceinline__ T newton_step_t(float lam, const T& c2,
 // 4x4 K by Newton on its characteristic polynomial (12 iterations on plain
 // floats, then one step in T) and the largest-norm adjugate column
 // (strict '>' priority select, first column wins ties). With lam_out, the
-// result of the 12 Newton steps goes there too (qcp_rotation_vjp takes it).
+// result of the 12 Newton steps goes there too (qcp_rotation_vjp takes it),
+// with best_out the column chosen.
 // kUnrolledSelect: the chosen column's entries formed with compile-time
 // indices only, four guarded copies of them; the blocked kernels take it
 // (their 80-byte stack frame gone, K6 and K8 with alignment 4-6% faster),
 // while it made K4 10% and K3 8% slower.
 template <typename T, bool kUnrolledSelect = false>
 __host__ __device__ void qcp_rotation(const T (&H)[3][3], T (&R)[3][3],
-                                      float* lam_out = nullptr) {
+                                      float* lam_out = nullptr, int* best_out = nullptr) {
   const T &Sxx = H[0][0], &Sxy = H[0][1], &Sxz = H[0][2];
   const T &Syx = H[1][0], &Syy = H[1][1], &Syz = H[1][2];
   const T &Szx = H[2][0], &Szy = H[2][1], &Szz = H[2][2];
@@ -280,6 +291,7 @@ __host__ __device__ void qcp_rotation(const T (&H)[3][3], T (&R)[3][3],
     }
     if (col == 0 || nrm > best_n) { best = col; best_n = nrm; }
   }
+  if (best_out) *best_out = best;
   T q[4];
   if (kUnrolledSelect) {
 #pragma unroll
@@ -330,10 +342,12 @@ __host__ __device__ __forceinline__ void det3_grad(const float (&A)[3][3], float
 // operations where the Dual9 pass carried 9 tangents through every one.
 // lam0 is the forward's result of the 12 Newton steps on the same H
 // (qcp_rotation's lam_out), so that the serial chain is not run twice; a
-// negative lam0 runs it here.
+// negative lam0 runs it here. kBest: the adjugate column is `best_in`, the
+// forward's choice (qcp_rotation's best_out), and only it is formed.
+template <bool kBest = false>
 __host__ __device__ inline void qcp_rotation_vjp(const float (&H)[3][3], const float (&gR)[3][3],
                                                  float lam0, float (&R)[3][3],
-                                                 float (&gH)[3][3]) {
+                                                 float (&gH)[3][3], int best_in = 0) {
   const float Sxx = H[0][0], Sxy = H[0][1], Sxz = H[0][2];
   const float Syx = H[1][0], Syy = H[1][1], Syz = H[1][2];
   const float Szx = H[2][0], Szy = H[2][1], Szz = H[2][2];
@@ -390,24 +404,33 @@ __host__ __device__ inline void qcp_rotation_vjp(const float (&H)[3][3], const f
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) m[i][j] = (i == j) ? k[i][j] - lam : k[i][j];
-  // every adjugate column, and the largest-norm one (strict '>', first wins)
-  float adj[4][4];
-  int best = 0;
-  float best_n = 0.f;
-#pragma unroll
-  for (int col = 0; col < 4; ++col) {
-    float nrm = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      adj[col][i] = adj_entry(m, col, i);
-      nrm = (i == 0) ? adj[col][i] * adj[col][i] : nrm + adj[col][i] * adj[col][i];
-    }
-    if (col == 0 || nrm > best_n) { best = col; best_n = nrm; }
-  }
+  // every adjugate column, and the largest-norm one (strict '>', first
+  // wins), or with kBest the forward's column alone
+  int best = best_in;
   float q[4];
+  if (kBest) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    q[i] = best == 0 ? adj[0][i] : best == 1 ? adj[1][i] : best == 2 ? adj[2][i] : adj[3][i];
+    for (int col = 0; col < 4; ++col)
+      if (col == best)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[i] = adj_entry(m, col, i);
+  } else {
+    float adj[4][4];
+    float best_n = 0.f;
+#pragma unroll
+    for (int col = 0; col < 4; ++col) {
+      float nrm = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        adj[col][i] = adj_entry(m, col, i);
+        nrm = (i == 0) ? adj[col][i] * adj[col][i] : nrm + adj[col][i] * adj[col][i];
+      }
+      if (col == 0 || nrm > best_n) { best = col; best_n = nrm; }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = best == 0 ? adj[0][i] : best == 1 ? adj[1][i] : best == 2 ? adj[2][i] : adj[3][i];
+  }
   const float qn = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   const float w = q[0] / qn, x = q[1] / qn, y = q[2] / qn, z = q[3] / qn;
   R[0][0] = 1.0f - 2.0f * (y * y + z * z);
@@ -966,7 +989,7 @@ __host__ __device__ __forceinline__ float act_grad(int act, float t, float z) {
 }
 
 // ---------------------------------------------------------------------------
-// The steps of an unrolled block
+// The steps of an unrolled block of the backward and train kernels (K2, K3)
 //
 // A block takes F frames (F = UnrIO.frames, a power of two) and two threads
 // a frame, (f, h) = (t mod F, t / F), for the serial chain of a frame: QCP,
@@ -982,7 +1005,7 @@ __host__ __device__ __forceinline__ float act_grad(int act, float t, float z) {
 //   unr_feat       the feature columns: h = 0 angles, bonds, dihedrals and
 //                  coordination, h = 1 the alignment and the positions;
 //   unr_mlp        each layer forward, the outputs shared by the halves;
-//   unr_seed       the output y and its cotangent (h = 0);
+//   unr_seed       the output's cotangent (h = 0);
 //   unr_bwd        each layer's input cotangent into the dz rows;
 //   unr_param_sums the block's sums of the parameter gradients over its
 //                  frames, in frame order, as rectangles of 2 x 2 entries a
@@ -997,7 +1020,9 @@ __host__ __device__ __forceinline__ float act_grad(int act, float t, float z) {
 // half): the kernels run it with threadIdx.x, the host test in loops.
 // ---------------------------------------------------------------------------
 
-enum { UNR_FORWARD = 0, UNR_FORCES = 1, UNR_BACKWARD = 2, UNR_TRAIN = 3 };
+// The kernels of the family that run these steps (K1 and K4 run the warp
+// tiles below).
+enum { UNR_BACKWARD = 2, UNR_TRAIN = 3 };
 // The largest tile; a block has two threads a frame.
 #define MOLANN_UNR_MAX_FRAMES 64
 // Rows of the alignment state kept for the block's ref_x sums: gH, then c.
@@ -1041,16 +1066,15 @@ __host__ __device__ inline UnrSmem unr_smem(const ModelArgs& m, int mode, bool g
                                             int FP) {
   int hsum = 0;
   for (int L = 0; L < m.n_layers; ++L) hsum += m.dims[L + 1];
-  const bool back = mode != UNR_FORWARD;
   UnrSmem s;
   int o = 0;
   s.xs = o;   o += 3 * m.n_atoms * FP;
   s.gx = o;   if (gx) o += 3 * m.n_atoms * FP;
   s.cols = o; o += m.n_feat * FP;
   s.h = o;    o += hsum * FP;
-  s.z = o;    if (back && act_needs_z(m.activation)) o += hsum * FP;
-  s.dz = o;   if (back && m.n_layers) o += (hsum - m.dims[m.n_layers]) * FP;
-  s.lam = o;  if (back && gx && needs_alignment(m)) o += FP;
+  s.z = o;    if (act_needs_z(m.activation)) o += hsum * FP;
+  s.dz = o;   if (m.n_layers) o += (hsum - m.dims[m.n_layers]) * FP;
+  s.lam = o;  if (gx && needs_alignment(m)) o += FP;
   s.st = o;   if (mode >= UNR_BACKWARD && ref && needs_alignment(m)) o += UNR_ST_ROWS * FP;
   s.loss = o; if (mode == UNR_TRAIN) o += FP;
   s.total = o;
@@ -1244,7 +1268,7 @@ template <int kMode>
 __host__ __device__ inline void unr_mlp(const ModelArgs& m, const UnrIO& io, float* sm,
                                         const UnrSmem& so, int L, int f, int h) {
   const int FP = io.pitch;
-  const bool with_z = kMode != UNR_FORWARD && act_needs_z(m.activation);
+  const bool with_z = act_needs_z(m.activation);
   const int d_in = m.dims[L], d_o = m.dims[L + 1];
   const bool last = L == m.n_layers - 1;
   const float* in = L ? sm + so.h + unr_layer_row(m, L - 1) * FP + f : sm + so.cols + f;
@@ -1273,10 +1297,9 @@ __host__ __device__ inline void unr_mlp(const ModelArgs& m, const UnrIO& io, flo
   }
 }
 
-// unr_seed, thread (f, 0): by mode the output y (forward, cv+forces) and
-// the cotangent of the output over the output: the one-hot or all-ones
-// component (cv+forces), gy (backward) or 2 (y - y_target) inv_count with
-// the frame's loss term (train), zero on the ragged block's repeated frames.
+// unr_seed, thread (f, 0): the cotangent of the output over the output:
+// gy (backward) or 2 (y - y_target) inv_count with the frame's loss term
+// (train), zero on the ragged block's repeated frames.
 template <int kMode>
 __host__ __device__ inline void unr_seed(const ModelArgs& m, const UnrIO& io, float* sm,
                                          const UnrSmem& so, long long block, int f, int h) {
@@ -1289,15 +1312,12 @@ __host__ __device__ inline void unr_seed(const ModelArgs& m, const UnrIO& io, fl
   float* yo = sm + unr_dz_at(m, so, m.n_layers - 1, FP) + f;  // the output, then its cotangent
   float loss = 0.f;
   for (int j = 0; j < d_out; ++j) {
-    const float yj = yo[j * FP];
-    if (kMode == UNR_FORWARD || kMode == UNR_FORCES) {
-      if (live) io.y[io.out_t ? (long long)j * io.l + fr : fr * d_out + j] = yj;
-      if (kMode == UNR_FORCES)
-        yo[j * FP] = (io.component < 0 || j == io.component) ? 1.0f : 0.0f;
-    } else if (kMode == UNR_BACKWARD) {
+    if (kMode == UNR_BACKWARD) {
       yo[j * FP] = live ? io.aux[fr * d_out + j] : 0.f;
     } else {
-      const float e = live ? yj - io.aux[io.in_t ? (long long)j * io.l + fr : fr * d_out + j] : 0.f;
+      const float e = live ? yo[j * FP] -
+                                 io.aux[io.in_t ? (long long)j * io.l + fr : fr * d_out + j]
+                           : 0.f;
       loss += e * e;
       yo[j * FP] = 2.0f * e * io.inv_count;
     }
@@ -1588,8 +1608,8 @@ __host__ __device__ inline void unr_finish(const ModelArgs& m, const UnrIO& io, 
 // of shared memory (each block reserves 1 KB), or else the largest tile that
 // fits alone (227 KB); 0 when none does. A frame's state is some 0.5-1 KB,
 // so shared memory sets how many blocks share an SM. On alanine on an H100
-// 64 frames were the fastest tile for K2, K3 and K4 (K2 0.127 ms against
-// 0.135 at 128 frames and 0.147 at 32) and within 7% of it for K1; the tile
+// 64 frames were the fastest tile for K2 and K3 (K2 0.127 ms against
+// 0.135 at 128 frames and 0.147 at 32); the tile
 // that kept the most frames resident was not (with one thread a frame, K2
 // 0.178 ms at 32 frames, 9 blocks an SM, against 0.146 at 128).
 __host__ __device__ inline int unr_choose_frames(const ModelArgs& m, int mode, bool gx,
@@ -1616,3 +1636,508 @@ inline cudaError_t unr_launch(Kernel kernel, const ModelArgs& m, const UnrIO& io
   return cudaGetLastError();
 }
 #endif
+
+// ---------------------------------------------------------------------------
+// The warp tiles of the forward and cv+forces kernels (K1, K4)
+//
+// A warp takes 32 frames, one thread a frame, and walks its tiles on its
+// own: no step waits for another warp, and only the staging and the
+// gradient store exchange values between the warp's threads (__syncwarp).
+// A frame's state is the thread's own and contiguous: `pitch` floats (odd,
+// so that the 32 threads reading the same offset of their frames hit 32
+// banks) at ws + lane * pitch, laid out by uw_layout:
+//   xs   [3 n_slots]     the coordinates of the atoms some feature or the
+//                        alignment reads (ModelArgs.n_slots);
+//   cols [n_feat]        the feature columns in final order; with forces,
+//                        once the first layer has read them, gx [3 n_slots]
+//                        in their place;
+//   hid  [hidden widths] each hidden layer's output (post-activation), then
+//                        in place its cotangent;
+//   z    [hidden widths] the pre-activations, where the adjoint runs through
+//                        gelu or swish.
+// The last layer's outputs go from registers to y. The output's cotangent
+// is the one-hot or all-ones seed, a constant, and a feature column's
+// cotangent W0^T dz0 is formed where its adjoint reads it, so that neither
+// is a row. QCP's rotation and Newton result stay in the thread's registers
+// from the forward to the adjoint. The steps, in the kernel's order:
+//   uw_load       the tile's frames into xs;
+//   uw_feat       the feature columns, the alignment's on registers;
+//   uw_mlp        the head, hidden outputs into hid, the last into y;
+//   uw_bwd        the hidden layers' cotangents from the seed;
+//   uw_adj_feat   gx zeroed, the angles', bonds', dihedrals' and
+//                 coordination features' adjoints into it;
+//   uw_adj_align  the positions' and the alignment's (QCP's reverse pass);
+//   uw_store      the tile's gx out, 0 for the atoms nothing reads.
+// Each step is a function of the thread's frame or of (tile, lane): the
+// kernels run it per warp, the host test in loops over the lanes.
+// ---------------------------------------------------------------------------
+
+#define MOLANN_UW_FRAMES 32
+#define MOLANN_UW_MAX_WARPS 16  // warps a block of K1 or K4 may take
+#define MOLANN_UW_SMEM (227 * 1024)  // shared memory a block of K1 or K4 may take
+// Columns a lane stages and stores of a [l, 3n] frame: 3 * MOLANN_MAX_ATOMS
+// over the 32 lanes.
+#define MOLANN_UW_LANE_COLS ((3 * MOLANN_MAX_ATOMS + MOLANN_UW_FRAMES - 1) / MOLANN_UW_FRAMES)
+
+#ifdef __CUDA_ARCH__
+#define MOLANN_LDG(p) __ldg(p)
+#else
+#define MOLANN_LDG(p) (*(p))
+#endif
+
+struct UwLayout { int xs, cols, hid, z, pitch; };
+
+// Floats of the hidden layers' outputs (every layer but the last).
+__host__ __device__ inline int uw_hidden(const ModelArgs& m) {
+  int h = 0;
+  for (int L = 0; L + 1 < m.n_layers; ++L) h += m.dims[L + 1];
+  return h;
+}
+
+__host__ __device__ inline UwLayout uw_layout(const ModelArgs& m, bool forces) {
+  const int s3 = 3 * m.n_slots, hid = uw_hidden(m);
+  UwLayout o;
+  o.xs = 0;
+  o.cols = s3;
+  o.hid = s3 + (forces && s3 > m.n_feat ? s3 : m.n_feat);
+  o.z = o.hid + hid;
+  o.pitch = (o.z + (forces && act_needs_z(m.activation) ? hid : 0)) | 1;
+  return o;
+}
+
+// A float of the frames from, and one of the output to, global memory
+// without a line in L1: the 28 KB of L1 that a block's 228 KB of shared
+// memory leave keep the weights and index tables (stores that allocate
+// there cost K4 40% on [l, n, 3] and the bench op 12%; [3n, l] frames
+// staged by cp.async.ca cost the bench op 17%: probes/unrolled_probe.py
+// alternatives).
+__host__ __device__ __forceinline__ float uw_get(const float* p) {
+#ifdef __CUDA_ARCH__
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+#else
+  return *p;
+#endif
+}
+__host__ __device__ __forceinline__ void uw_put(float* p, float v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.global.L1::no_allocate.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
+#else
+  *p = v;
+#endif
+}
+
+// One float from global to shared memory, asynchronously on the card (the
+// kernel waits for all of a thread's copies, then for the warp).
+__host__ __device__ __forceinline__ void uw_copy(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__host__ __device__ __forceinline__ void uw_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+#endif
+}
+
+// An entry of an index table, read where the step runs: a volatile load,
+// so that the compiler does not keep a lane's entries in registers across
+// the whole tile loop (they made K4 spill).
+__host__ __device__ __forceinline__ int uw_entry(const int* p) {
+#ifdef __CUDA_ARCH__
+  int v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+#else
+  return *p;
+#endif
+}
+
+// Tile `tile`'s frames into the xs of the warp's frames (ws: the warp's
+// state), lane `lane` of 32; past the end of the frames the tile's last
+// frame is repeated, so that all math stays finite. [3n, l]: a lane loads
+// its own frame, a row a load, 18 loads in flight and none allocating in
+// L1; [l, 3n]: frame by frame, each lane the slot columns lane, lane + 32,
+// ... of it (their input columns held in registers), so that a frame's
+// columns are read side by side, by asynchronous copies.
+__host__ __device__ inline void uw_load(const ModelArgs& m, const UnrIO& io, float* ws,
+                                        const UwLayout& o, long long tile, int lane) {
+  const long long f0 = tile * MOLANN_UW_FRAMES;
+  const int nf = io.l - f0 < MOLANN_UW_FRAMES ? (int)(io.l - f0) : MOLANN_UW_FRAMES;
+  const int s3 = 3 * m.n_slots, n3 = 3 * m.n_atoms;
+  if (io.in_t) {
+    const float* src = io.x + f0 + (lane < nf ? lane : nf - 1);
+    float* dst = ws + lane * o.pitch + o.xs;
+#pragma unroll 18
+    for (int q = 0; q < s3; ++q) dst[q] = uw_get(src + (long long)m.slot_col[q] * io.l);
+    return;
+  }
+  int col[MOLANN_UW_LANE_COLS];
+#pragma unroll
+  for (int k = 0; k < MOLANN_UW_LANE_COLS; ++k) {
+    const int q = lane + MOLANN_UW_FRAMES * k;
+    col[k] = q < s3 ? uw_entry(m.slot_col + q) : -1;
+  }
+  const float* src = io.x + f0 * n3;
+  float* dst = ws + o.xs + lane;
+#pragma unroll 2
+  for (int f = 0; f < MOLANN_UW_FRAMES; ++f) {
+    const float* sf = src + (long long)(f < nf ? f : nf - 1) * n3;
+#pragma unroll
+    for (int k = 0; k < MOLANN_UW_LANE_COLS; ++k)
+      if (col[k] >= 0) uw_copy(dst + f * o.pitch + MOLANN_UW_FRAMES * k, sf + col[k]);
+  }
+}
+
+// A coordination feature and its adjoint, out of line: models without one
+// (alanine) keep them out of the kernels' instruction stream (static: each
+// object file its own copy, as every variant of a .cu includes this file).
+static __host__ __device__ __noinline__ float uw_coord_fwd(const ModelArgs& m, const float* xs, int k) {
+  const int p0 = m.coord_start[k];
+  return coordination_fwd(m.coord_pairs + 2 * p0, m.coord_start[k + 1] - p0,
+                          coord_load(m.coord_par + k * MOLANN_COORD_FLOATS), xs, 1);
+}
+static __host__ __device__ __noinline__ void uw_coord_bwd(const ModelArgs& m, const float* xs, int k,
+                                                   float g, float* gx) {
+  const int p0 = m.coord_start[k];
+  coordination_bwd(m.coord_pairs + 2 * p0, m.coord_start[k + 1] - p0,
+                   coord_load(m.coord_par + k * MOLANN_COORD_FLOATS), xs, 1, g, gx);
+}
+
+// What the alignment leaves in the thread's registers for the adjoint.
+struct UwAlign { float R[3][3], lam0; int best; };
+
+// The feature columns of the thread's frame (st: its state), the square
+// roots and quotients on the special-function units with a Newton step, as
+// the blocked kernels form them; with alignment R and QCP's Newton result
+// into `al`.
+__host__ __device__ inline void uw_feat(const ModelArgs& m, float* st, const UwLayout& o,
+                                        UwAlign& al) {
+  const float* xs = st + o.xs;
+  float* cols = st + o.cols;
+  const int loc4[4] = {0, 1, 2, 3};
+  float loc[12];
+  int row = 0;
+  for (int i = 0; i < m.n_angles; ++i) {
+    unr_atoms(xs, 1, m.angle_idx + 3 * i, 3, loc);
+    cols[m.col_of[row++]] = angle_fwd<true>(loc, loc4, m.use_angle_value);
+  }
+  for (int i = 0; i < m.n_bonds; ++i) {
+    unr_atoms(xs, 1, m.bond_idx + 2 * i, 2, loc);
+    cols[m.col_of[row++]] = bond_fwd<true>(loc, loc4);
+  }
+  for (int i = 0; i < m.n_dihedrals; ++i) {
+    unr_atoms(xs, 1, m.dihedral_idx + 4 * i, 4, loc);
+    float out[2];
+    dihedral_fwd<true>(loc, loc4, m.use_angle_value, out);
+    cols[m.col_of[row++]] = out[0];
+    if (!m.use_angle_value) cols[m.col_of[row++]] = out[1];
+  }
+  for (int k = 0; k < m.n_coord; ++k) cols[m.col_of[row++]] = uw_coord_fwd(m, xs, k);
+  const bool aligned = needs_alignment(m);
+  float c[3] = {0.f, 0.f, 0.f};
+  if (aligned) {
+    float H[3][3];
+    unr_covariance(m, xs, 1, c, H);
+    qcp_rotation<float, true>(H, al.R, &al.lam0, &al.best);
+  }
+#pragma unroll 2
+  for (int p = 0; p < m.n_pos; ++p) {
+    const float* xa = xs + 3 * m.pos_idx[p];
+    const float u[3] = {xa[0] - c[0], xa[1] - c[1], xa[2] - c[2]};
+    for (int i = 0; i < 3; ++i)
+      cols[m.col_of[row++]] =
+          aligned ? u[0] * al.R[0][i] + u[1] * al.R[1][i] + u[2] * al.R[2][i] : xa[i];
+  }
+}
+
+// The seed of the output's cotangent: 1 for the component differentiated
+// (every one where io.component < 0), else 0.
+__host__ __device__ __forceinline__ float uw_seed(const UnrIO& io, int j) {
+  return (io.component < 0 || j == io.component) ? 1.0f : 0.0f;
+}
+
+// kG outputs j0.. of a dense layer on the thread's inputs `in` (rows past
+// d_o repeat the last row; their sums are not used).
+template <int kG>
+__host__ __device__ __forceinline__ void uw_dense(const float* in, int d_in, const float* W,
+                                                  const float* b, int j0, int d_o, float* a) {
+  const float* w[kG];
+#pragma unroll
+  for (int u = 0; u < kG; ++u) {
+    const int j = j0 + u < d_o ? j0 + u : d_o - 1;
+    w[u] = W + j * d_in;
+    a[u] = MOLANN_LDG(b + j);
+  }
+#pragma unroll 4
+  for (int k = 0; k < d_in; ++k) {
+    const float v = in[k];
+#pragma unroll
+    for (int u = 0; u < kG; ++u) a[u] += MOLANN_LDG(w[u] + k) * v;
+  }
+}
+
+// The head on the thread's frame fr, its output to y: a layer reads its
+// input once for up to eight outputs (a group of exactly as many as are
+// left, so that no weight row is read twice) and writes their sums (the last
+// layer's to y, where the frame is one of the tile's), then the activation
+// runs over a hidden layer's sums in place, one call site for the whole
+// head (each inlined copy of act_fwd's nine forms costs instruction cache);
+// with with_z the pre-activations are kept in z.
+__host__ __device__ inline void uw_mlp(const ModelArgs& m, const UnrIO& io, float* st,
+                                       const UwLayout& o, long long fr, bool with_z) {
+  const float* in = st + o.cols;
+  if (!m.n_layers) {
+    if (fr < io.l)
+      for (int j = 0; j < m.n_feat; ++j)
+        uw_put(io.y + (io.out_t ? (long long)j * io.l + fr : fr * m.n_feat + j), in[j]);
+    return;
+  }
+  int row = 0;
+  for (int L = 0; L < m.n_layers; ++L) {
+    const int d_in = m.dims[L], d_o = m.dims[L + 1];
+    const bool last = L == m.n_layers - 1;
+    float* out = last ? nullptr : st + o.hid + row;
+    for (int j0 = 0; j0 < d_o; j0 += 8) {
+      float a[8];
+      switch (d_o - j0 < 8 ? d_o - j0 : 8) {  // a group of exactly its outputs
+        case 1: uw_dense<1>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 2: uw_dense<2>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 3: uw_dense<3>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 4: uw_dense<4>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 5: uw_dense<5>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 6: uw_dense<6>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        case 7: uw_dense<7>(in, d_in, m.w[L], m.b[L], j0, d_o, a); break;
+        default: uw_dense<8>(in, d_in, m.w[L], m.b[L], j0, d_o, a);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = j0 + u;
+        if (j >= d_o) break;
+        if (!last) out[j] = a[u];
+        else if (fr < io.l) uw_put(io.y + (io.out_t ? (long long)j * io.l + fr : fr * d_o + j), a[u]);
+      }
+    }
+    if (last) break;
+#pragma unroll 1
+    for (int j = 0; j < d_o; ++j) {
+      const float z = out[j];
+      if (with_z) st[o.z + row + j] = z;
+      out[j] = act_fwd(m.activation, z);
+    }
+    in = out;
+    row += d_o;
+  }
+}
+
+// The hidden layers' cotangents, each in place of that layer's output, from
+// the seed back to the first hidden layer, an input at a time (one call
+// site of act_grad), the seed's zero entries skipped.
+__host__ __device__ inline void uw_bwd(const ModelArgs& m, const UnrIO& io, float* st,
+                                       const UwLayout& o) {
+  const bool with_z = act_needs_z(m.activation);
+  int r_out = uw_hidden(m);  // layer L's output rows (the last layer has none)
+  for (int L = m.n_layers - 1; L > 0; --L) {
+    const int d_in = m.dims[L], d_o = m.dims[L + 1], r_in = r_out - d_in;
+    const bool last = L == m.n_layers - 1;
+    const float* g = st + o.hid + r_out;
+    float* hi = st + o.hid + r_in;
+    const float* zi = st + o.z + r_in;
+    const float* W = m.w[L];
+#pragma unroll 1
+    for (int k = 0; k < d_in; ++k) {
+      float a = 0.f;
+      for (int j = 0; j < d_o; ++j) {
+        if (last && io.component >= 0 && j != io.component) continue;
+        a += MOLANN_LDG(W + j * d_in + k) * (last ? 1.0f : g[j]);
+      }
+      hi[k] = a * act_grad(m.activation, hi[k], with_z ? zi[k] : 0.f);
+    }
+    r_out = r_in;
+  }
+}
+
+// The first hidden layer's cotangent dz0 where the adjoint reads it: in
+// registers too where that layer is at most eight wide.
+struct UwDz { float v[8]; const float* rows; };
+
+__host__ __device__ __forceinline__ UwDz uw_dz(const ModelArgs& m, const float* st,
+                                               const UwLayout& o) {
+  UwDz d;
+  d.rows = st + o.hid;
+  const int w = m.n_layers > 1 ? m.dims[1] : 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) d.v[u] = u < w ? d.rows[u] : 0.f;
+  return d;
+}
+
+// The cotangent of feature column c: W0^T dz0, or for a single layer W0^T
+// times the seed; without a head the seed itself.
+__host__ __device__ __forceinline__ float uw_dcol(const ModelArgs& m, const UnrIO& io,
+                                                  const UwDz& dz, int c) {
+  if (!m.n_layers) return uw_seed(io, c);
+  const int d_in = m.dims[0], d_o = m.dims[1];
+  const float* w = m.w[0] + c;
+  float a = 0.f;
+  if (m.n_layers == 1) {
+    for (int j = 0; j < d_o; ++j)
+      if (io.component < 0 || j == io.component) a += MOLANN_LDG(w + j * d_in);
+    return a;
+  }
+  if (d_o <= 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < d_o) a += MOLANN_LDG(w + j * d_in) * dz.v[j];
+    return a;
+  }
+  for (int j = 0; j < d_o; ++j) a += MOLANN_LDG(w + j * d_in) * dz.rows[j];
+  return a;
+}
+
+// gx zeroed over the columns the head has read, then every angle's,
+// bond's, dihedral's and coordination feature's adjoint added into it.
+__host__ __device__ inline void uw_adj_feat(const ModelArgs& m, const UnrIO& io, float* st,
+                                            const UwLayout& o) {
+  const float* xs = st + o.xs;
+  const UwDz dz0 = uw_dz(m, st, o);
+  float* gx = st + o.cols;
+#pragma unroll 8
+  for (int q = 0; q < 3 * m.n_slots; ++q) gx[q] = 0.f;
+  const int loc4[4] = {0, 1, 2, 3};
+  float loc[12], ga[12];
+  int row = 0;
+  for (int i = 0; i < m.n_angles; ++i) {
+    const int* idx = m.angle_idx + 3 * i;
+    unr_atoms(xs, 1, idx, 3, loc);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) ga[q] = 0.f;
+    angle_bwd<true>(loc, loc4, m.use_angle_value, uw_dcol(m, io, dz0, m.col_of[row++]), ga);
+    unr_scatter(gx, 1, idx, 3, ga);
+  }
+  for (int i = 0; i < m.n_bonds; ++i) {
+    const int* idx = m.bond_idx + 2 * i;
+    unr_atoms(xs, 1, idx, 2, loc);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) ga[q] = 0.f;
+    bond_bwd<true>(loc, loc4, uw_dcol(m, io, dz0, m.col_of[row++]), ga);
+    unr_scatter(gx, 1, idx, 2, ga);
+  }
+  for (int i = 0; i < m.n_dihedrals; ++i) {
+    const int* idx = m.dihedral_idx + 4 * i;
+    unr_atoms(xs, 1, idx, 4, loc);
+#pragma unroll
+    for (int q = 0; q < 12; ++q) ga[q] = 0.f;
+    float g[2];
+    g[0] = uw_dcol(m, io, dz0, m.col_of[row++]);
+    g[1] = m.use_angle_value ? 0.f : uw_dcol(m, io, dz0, m.col_of[row++]);
+    dihedral_bwd<true>(loc, loc4, m.use_angle_value, g, ga);
+    unr_scatter(gx, 1, idx, 4, ga);
+  }
+  for (int k = 0; k < m.n_coord; ++k)
+    uw_coord_bwd(m, xs, k, uw_dcol(m, io, dz0, m.col_of[row++]), gx);
+}
+
+// The position columns' adjoint into gx: straight, or where the model
+// aligns through R (the forward's, in `al`) into x and the centroid, gR =
+// sum_p (x_p - c) g_p^T, QCP back through its reverse pass to gH, through H
+// into the align atoms and the centroid, and the centroid's share to the
+// align atoms.
+__host__ __device__ inline void uw_adj_align(const ModelArgs& m, const UnrIO& io, float* st,
+                                             const UwLayout& o, const UwAlign& al) {
+  const float* xs = st + o.xs;
+  const UwDz dz0 = uw_dz(m, st, o);
+  float* gx = st + o.cols;
+  int row = m.n_angles + m.n_bonds + m.n_dihedrals * (m.use_angle_value ? 1 : 2) + m.n_coord;
+  if (!needs_alignment(m)) {
+    for (int p = 0; p < m.n_pos; ++p)
+      for (int i = 0; i < 3; ++i) gx[3 * m.pos_idx[p] + i] += uw_dcol(m, io, dz0, m.col_of[row++]);
+    return;
+  }
+  float c[3], H[3][3];
+  unr_covariance(m, xs, 1, c, H);
+  float gR[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  float gc[3] = {0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int p = 0; p < m.n_pos; ++p) {
+    float* ga = gx + 3 * m.pos_idx[p];
+    const float* xa = xs + 3 * m.pos_idx[p];
+    const float v[3] = {xa[0] - c[0], xa[1] - c[1], xa[2] - c[2]};
+    float g[3];
+    for (int i = 0; i < 3; ++i) g[i] = uw_dcol(m, io, dz0, m.col_of[row++]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) gR[j][i] += v[j] * g[i];
+      const float gv = al.R[j][0] * g[0] + al.R[j][1] * g[1] + al.R[j][2] * g[2];
+      ga[j] += gv;
+      gc[j] -= gv;
+    }
+  }
+  float R[3][3], gH[3][3];
+  qcp_rotation_vjp<true>(H, gR, al.lam0, R, gH, al.best);
+  for (int n = 0; n < m.n_align; ++n) {
+    float* ga = gx + 3 * m.align_idx[n];
+    const float* r = m.ref_x + 3 * n;
+    const float r0 = MOLANN_LDG(r), r1 = MOLANN_LDG(r + 1), r2 = MOLANN_LDG(r + 2);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float t = gH[i][0] * r0 + gH[i][1] * r1 + gH[i][2] * r2;
+      ga[i] += t;
+      gc[i] -= t;
+    }
+  }
+  const float inv_n = 1.0f / (float)m.n_align;
+  for (int n = 0; n < m.n_align; ++n)
+    for (int i = 0; i < 3; ++i) gx[3 * m.align_idx[n] + i] += gc[i] * inv_n;
+}
+
+// The tile's gradient out of its frames' gx to every input column (0 for
+// the atoms nothing reads), its true frames only, lane `lane` of 32.
+// [3n, l]: a lane stores its own frame, a row a store; [l, 3n]: frame by
+// frame, each lane the columns lane, lane + 32, ... (their slot columns
+// held in registers).
+__host__ __device__ inline void uw_store(const ModelArgs& m, const UnrIO& io, const float* ws,
+                                         const UwLayout& o, long long tile, int lane) {
+  const long long f0 = tile * MOLANN_UW_FRAMES;
+  const int nf = io.l - f0 < MOLANN_UW_FRAMES ? (int)(io.l - f0) : MOLANN_UW_FRAMES;
+  const int n3 = 3 * m.n_atoms;
+  if (io.out_t) {
+    if (lane >= nf) return;
+    const float* gx = ws + lane * o.pitch + o.cols;
+    float* dst = io.gx + f0 + lane;
+#pragma unroll 6
+    for (int col = 0; col < n3; ++col) {
+      const int q = m.col_slot[col];
+      uw_put(dst + (long long)col * io.l, q >= 0 ? gx[q] : 0.f);
+    }
+    return;
+  }
+  int q[MOLANN_UW_LANE_COLS];
+#pragma unroll
+  for (int k = 0; k < MOLANN_UW_LANE_COLS; ++k) {
+    const int c = lane + MOLANN_UW_FRAMES * k;
+    q[k] = c < n3 ? uw_entry(m.col_slot + c) : -2;
+  }
+  float* dst = io.gx + f0 * n3 + lane;
+  const float* gx = ws + o.cols;
+#pragma unroll 2
+  for (int f = 0; f < nf; ++f)
+#pragma unroll
+    for (int k = 0; k < MOLANN_UW_LANE_COLS; ++k)
+      if (q[k] > -2)
+        uw_put(dst + (long long)f * n3 + MOLANN_UW_FRAMES * k,
+               q[k] >= 0 ? gx[f * o.pitch + q[k]] : 0.f);
+}
+
+// 32 frames a tile while a warp's state fits a block (227 KB), else 0.
+__host__ __device__ inline int uw_frames(const ModelArgs& m, bool forces) {
+  return MOLANN_UW_FRAMES * uw_layout(m, forces).pitch * (int)sizeof(float) <= MOLANN_UW_SMEM
+             ? MOLANN_UW_FRAMES
+             : 0;
+}

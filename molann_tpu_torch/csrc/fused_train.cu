@@ -111,9 +111,11 @@ int molann_grads_frames(const ModelArgs* m, int train, int gx, int ref) {
 // part zero unless io->want_ref). K3 (train = 1): x and y_target in either
 // layout (io->in_t) -> out[0] = sum (y - t)^2 * inv_count, then the
 // gradients of that loss. io->partials is scratch of ceil(l / io->frames)
-// rows.
+// rows. m must be the atom form of the model's tables (slot_col unset): the
+// slot form gives cudaErrorInvalidValue.
 int molann_fused_grads(const ModelArgs* m, const UnrIO* io, int train, float* out,
                        int device, void* stream) {
+  if (m->slot_col) return (int)cudaErrorInvalidValue;
   if (io->l <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -76,9 +76,9 @@ def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.molann_caps.argtypes = [vp]
     lib.molann_caps.restype = i32
-    lib.molann_fused_frames.argtypes = [vp, i32]
-    lib.molann_fused_frames.restype = i32
-    lib.molann_fused_forward.argtypes = [vp, vp, i32, i32, vp]
+    lib.molann_fused_grid.argtypes = [vp, i32, i32, vp]
+    lib.molann_fused_grid.restype = i32
+    lib.molann_fused_forward.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.molann_fused_forward.restype = i32
     lib.molann_grads_frames.argtypes = [vp, i32, i32, i32]
     lib.molann_grads_frames.restype = i32

@@ -395,6 +395,9 @@ class ModelArgs(ctypes.Structure):
         ("ref_x", ctypes.c_void_p),
         ("w", ctypes.c_void_p * KERNEL_MAX_LAYERS),
         ("b", ctypes.c_void_p * KERNEL_MAX_LAYERS),
+        ("n_slots", ctypes.c_int),
+        ("slot_col", ctypes.c_void_p),
+        ("col_slot", ctypes.c_void_p),
     ]
 
 
@@ -420,6 +423,11 @@ class UnrIO(ctypes.Structure):
 
 _TABLES = ("angle_idx", "bond_idx", "dihedral_idx", "pos_idx", "align_idx",
            "col_of", "coord_start", "coord_pairs")
+# The kernels that take the slot form of the tables (K1, K4).
+_SLOT_KERNELS = ("forward", "cv_forces")
+# The tables that number atoms, renumbered by slot for those kernels.
+_ATOM_TABLES = ("angle_idx", "bond_idx", "dihedral_idx", "pos_idx",
+                "align_idx", "coord_pairs")
 
 
 def coord_parameters(spec):
@@ -451,7 +459,12 @@ class _Statics:
     once: the index tables and coordination parameters on the device, a
     :class:`ModelArgs` holding them and the model's sizes (the weight and
     ``ref_x`` pointers are filled per call, as the values change every
-    optimizer step), and each kernel's frames a block."""
+    optimizer step), each kernel's frames a block and K1's and K4's grids.
+    K1 and K4 take a second :class:`ModelArgs` (``slot_args``) whose tables
+    number only the atoms some feature or the alignment reads, by slot,
+    with the tables between slot columns and input columns; the other
+    kernels take ``args``, in atom numbers, and each refuses the other
+    form."""
 
     def __init__(self, spec, align_idx, activation, dims, device):
         self.spec = spec  # keeps id(spec), the cache key, in use
@@ -460,6 +473,7 @@ class _Statics:
             o * (i + 1) for i, o in zip(dims, dims[1:]))
         self.d_out = dims[-1]
         self.tiles = {}
+        self.grids = {}
         col_of = list(range(spec.out_dim))
         for k, row in enumerate(spec.perm or ()):
             col_of[row] = k  # column k holds type-grouped row perm[k]
@@ -476,10 +490,20 @@ class _Statics:
             "coord_start": starts,
             "coord_pairs": [i for p in spec.coord_pairs for i in p],
         }
+        n = spec.n_input_atoms
+        slot_atom = sorted({i for name in _ATOM_TABLES for i in tables[name]})
+        slot_of = {a: k for k, a in enumerate(slot_atom)}
+        slotted = {name: ([slot_of[i] for i in tables[name]]
+                          if name in _ATOM_TABLES else tables[name])
+                   for name in _TABLES}
+        slotted["slot_col"] = [3 * a + c for a in slot_atom for c in range(3)]
+        slotted["col_slot"] = [3 * slot_of[a] + c if a in slot_of else -1
+                               for a in range(n) for c in range(3)]
         flat, offsets = [], {}
-        for name in _TABLES:
-            offsets[name] = len(flat)
-            flat.extend(tables[name])
+        for form, tabs in (("atoms", tables), ("slots", slotted)):
+            for name, values in tabs.items():
+                offsets[form, name] = len(flat)
+                flat.extend(values)
         ints = torch.tensor(flat + [0], dtype=torch.int32, device=device)
         par = torch.from_numpy(np.concatenate(
             [coord_parameters(spec).reshape(-1), np.zeros(1, np.float32)])
@@ -497,35 +521,55 @@ class _Statics:
         a.activation = KERNEL_ACTIVATIONS[activation]
         for i, d in enumerate(dims):
             a.dims[i] = d
-        base = ints.data_ptr()
-        for name in _TABLES:
-            setattr(a, name, base + 4 * offsets[name])
         a.coord_par = par.data_ptr()
+        self.slot_args = ModelArgs.from_buffer_copy(a)
+        self.slot_args.n_slots = len(slot_atom)
+        base = ints.data_ptr()
+        for (form, name), off in offsets.items():
+            args = a if form == "atoms" else self.slot_args
+            setattr(args, name, base + 4 * off)
 
     def frames(self, lib, kind, ref=False):
-        """Frames a block of kernel ``kind`` (``forward``, ``cv_forces``,
-        ``backward``, ``backward_nogx``, ``train``; ``ref``: with the
-        ``ref_x`` gradient) takes, asked of the library once."""
+        """Frames a block of kernel ``kind`` (``backward``,
+        ``backward_nogx``, ``train``; ``ref``: with the ``ref_x`` gradient)
+        takes, asked of the library once."""
         t = self.tiles.get((kind, ref))
         if t is None:
-            args = ctypes.addressof(self.args)
-            if kind in ("forward", "cv_forces"):
-                t = lib.molann_fused_frames(args, int(kind == "cv_forces"))
-            else:
-                t = lib.molann_grads_frames(args, int(kind == "train"),
-                                            int(kind == "backward"), int(ref))
+            t = lib.molann_grads_frames(ctypes.addressof(self.args),
+                                        int(kind == "train"),
+                                        int(kind == "backward"), int(ref))
             if t <= 0:
                 raise RuntimeError(f"no tile of the {kind} kernel fits this "
                                    f"model's state in shared memory ({t})")
             self.tiles[kind, ref] = t
         return t
 
-    def model_args(self, ref_x, params, device):
-        """``(ModelArgs, keepalive)`` of one call: a copy of the static part
-        with the pointers of ``ref_x`` and of each ``W``, ``b``; tensors
-        that are not float32 and contiguous are converted into
-        ``keepalive``."""
-        a = ModelArgs.from_buffer_copy(self.args)
+    def grid(self, lib, kind, device):
+        """``(warps a block, blocks an SM, SMs)`` of K1 (``forward``) or K4
+        (``cv_forces``) on ``device``, asked of the library once (which
+        also sets the kernel's shared memory limit there)."""
+        g = self.grids.get(kind)
+        if g is None:
+            got = (ctypes.c_int * 3)()
+            rc = lib.molann_fused_grid(ctypes.addressof(self.slot_args),
+                                       int(kind == "cv_forces"),
+                                       device.index, got)
+            if rc != 0:
+                raise RuntimeError(
+                    f"no grid of the {kind} kernel for this model: a warp's "
+                    "state does not fit a block's shared memory" if rc == 9
+                    else f"{kind} kernel grid query failed: cudaError {rc}")
+            g = self.grids[kind] = tuple(got)
+        return g
+
+    def model_args(self, kernel, ref_x, params, device):
+        """``(ModelArgs, keepalive)`` of one call of ``kernel``: a copy of
+        the static part in the form that kernel takes (slots for
+        ``forward`` and ``cv_forces``, atoms for the others) with the
+        pointers of ``ref_x`` and of each ``W``, ``b``; tensors that are not
+        float32 and contiguous are converted into ``keepalive``."""
+        a = ModelArgs.from_buffer_copy(
+            self.slot_args if kernel in _SLOT_KERNELS else self.args)
         keep = []
         if self.n_align:
             a.ref_x = _f32_pointer(ref_x, device, keep)
@@ -563,13 +607,14 @@ def _statics(spec, align_idx, activation, params, device):
     return st
 
 
-def model_args(spec, align_idx, ref_x, params, activation, device):
-    """``(ModelArgs, keepalive)`` for the kernels on ``device``: pointers
-    into the cached index tables and to the model's own ``ref_x`` and
-    weights."""
+def model_args(spec, align_idx, ref_x, params, activation, device, kernel):
+    """``(ModelArgs, keepalive)`` for ``kernel`` (``forward``,
+    ``cv_forces``, ``backward`` or ``train``) on ``device``: pointers into
+    the cached index tables, in the form that kernel takes, and to the
+    model's own ``ref_x`` and weights."""
     device = torch.device(device)
     st = _statics(spec, align_idx, activation, params, device)
-    args, keep = st.model_args(ref_x, params, device)
+    args, keep = st.model_args(kernel, ref_x, params, device)
     return args, (st, keep)
 
 
@@ -622,15 +667,14 @@ def _launch(kind, spec, align_idx, ref_x, params, activation, xm, l, in_t,
                          device=dev)
     if l == 0:
         return y, gx
-    args, keep = st.model_args(ref_x, params, dev)
+    warps, per_sm, sms = st.grid(lib, kind, dev)
+    args, keep = st.model_args(kind, ref_x, params, dev)
     io = UnrIO(x=xm.data_ptr(), y=y.data_ptr(),
                gx=gx.data_ptr() if forces else None, l=l, in_t=in_t,
                out_t=out_t, component=-1 if component is None else component)
-    io.frames = st.frames(lib, kind)
-    io.pitch = io.frames + 1
     rc = lib.molann_fused_forward(
-        ctypes.addressof(args), ctypes.addressof(io), int(forces), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.addressof(args), ctypes.addressof(io), int(forces), warps,
+        per_sm * sms, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     del keep  # the caching allocator orders reuse on this stream
     if rc != 0:
         raise RuntimeError(f"CUDA {kind} kernel launch failed: cudaError {rc}")
@@ -666,7 +710,7 @@ def _launch_grads(kind, spec, align_idx, ref_x, params, activation, xm, l,
     # out first, then the kernel's rows of partials, in one allocation
     buf = torch.empty((1 + -(-l // frames)) * width, dtype=torch.float32,
                       device=dev)
-    args, keep = st.model_args(ref_x, params, dev)
+    args, keep = st.model_args(kind, ref_x, params, dev)
     io = UnrIO(x=xm.data_ptr(), gx=gx.data_ptr() if want_gx else None,
                aux=aux.data_ptr(), partials=buf.data_ptr() + 4 * width, l=l,
                in_t=in_t, want_ref=int(want_ref), inv_count=inv_count,

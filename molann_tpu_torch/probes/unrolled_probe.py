@@ -1,6 +1,6 @@
 """The unrolled kernels' times on the alanine model, on one CUDA card.
 
-    python molann_tpu_torch/probes/unrolled_probe.py [times|suspects] [tag]
+    python molann_tpu_torch/probes/unrolled_probe.py [times|phases|knockouts|alternatives|suspects|host|tiles] [tag]
 
 ``times`` (the default) prints one JSON line: the mean CUDA-event time of
 one call, after five warm-up calls, of the forward (K1), cv+forces (K4,
@@ -14,6 +14,45 @@ kind, the kernel's own time (``alone``) and the device's time a call
 launched). The event time less the device time is the host's share: the
 wrapper and autograd, where they outlast the kernel.
 
+With ``times`` also: the cv+forces kernel as the bench op runs it
+(``fused_cv_forces(model, x, tile=2048, transposed_input=True)``) and on
+``[l, n, 3]``, and the forward kernel, on 1,048,576 frames made on the card
+from a seeded generator (554 MB of frames and gradients, past the 50 MB
+L2): each alone by ``torch.profiler`` and by CUDA events, with frames/s and
+the share of the bound: the bytes a frame of ``frame_bytes`` (for the
+bench op 492: the 18 atoms alanine's features read, 216 B, then gx and y;
+on ``[l, n, 3]`` 540 for cv+forces, 276 for the forward) over 3.35 TB/s.
+
+``phases`` builds ``csrc/fused_unrolled.cu`` again with a clock read in
+lane 0 of every warp at each step of the forward and cv+forces kernels (a
+step is a line of the kernel that starts with a call of an ``unr_*``
+step; the read comes before that call, so that a step's cycles run from
+its start to the next step's, its barrier wait included) and adds the
+cycles to a counter of the step's name (the probe passes the counters in
+``UnrIO.partials``, which those two kernels do not use). Prints each
+step's share of the warps' cycles times the kernel's time with the clock
+reads, for K4 (both layouts) and K1, one 65,536-frame batch; and the
+warps of each kernel an SM holds and the warps a block
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the instrumented
+build) beside the registers and stack of the package's own build
+(``-Xptxas -v``, from its build log where this process built it).
+
+``knockouts`` builds K1 and K4 again with one part taken out at a time
+(the gradient store, QCP's adjoint, the feature adjoints, the head's
+weight loads, QCP's forward; their results are wrong, so these builds only
+time the parts), and times each alone against the tree's build (first and
+last) on 65,536 frames and as the bench op on 1,048,576, and the tree's
+build on a grid of half the warps an SM: what a part costs, and whether
+the kernels are bound by latency (half the warps: slower in proportion)
+or by issue.
+
+``alternatives`` does the same with builds that take, in place of the
+tree's choice, what was tried and dropped (stores and ``[3n, l]`` staging
+that allocate L1 lines, ``[l, 3n]`` staging by loads, weights marked
+evict-last, 96 and 80 registers, QCP's adjugate column chosen at run
+time), with each build's registers and stack. A patch of either list
+whose text the tree no longer holds exactly once stops the probe.
+
 ``host`` times the host's work alone: the same calls on a batch of 256
 frames, whose kernels take a few microseconds, by the wall clock over 200
 calls and one synchronise; and ``cProfile``'s heaviest functions of the
@@ -22,7 +61,8 @@ backward and train calls.
 ``tiles`` times each kernel alone with every block taking 128, 64 and 32
 frames in turn (the tile the wrapper would choose is overridden); a tile
 the tree's kernels cannot launch (more threads than their launch bounds)
-is reported as such.
+is reported as such. K1 and K4 take warp tiles of 32 frames whatever is
+asked.
 
 ``suspects`` builds the unrolled sources of the current tree (K1-K4 only,
 ``csrc/fused_unrolled.cu`` and ``csrc/fused_train.cu``) again in variants
@@ -52,6 +92,7 @@ parent), with a tag to tell the lines apart.
 
 import ctypes
 import json
+import math
 import os
 import re
 import shutil
@@ -61,11 +102,14 @@ import tempfile
 import threading
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
 BATCH = 65536
+BIG = 1 << 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 ALANINE = {"MOLANN_MAX_ATOMS": 22, "MOLANN_MAX_COLS": 38, "MOLANN_MAX_WIDTH": 5}
 # Source patches that take the parameter sums out, by tree: the warp
 # shuffle tree of a sink (PR 5's fused_train.cu) or the block-product step
@@ -191,9 +235,112 @@ def timed(table, events=True):
     return out
 
 
+# A step of the forward and cv+forces kernels: a line of the kernel that
+# starts with the call of an unr_* step.
+STEP_LINE = re.compile(r"^([ \t]*)(?:unr|uw)_(\w+?)\s*(?:<[^;(]*>)?\(", re.MULTILINE)
+KERNEL_HEAD = re.compile(r"fused_unrolled_kernel\([^)]*\)\s*\{")
+PROBE_MARK = """
+#define PROBE_MARK(k) do { const long long probe_t1 = clock64(); \\
+  if ((threadIdx.x & 31) == 0 && probe_k >= 0) \\
+    atomicAdd((unsigned long long*)io.partials + probe_k, \\
+              (unsigned long long)(probe_t1 - probe_t0)); \\
+  probe_t0 = probe_t1; probe_k = (k); } while (0)
+"""
+def instrument(text):
+    """``(source, step names)``: ``fused_unrolled.cu`` with a clock read
+    before every step of its kernel, and at its end."""
+    head = KERNEL_HEAD.search(text)
+    if head is None:
+        raise SystemExit("fused_unrolled.cu no longer reads as the phases "
+                         "probe expects: no fused_unrolled_kernel body")
+    depth, end = 1, head.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(text[end], 0)
+        end += 1
+    body = text[head.end():end - 1]
+    names = []
+
+    def mark(match):
+        name = match.group(2)
+        if name not in names:
+            names.append(name)
+        return f"{match.group(1)}PROBE_MARK({names.index(name)});\n" \
+            + match.group(0)
+
+    body = STEP_LINE.sub(mark, body).replace(
+        "return;", "{ PROBE_MARK(-1); return; }")
+    if not names:
+        raise SystemExit("fused_unrolled.cu: no unr_* step in the kernel")
+    body = ("\n  long long probe_t0 = clock64();\n  int probe_k = -1;" + body
+            + "  PROBE_MARK(-1);\n")
+    out = text[:head.end()] + body + text[end - 1:]
+    out = out.replace('#include "frame_math.cuh"\n',
+                      '#include "frame_math.cuh"\n' + PROBE_MARK, 1)
+    return out, names
+
+
+# K1 and K4 built again with one part taken out (their results are then
+# wrong: these builds time the parts, nothing more): {kind: [(file, text,
+# replacement)]}.
+KNOCKOUTS = {
+    "no gradient store": [(
+        "fused_unrolled.cu", "    uw_store(m, io, ws, o, tile, lane);",
+        "    if (io.l < 0) uw_store(m, io, ws, o, tile, lane);")],
+    "no QCP adjoint": [(
+        "frame_math.cuh", "  qcp_rotation_vjp<true>(H, gR, al.lam0, R, gH, al.best);",
+        "  for (int i = 0; i < 9; ++i) gH[i / 3][i % 3] = gR[i / 3][i % 3] * al.lam0;")],
+    "no feature adjoints": [(
+        "fused_unrolled.cu", "    uw_adj_feat(m, io, st, o);",
+        "    if (io.l < 0) uw_adj_feat(m, io, st, o);")],
+    "no weight loads in the head": [(
+        "frame_math.cuh",
+        "    for (int u = 0; u < kG; ++u) a[u] += MOLANN_LDG(w[u] + k) * v;",
+        "    for (int u = 0; u < kG; ++u) a[u] += (float)(u + k) * v;")],
+    "no QCP forward": [(
+        "frame_math.cuh",
+        "    qcp_rotation<float, true>(H, al.R, &al.lam0, &al.best);",
+        "    for (int i = 0; i < 9; ++i) al.R[i / 3][i % 3] = H[i / 3][i % 3];\n"
+        "    al.lam0 = H[0][0];\n    al.best = 0;")],
+}
+
+
+# The choices K1 and K4 made against what was tried in their place, as
+# builds of the tree with the other choice: {kind: [(file, text, replacement)]}.
+ALTERNATIVES = {
+    "stores allocating in L1": [(
+        "frame_math.cuh",
+        '  asm volatile("st.global.L1::no_allocate.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");',
+        "  *p = v;")],
+    "[3n, l] frames by cp.async": [(
+        "frame_math.cuh",
+        "#pragma unroll 18\n    for (int q = 0; q < s3; ++q) dst[q] = uw_get(src + (long long)m.slot_col[q] * io.l);",
+        "#pragma unroll 6\n    for (int q = 0; q < s3; ++q) uw_copy(dst + q, src + (long long)m.slot_col[q] * io.l);")],
+    "[l, 3n] frames by loads without L1 lines": [(
+        "frame_math.cuh",
+        '  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n" ::"r"(',
+        '  *dst = uw_get(src);\n  if (0) asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n" ::"r"(')],
+    "weights marked evict-last": [(
+        "frame_math.cuh", "#define MOLANN_LDG(p) __ldg(p)",
+        '#define MOLANN_LDG(p) ([&] { float v_; asm("ld.global.nc.L1::evict_last.f32 %0, [%1];" '
+        ': "=f"(v_) : "l"(p)); return v_; }())')],
+    "96 registers": [(
+        "fused_unrolled.cu", "__global__ void __launch_bounds__(32 * MOLANN_UW_MAX_WARPS, 1)",
+        "__global__ void __maxnreg__(96)")],
+    "80 registers": [(
+        "fused_unrolled.cu", "__global__ void __launch_bounds__(32 * MOLANN_UW_MAX_WARPS, 1)",
+        "__global__ void __maxnreg__(80)")],
+    "QCP's column chosen at run time": [(
+        "frame_math.cuh",
+        "    qcp_rotation<float, true>(H, al.R, &al.lam0, &al.best);",
+        "    qcp_rotation<float, false>(H, al.R, &al.lam0, &al.best);")],
+}
+
+
 def variant_sources(kind, dst):
     """Copy the tree's kernel sources into ``dst`` patched for ``kind``;
-    returns the extra nvcc flags, or None where no patch applies."""
+    returns the extra nvcc flags, or None where no patch of a ``suspects``
+    variant applies. A KNOCKOUTS or ALTERNATIVES patch whose text the tree
+    no longer holds once is an error."""
     from molann_tpu_torch.ops import _build
 
     for p in _build.SRC_DIR.iterdir():
@@ -205,7 +352,19 @@ def variant_sources(kind, dst):
     for p in dst.iterdir():
         text = p.read_text()
         new = text
-        if kind == "regcap64":
+        if kind == "phases":
+            if p.name == "fused_unrolled.cu":
+                new, names = instrument(text)
+                (dst / "steps.json").write_text(json.dumps(names))
+        elif kind in KNOCKOUTS or kind in ALTERNATIVES:
+            for name, old, rep in {**KNOCKOUTS, **ALTERNATIVES}[kind]:
+                if p.name == name:
+                    if new.count(old) != 1:
+                        raise SystemExit(f"{kind}: {name} holds the text its "
+                                         f"patch replaces {new.count(old)} "
+                                         "times, not once")
+                    new = new.replace(old, rep)
+        elif kind == "regcap64":
             new = new.replace("__launch_bounds__(128)", "__launch_bounds__(128, 8)")
         elif kind == "envelope":
             for macro, value in ALANINE.items():
@@ -314,11 +473,7 @@ def suspects(dev, tag):
         libs, logs = build_variants(kinds, Path(tmp))
         t.join()
         model, x, gy = setup(dev)
-        out = {"tag": tag, "mode": "suspects",
-               "card": subprocess.run(
-                   ["nvidia-smi", "--query-gpu=name,power.limit",
-                    "--format=csv,noheader"], capture_output=True,
-                   text=True).stdout.strip()}
+        out = {"tag": tag, "mode": "suspects", "card": card()}
         original = F._library
         try:
             for kind in kinds:
@@ -336,6 +491,203 @@ def suspects(dev, tag):
             getattr(F, "_STATICS", {}).clear()
         out["blocked"] = timed(calls(F, model, x, gy, mode="blocked"))
     print(json.dumps(out))
+
+
+def knockouts(dev, tag, group=None):
+    """K1 and K4 alone in each KNOCKOUTS (or ``group``) build and the
+    tree's, in turns (the tree's first and last): the time a part costs, or
+    an alternative. With KNOCKOUTS also the tree's build on a grid of half
+    the warps an SM (half the blocks an SM that the wrapper's grid query
+    gave, each warp walking twice the tiles)."""
+    from molann_tpu_torch.ops import fused as F
+
+    kinds = ("base", *(KNOCKOUTS if group is None else group))
+    with tempfile.TemporaryDirectory() as tmp:
+        libs, logs = build_variants(kinds, Path(tmp))
+    model, x, _ = setup(dev)
+    xt = x.reshape(BATCH, -1).T.contiguous()
+    xb, xbt = big_frames(dev)
+
+    def fwd():
+        with torch.no_grad():
+            return F.fused_model_forward(model, x)
+
+    k4 = r"fused_unrolled_kernel<(true|1)"
+    table = {"K4 [3n, l]": (lambda: F.fused_cv_forces(
+                 model, xt, transposed_input=True), k4),
+             "K4 [l, n, 3]": (lambda: F.fused_cv_forces(model, x), k4),
+             "K1": (fwd, r"fused_unrolled_kernel<(false|0)"),
+             "bench op 1M": (lambda: F.fused_cv_forces(
+                 model, xbt, tile=2048, transposed_input=True), k4)}
+    out = {"tag": tag, "mode": "knockouts" if group is None else "alternatives",
+           "card": card(),
+           "resources": {k: resources(v) for k, v in logs.items()}}
+    half = ("half the warps",) if group is None else ()
+    original = F._library
+    try:
+        for kind in (*kinds, *half, "base"):
+            F._library = lambda lib=libs.get(kind, libs["base"]): lib
+            F._STATICS.clear()  # tiles and grids are per build
+            if kind in half:
+                for fn, _ in table.values():
+                    fn()  # each grid asked of the library once
+                for st in F._STATICS.values():
+                    st.grids = {k: (w, max(1, per_sm // 2), sms)
+                                for k, (w, per_sm, sms) in st.grids.items()}
+            row = {name: device_ms(fn, pat)[0]
+                   for name, (fn, pat) in table.items()}
+            out.setdefault(kind, []).append(row)
+    finally:
+        F._library = original
+        F._STATICS.clear()
+    print(json.dumps(out))
+
+
+def frame_bytes(F, model, transposed, gx, floats):
+    """Bytes a frame that the unrolled kernels' functions must move from
+    and to device memory: of the frame the coordinates of the atoms that
+    some feature or the alignment reads, gx over every atom where ``gx`` is
+    formed, and ``floats`` more floats (y, gy or a target), each read or
+    written once. On ``[3n, l]`` (``transposed``) a coordinate is a row of
+    its own, and the rows of atoms nothing reads are skipped whole; on
+    ``[l, 3n]`` a frame is one row, and what counts are the 32-byte sectors
+    that hold a coordinate read, each once (on alanine every one: the four
+    atoms nothing reads share their sectors with atoms read)."""
+    spec, align_idx, _, _, _ = F._extract_model(model)
+    atoms = {i for t in (*spec.angle_idx, *spec.bond_idx, *spec.dihedral_idx,
+                         *spec.coord_pairs) for i in t}
+    atoms |= set(spec.position_idx) | set(align_idx or ())
+    read = [3 * a + c for a in atoms for c in range(3)]
+    n = spec.n_input_atoms
+    if transposed:
+        x_bytes = 4 * len(read)
+    else:  # rows of 12 n bytes repeat their sector offsets every `period`
+        period = 32 // math.gcd(12 * n, 32)
+        x_bytes = 32 * len({(12 * n * f + 4 * q) // 32 for f in range(period)
+                            for q in read}) / period
+    return x_bytes + 4 * (floats + (3 * n if gx else 0))
+
+
+def big_frames(dev, l=BIG):
+    """``(x [l, n, 3], xt [3n, l])``: alanine frames made on the card from
+    a seeded generator, 0.05 of noise about the fixture frame."""
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    pos = torch.as_tensor(u.atoms.positions, dtype=torch.float32,
+                          device=dev).reshape(-1, 1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xt = pos + 0.05 * torch.randn(pos.shape[0], l, generator=gen, device=dev)
+    return xt.T.contiguous().reshape(l, -1, 3), xt
+
+
+def big_times(F, model, dev):
+    """The bench op and the forward on ``BIG`` device-resident frames:
+    ``{name: {alone, device, event, host share, frames/s, share of
+    bound}}`` (frames/s and the share from the kernel alone)."""
+    x, xt = big_frames(dev)
+
+    def fwd():
+        with torch.no_grad():
+            return F.fused_model_forward(model, x)
+
+    table = {
+        "bench op K4 [3n, l] 1M": (
+            lambda: F.fused_cv_forces(model, xt, tile=2048,
+                                      transposed_input=True),
+            r"fused_unrolled_kernel<(true|1)"),
+        "K4 [l, n, 3] 1M": (lambda: F.fused_cv_forces(model, x),
+                            r"fused_unrolled_kernel<(true|1)"),
+        "K1 1M": (fwd, r"fused_unrolled_kernel<(false|0)"),
+    }
+    out = timed(table)
+    for name, row in out.items():
+        n_bytes = frame_bytes(F, model, "[3n, l]" in name, "K4" in name, 3)
+        row["bytes a frame"] = n_bytes
+        row["frames/s"] = BIG / (row["alone"] * 1e-3)
+        row["share of bound"] = 1e3 * BIG * n_bytes / HBM_BYTES_PER_S \
+            / row["alone"]
+    return out
+
+
+def occupancy(lib, F, model, dev, forces):
+    """``(warps an SM, warps a block)`` of the forward (or cv+forces)
+    kernel in ``lib``, from the wrapper's grid query
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    spec, align_idx, _, params, act = F._extract_model(model)
+    st = F._statics(spec, align_idx, act, params, dev)
+    warps, per_sm, _ = st.grid(lib, "cv_forces" if forces else "forward", dev)
+    return warps * per_sm, warps
+
+
+def phases(dev, tag):
+    out = {"tag": tag, "mode": "phases", "card": card()}
+    out.update(phase_table(dev))
+    print(json.dumps(out))
+
+
+def phase_table(dev):
+    """Each step's share of K4's and K1's time, from a build with clock
+    reads; the warps an SM holds; registers and stack of the package's own
+    build (its ``-Xptxas -v`` log, where this process built it)."""
+    from molann_tpu_torch.ops import _build
+    from molann_tpu_torch.ops import fused as F
+
+    F._library()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs, _ = build_variants(("phases",), Path(tmp))
+        names = json.loads((Path(tmp) / "phases" / "steps.json").read_text())
+    lib = libs["phases"]
+    model, x, _ = setup(dev)
+    xt = x.reshape(BATCH, -1).T.contiguous()
+    cycles = torch.zeros(64, dtype=torch.int64, device=dev)
+
+    class ProbeIO(F.UnrIO):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.partials = cycles.data_ptr()
+
+    def fwd():
+        with torch.no_grad():
+            return F.fused_model_forward(model, x)
+
+    out = {"resources": {k: v for k, v in resources(
+        _build.BUILD_INFO.get("log", "")).items() if "unrolled" in k}
+        or "not in this process's build log (the library was cached)"}
+    original = F._library
+    try:
+        F._library = lambda: lib
+        F._STATICS.clear()  # tiles are per build
+        for forces in (True, False):
+            warps, wpb = occupancy(lib, F, model, dev, forces)
+            out["K4" if forces else "K1"] = {"warps an SM": warps,
+                                             "warps a block": wpb}
+        with mock.patch.object(F, "UnrIO", ProbeIO):
+            for kernel, fn in (
+                    ("K4 [3n, l]", lambda: F.fused_cv_forces(
+                        model, xt, transposed_input=True)),
+                    ("K4 [l, n, 3]", lambda: F.fused_cv_forces(model, x)),
+                    ("K1", fwd)):
+                ms = cuda_ms(fn)
+                cycles.zero_()
+                fn()
+                torch.cuda.synchronize()
+                got = cycles.cpu().numpy().astype(np.float64)
+                total = got.sum()
+                out[kernel + " phases"] = {
+                    "ms with the clock reads": ms,
+                    **{name: got[k] / total * ms
+                       for k, name in enumerate(names) if got[k]}}
+    finally:
+        F._library = original
+        F._STATICS.clear()
+    return out
+
+
+def card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
 
 
 def host(dev, tag):
@@ -399,17 +751,24 @@ def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("unrolled_probe: no CUDA card")
     dev = torch.device("cuda:0")
-    modes = ("times", "suspects", "host", "tiles")
+    modes = ("times", "suspects", "host", "tiles", "phases", "knockouts",
+             "alternatives")
     mode = argv[0] if argv and argv[0] in modes else "times"
     tag = argv[-1] if argv and argv[-1] != mode else ""
     if mode != "times":
-        {"suspects": suspects, "host": host, "tiles": tiles}[mode](dev, tag)
+        {"suspects": suspects, "host": host, "tiles": tiles,
+         "phases": phases, "knockouts": knockouts,
+         "alternatives": lambda d, t: knockouts(d, t, ALTERNATIVES)}[mode](
+            dev, tag)
         return
+    from molann_tpu_torch.ops import _build
     from molann_tpu_torch.ops import fused as F
 
     model, x, gy = setup(dev)
-    out = {"tag": tag, "mode": "times"}
+    out = {"tag": tag, "mode": "times", "card": card()}
     out.update(timed(calls(F, model, x, gy)))
+    out.update(big_times(F, model, dev))
+    out["resources"] = resources(_build.BUILD_INFO.get("log", ""))
     print(json.dumps(out))
 
 

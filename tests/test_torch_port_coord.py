@@ -211,14 +211,18 @@ def test_frame_math_on_the_host(host_lib, tmp_path, kind):  # noqa: F811
     x = torch.from_numpy(ref["x"])
     n3 = 3 * spec.n_input_atoms
     xs = x.reshape(L, n3).contiguous()
-    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "backward")
+    sargs, skeep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                                "cv_forces")
     y = torch.empty(L, 2)
     y1 = torch.empty(L, 2)
     g = torch.empty(L, n3)
-    host_lib.host_forward(ctypes.addressof(args), xs.data_ptr(),
+    host_lib.host_forward(ctypes.addressof(sargs), xs.data_ptr(),
                           y1.data_ptr(), L)
-    host_lib.host_cv_forces(ctypes.addressof(args), xs.data_ptr(),
+    host_lib.host_cv_forces(ctypes.addressof(sargs), xs.data_ptr(),
                             y.data_ptr(), g.data_ptr(), L, -1)
+    del skeep
     y_ref, g_ref = F.cv_forces_plain(*f64(parts), x.double())
     np.testing.assert_allclose(y.numpy(), y_ref.numpy(), atol=VAL_ATOL)
     np.testing.assert_allclose(y1.numpy(), y_ref.numpy(), atol=VAL_ATOL)

@@ -19,6 +19,7 @@ relative; against float64, gradients 5e-5·max(1, max|g|).
 
 import ctypes
 import functools
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,7 +48,12 @@ HOST_SRC = r"""
 extern "C" int host_abi(void) { return (int)sizeof(ModelArgs); }
 extern "C" int host_io_abi(void) { return (int)sizeof(UnrIO); }
 
+extern "C" int host_pitch(const ModelArgs* m, int forces) {
+  return uw_layout(*m, forces != 0).pitch;
+}
+
 extern "C" int host_frames(const ModelArgs* m, int mode, int gx, int ref) {
+  if (mode < UNR_BACKWARD) return uw_frames(*m, mode == 1);  // 0: K1, 1: K4
   return unr_choose_frames(*m, mode, gx != 0, ref != 0);
 }
 
@@ -73,11 +79,17 @@ extern "C" void host_qcp_vjp(const float* H, const float* gR, float* R, float* g
       hd[k / 3][k % 3] = Dual9(H[9 * e + k]);
       hd[k / 3][k % 3].d[k] = 1.0f;
     }
-    qcp_rotation(h, r, &lam0);
+    int best;
+    qcp_rotation(h, r, &lam0, &best);
     qcp_rotation_vjp(h, g, lam0, r, gh);
+    float r_b[3][3], gh_b[3][3];
+    qcp_rotation_vjp<true>(h, g, lam0, r_b, gh_b, best);  // the forward's column
+    bool same = true;
+    for (int k = 0; k < 9; ++k)
+      same = same && r_b[k / 3][k % 3] == r[k / 3][k % 3] && gh_b[k / 3][k % 3] == gh[k / 3][k % 3];
     qcp_rotation(hd, rd);
     for (int k = 0; k < 9; ++k) {
-      R[9 * e + k] = r[k / 3][k % 3];
+      R[9 * e + k] = same ? r[k / 3][k % 3] : NAN;
       gH[9 * e + k] = gh[k / 3][k % 3];
       R_d[9 * e + k] = rd[k / 3][k % 3].v;
       float acc = 0.f;
@@ -94,27 +106,52 @@ static void walk(const ModelArgs& m, const UnrIO& io, bool want_ref) {
   const UnrSmem so = unr_smem(m, kMode, kGx, want_ref, io.pitch);
   const long long blocks = (io.l + io.frames - 1) / io.frames;
   const int F = io.frames, nt = 2 * F;
-  constexpr bool kKeep = kMode == UNR_FORCES || kGx;
   std::vector<float> sm(so.total);
   std::vector<UnrAlignAdj> a(nt);
   for (long long b = 0; b < blocks; ++b) {
     std::fill(sm.begin(), sm.end(), NAN);  // a row read before it is written shows
     float* s = sm.data();
-    for (int t = 0; t < nt; ++t) unr_load<kKeep>(m, io, s, so, b, t, nt);
-    for (int t = 0; t < nt; ++t) unr_feat<kKeep>(m, io, s, so, t % F, t / F);
+    for (int t = 0; t < nt; ++t) unr_load<kGx>(m, io, s, so, b, t, nt);
+    for (int t = 0; t < nt; ++t) unr_feat<kGx>(m, io, s, so, t % F, t / F);
     for (int L = 0; L < m.n_layers; ++L)
       for (int t = 0; t < nt; ++t) unr_mlp<kMode>(m, io, s, so, L, t % F, t / F);
     for (int t = 0; t < nt; ++t) unr_seed<kMode>(m, io, s, so, b, t % F, t / F);
-    if (kMode == UNR_FORWARD) continue;
     for (int L = m.n_layers - 1; L > 0; --L)
       for (int t = 0; t < nt; ++t) unr_bwd(m, io, s, so, L, t % F, t / F);
-    if (kMode >= UNR_BACKWARD)
-      for (int t = 0; t < nt; ++t) unr_param_sums(m, io, s, so, b, kMode, want_ref, t, nt);
-    if (!kKeep && !want_ref) continue;
+    for (int t = 0; t < nt; ++t) unr_param_sums(m, io, s, so, b, kMode, want_ref, t, nt);
+    if (!kGx && !want_ref) continue;
     for (int t = 0; t < nt; ++t) unr_dcol(m, io, s, so, t % F, t / F);
-    for (int t = 0; t < nt; ++t) unr_adj_a<kKeep>(m, io, s, so, t % F, t / F, want_ref, a[t]);
-    for (int t = 0; t < nt; ++t) unr_adj_b<kKeep>(m, io, s, so, t % F, t / F, a[t]);
-    for (int t = 0; t < nt; ++t) unr_finish<kKeep>(m, io, s, so, b, want_ref, t, nt);
+    for (int t = 0; t < nt; ++t) unr_adj_a<kGx>(m, io, s, so, t % F, t / F, want_ref, a[t]);
+    for (int t = 0; t < nt; ++t) unr_adj_b<kGx>(m, io, s, so, t % F, t / F, a[t]);
+    for (int t = 0; t < nt; ++t) unr_finish<kGx>(m, io, s, so, b, want_ref, t, nt);
+  }
+}
+
+// The forward (K1) or cv+forces (K4) kernel walked on the host: every tile
+// of 32 frames, the lanes of each step in a loop, the warp's state filled
+// with NaN first.
+template <bool kForces>
+static void walk_tiles(const ModelArgs& m, const UnrIO& io) {
+  const UwLayout o = uw_layout(m, kForces);
+  const long long tiles = (io.l + MOLANN_UW_FRAMES - 1) / MOLANN_UW_FRAMES;
+  std::vector<float> ws(MOLANN_UW_FRAMES * o.pitch);
+  const bool with_z = act_needs_z(m.activation);
+  for (long long t = 0; t < tiles; ++t) {
+    std::fill(ws.begin(), ws.end(), NAN);
+    for (int lane = 0; lane < MOLANN_UW_FRAMES; ++lane) uw_load(m, io, ws.data(), o, t, lane);
+    for (int lane = 0; lane < MOLANN_UW_FRAMES; ++lane) {
+      float* st = ws.data() + lane * o.pitch;
+      const long long fr = t * MOLANN_UW_FRAMES + lane;
+      UwAlign al;
+      uw_feat(m, st, o, al);
+      uw_mlp(m, io, st, o, fr, kForces && with_z);
+      if (!kForces) continue;
+      uw_bwd(m, io, st, o);
+      uw_adj_feat(m, io, st, o);
+      uw_adj_align(m, io, st, o, al);
+    }
+    if (kForces)
+      for (int lane = 0; lane < MOLANN_UW_FRAMES; ++lane) uw_store(m, io, ws.data(), o, t, lane);
   }
 }
 
@@ -128,20 +165,28 @@ static UnrIO io_of(const float* x, long long l, int frames) {
   return io;
 }
 
+// K1 (gx null) or K4 on x [l, 3n] (in_t: [3n, l]), outputs [l, .] (out_t:
+// [., l]); m in the slot form.
+extern "C" void host_tiles(const ModelArgs* m, const float* x, float* y, float* gx,
+                           long long l, int component, int in_t, int out_t) {
+  UnrIO io = io_of(x, l, MOLANN_UW_FRAMES);
+  io.y = y;
+  io.gx = gx;
+  io.component = component;
+  io.in_t = in_t;
+  io.out_t = out_t;
+  if (gx) walk_tiles<true>(*m, io);
+  else walk_tiles<false>(*m, io);
+}
+
 extern "C" void host_forward(const ModelArgs* m, const float* x, float* y,
                              long long l) {
-  UnrIO io = io_of(x, l, FRAMES);
-  io.y = y;
-  walk<UNR_FORWARD, false>(*m, io, false);
+  host_tiles(m, x, y, nullptr, l, -1, 0, 0);
 }
 
 extern "C" void host_cv_forces(const ModelArgs* m, const float* x, float* y,
                                float* gx, long long l, int component) {
-  UnrIO io = io_of(x, l, FRAMES);
-  io.y = y;
-  io.gx = gx;
-  io.component = component;
-  walk<UNR_FORCES, true>(*m, io, false);
+  host_tiles(m, x, y, gx, l, component, 0, 0);
 }
 
 // The backward (train = 0; gx where given) or train kernel on `frames`
@@ -191,7 +236,8 @@ extern "C" float host_train(const ModelArgs* m, const float* x,
   for (size_t c = 1; c < out.size(); ++c) g[c - 1] += out[c];
   return out[0];
 }
-""".replace("FRAMES", str(FRAMES))
+"""
+HOST_SRC = re.sub(r"\bFRAMES\b", str(FRAMES), HOST_SRC)
 
 
 @pytest.fixture(scope="module")
@@ -218,6 +264,8 @@ def host_lib(tmp_path_factory):
     h.host_act.argtypes = [i32, vp, vp, vp, i32]
     h.host_qcp_vjp.argtypes = [vp, vp, vp, vp, vp, vp, i32]
     h.host_frames.argtypes = [vp, i32, i32, i32]
+    h.host_tiles.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32]
+    h.host_pitch.argtypes = [vp, i32]
     assert h.host_abi() == ctypes.sizeof(F.ModelArgs)
     assert h.host_io_abi() == ctypes.sizeof(F.UnrIO)
     return h
@@ -231,7 +279,8 @@ def _frames(u, n=64, seed=0):
 
 def _run(host_lib, model, x, component):
     spec, align_idx, ref_x, params, act = F._extract_model(model)
-    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "cv_forces")
     l, n = x.shape[0], spec.n_input_atoms
     d = F._out_dim(spec, params)
     xs = x.reshape(l, 3 * n).contiguous()
@@ -362,7 +411,8 @@ def _host_grads(host_lib, fn, model, *arrays, want_ref, gx=None):
     """Run host_backward / host_train; returns (its result, gparams,
     g_ref) unpacked from the flat gradient vector."""
     spec, align_idx, ref_x, params, act = F._extract_model(model)
-    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "backward")
     g = torch.zeros(F._grad_width(align_idx, params))
     ptrs = [a.data_ptr() for a in arrays]
     if fn is host_lib.host_backward:
@@ -450,7 +500,8 @@ def _walk(host_lib, model, x, aux, frames, *, train, in_t=False,
     """One host walk of the backward (gy = aux) or train (y_target = aux)
     kernel on ``frames`` frames a block: ``(out [1 + G], gx or None)``."""
     spec, align_idx, ref_x, params, act = F._extract_model(model)
-    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "train" if train else "backward")
     l = x.shape[0]
     xs = x.reshape(l, -1).contiguous()
     if in_t:
@@ -547,7 +598,8 @@ def test_block_walk_train(host_lib, train_ref, in_t, frames):
 def test_qcp_reverse_pass(host_lib, kind):
     """qcp_rotation_vjp, the reverse pass the unrolled adjoint runs, against
     the 9-tangent Dual9 pass of the same composite: R to the bit, gH to
-    float rounding. Covariances near a rotation's (thermal frames), random
+    float rounding; given the forward's adjugate column (as K4 gives it) it
+    returns the same bits. Covariances near a rotation's (thermal frames), random
     ones, and ones with a negative determinant."""
     rng = np.random.default_rng({"near_identity": 1, "random": 2,
                                  "reflection": 3}[kind])
@@ -570,21 +622,37 @@ def test_qcp_reverse_pass(host_lib, kind):
 
 
 def test_tile_choice(host_lib):
-    """64 frames a block while two blocks fit an SM's shared memory (every
-    kernel on alanine), fewer for a model at the envelope's edge (64 atoms,
-    96 columns, four layers of 64): 32, two blocks of its forward and one
-    of its backward on an SM."""
+    """The forward and cv+forces kernels take warp tiles of 32 frames, the
+    backward and train kernels 64 frames a block while two blocks fit an
+    SM's shared memory (every kernel on alanine), fewer for a model at the
+    envelope's edge (64 atoms, 96 columns, four layers of 64): 32, two
+    blocks of its forward and one of its backward on an SM. A frame of the
+    cv+forces kernel on alanine keeps 113 floats (18 atoms read: 54, then
+    the gradient over the 38 columns: 54, a hidden layer of 5), one of the
+    forward 97: 16 warps of the first fit an SM's 228 KB in blocks of 8."""
     def frames(model, *modes):
         spec, align_idx, ref_x, params, act = F._extract_model(model)
-        args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu")
-        got = [host_lib.host_frames(ctypes.addressof(args), *mode)
-               for mode in modes]
-        del keep
+        got = []
+        for mode in modes:  # host_frames' mode: K1, K4, backward, train
+            kernel = ("forward", "cv_forces", "backward", "train")[mode[0]]
+            args, keep = F.model_args(spec, align_idx, ref_x, params, act,
+                                      "cpu", kernel)
+            got.append(host_lib.host_frames(ctypes.addressof(args), *mode))
+            del keep
         return got
 
     every = [(0, 0, 0), (1, 1, 0), (2, 1, 1), (2, 0, 1), (3, 0, 0), (3, 0, 1)]
     model, _ = alanine_model(device="cpu")
-    assert frames(model, *every) == [64] * len(every)
+    assert frames(model, *every) == [32, 32, 64, 64, 64, 64]
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "cv_forces")
+    assert args.n_slots == 18
+    pitch = [host_lib.host_pitch(ctypes.addressof(args), forces)
+             for forces in (1, 0)]
+    del keep
+    assert pitch == [113, 97]
+    assert 2 * (8 * 32 * 113 * 4 + 1024) <= 228 * 1024
     from molann_tpu_torch.feature import Feature
     from molann_tpu_torch.models.ann import (
         AlignmentLayer,
@@ -602,4 +670,63 @@ def test_tile_choice(host_lib):
                      u.atoms))
     edge = MolANN(pp, create_sequential_nn([96, 64, 64, 64, 64]))
     assert F.model_select_mode(edge) == "unrolled"
-    assert frames(edge, (0, 0, 0), (2, 1, 1), (2, 1, 0)) == [32, 32, 32]
+    assert frames(edge, (0, 0, 0), (1, 1, 0), (2, 1, 1), (2, 1, 0)) == [
+        32, 32, 32, 32]
+
+
+def _tiles(host_lib, model, x, component, in_t, out_t, forces=True):
+    """One host walk of K4 (or K1) on ``x [l, n, 3]`` in the given layouts:
+    ``(y [l, d], g [l, n, 3] or None)``."""
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    args, keep = F.model_args(spec, align_idx, ref_x, params, act, "cpu",
+                              "cv_forces" if forces else "forward")
+    l, n = x.shape[0], spec.n_input_atoms
+    d = F._out_dim(spec, params)
+    xs = x.reshape(l, 3 * n).contiguous()
+    if in_t:
+        xs = xs.T.contiguous()
+    y = torch.full((d, l) if out_t else (l, d), float("nan"))
+    g = torch.full((3 * n, l) if out_t else (l, 3 * n), float("nan"))
+    host_lib.host_tiles(ctypes.addressof(args), xs.data_ptr(), y.data_ptr(),
+                        g.data_ptr() if forces else None, l,
+                        -1 if component is None else component, int(in_t),
+                        int(out_t))
+    del keep
+    if out_t:
+        y, g = y.T, g.T
+    return y, (g.reshape(l, n, 3) if forces else None)
+
+
+@pytest.mark.parametrize("layout", ["[l, 3n]", "[3n, l]", "[l, 3n] -> t"])
+@pytest.mark.parametrize("l", [1, 37, 96])
+@pytest.mark.parametrize("name", ["tanh", "gelu", "no_alignment",
+                                  "features_only", "deep"])
+def test_warp_tiles(host_lib, name, l, layout):
+    """K4's and K1's warp steps over several tiles of 32 frames with a
+    ragged last one, on both input layouts and transposed outputs: values
+    and gradients against the plain version and float64, components None
+    and 1, the same bits on a repeat, the atoms nothing reads exactly 0, and
+    K1's values equal to K4's bit for bit."""
+    model, u = (_features_only if name == "features_only"
+                else GRAD_MODELS[name])()
+    x = _frames(u, n=l, seed=31)
+    in_t, out_t = layout == "[3n, l]", layout != "[l, 3n]"
+    parts = F._extract_model(model)
+    y1, _ = _tiles(host_lib, model, x, None, in_t, out_t, forces=False)
+    for component in (None, 1):
+        y, g = _tiles(host_lib, model, x, component, in_t, out_t)
+        y2, g2 = _tiles(host_lib, model, x, component, in_t, out_t)
+        assert torch.equal(y, y2) and torch.equal(g, g2)
+        assert torch.equal(y1, y)
+        y_ref, g_ref = F.cv_forces_plain(*parts, x, component)
+        _check(y1, y, g, y_ref, g_ref)
+        y64, g64 = F.cv_forces_plain(*_f64(parts), x.double(), component)
+        np.testing.assert_allclose(y.double().numpy(), y64.numpy(),
+                                   atol=VAL_ATOL)
+        _close64(g, g64)
+        args, keep = F.model_args(*parts[:4], parts[4], "cpu", "cv_forces")
+        col_slot = list((ctypes.c_int * (3 * x.shape[1])).from_address(
+            args.col_slot))
+        del keep
+        unread = [c for c, q in enumerate(col_slot) if q < 0]
+        assert not g.reshape(l, -1)[:, unread].any()

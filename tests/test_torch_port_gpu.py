@@ -113,6 +113,101 @@ def test_kernels_match_plain(cuda, l, component):
     assert F.KERNEL_LAUNCHES["forward"] == before["forward"] + 1
 
 
+def _occupancy(model, forces):
+    """``(warps an SM, warps a block)`` of K4 (or K1) for ``model``."""
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    dev = params[0][0].device
+    st = F._statics(spec, align_idx, act, params, dev)
+    warps, per_sm, _ = st.grid(F._library(), "cv_forces" if forces
+                               else "forward", dev)
+    return warps * per_sm, warps
+
+
+@pytest.mark.gpu
+def test_warp_grid_choice(cuda):
+    """K4 and K1 take warp tiles of 32 frames on a grid of the warps the
+    card holds: 16 warps of K4 an SM on alanine (113 floats a frame, at most
+    128 registers), at least as many of K1; a model at the envelope's edge
+    (a wide head) still gets a grid."""
+    model, _ = alanine_model(generator=torch.Generator().manual_seed(1),
+                             device=cuda)
+    k4, k4_block = _occupancy(model, True)
+    k1, _ = _occupancy(model, False)
+    assert k4 == 16 and k4 % k4_block == 0
+    assert k1 >= 16
+    wide, _ = alanine_model(generator=torch.Generator().manual_seed(1),
+                            device=cuda, activation="gelu",
+                            hidden_dims=(64, 64, 64, 2))
+    assert _occupancy(wide, True)[0] >= 1
+
+
+@pytest.mark.gpu
+def test_table_form_refused(cuda):
+    """K1 and K4 take the slot form of a model's tables, K2 and K3 the atom
+    form: each kernel's entry point refuses the other form
+    (cudaErrorInvalidValue) and launches nothing."""
+    import ctypes
+
+    model, u = alanine_model(generator=torch.Generator().manual_seed(1),
+                             device=cuda)
+    spec, align_idx, ref_x, params, act = F._extract_model(model)
+    dev = params[0][0].device
+    lib = F._library()
+    x = _frames(u, 64, cuda, seed=2).reshape(64, 3 * N)
+    y = torch.zeros(64, 3, device=cuda)
+    gx = torch.zeros(64, 3 * N, device=cuda)
+    out = torch.zeros(64 * F._grad_width(align_idx, params), device=cuda)
+    io = F.UnrIO(x=x.data_ptr(), y=y.data_ptr(), gx=gx.data_ptr(),
+                 aux=y.data_ptr(), partials=out.data_ptr(), l=64, component=-1,
+                 frames=64, pitch=65)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    atoms, keep = F.model_args(spec, align_idx, ref_x, params, act, dev,
+                               "backward")
+    slots, keep2 = F.model_args(spec, align_idx, ref_x, params, act, dev,
+                                "cv_forces")
+    assert lib.molann_fused_forward(ctypes.addressof(atoms),
+                                    ctypes.addressof(io), 1, 8, 1,
+                                    dev.index, stream) == 1
+    assert lib.molann_fused_grads(ctypes.addressof(slots),
+                                  ctypes.addressof(io), 0, out.data_ptr(),
+                                  dev.index, stream) == 1
+    torch.cuda.synchronize()
+    assert not y.any() and not gx.any() and not out.any()
+    del keep, keep2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", [0.25, 2.5])
+def test_warp_grid_rounds(cuda, rounds):
+    """Fewer tiles than the grid holds, and two and a half rounds of it
+    (each warp walks several tiles by the grid's stride, the last round
+    ragged): both kernels and layouts against the plain version on sampled
+    frames, the atoms nothing reads exactly 0, the same bits on a repeat."""
+    model, u = alanine_model(generator=torch.Generator().manual_seed(6),
+                             device=cuda)
+    warps, _ = _occupancy(model, True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    l = int(rounds * sms * warps * 32) + 17
+    x = _frames(u, l, cuda, seed=9)
+    xt = x.reshape(l, 3 * N).T.contiguous()
+    y, g = F.fused_cv_forces(model, x)
+    yt, gt = F.fused_cv_forces(model, xt, transposed_input=True)
+    y2, g2 = F.fused_cv_forces(model, xt, transposed_input=True)
+    with torch.no_grad():
+        y1 = F.fused_model_forward(model, x)
+    torch.cuda.synchronize()
+    assert torch.equal(yt, y2) and torch.equal(gt, g2)
+    rows = torch.as_tensor(np.sort(np.random.default_rng(3).choice(
+        l, min(l, 4096), replace=False)), device=cuda)
+    y_ref, g_ref = F.cv_forces_plain(*F._extract_model(model), x[rows])
+    _check(y[rows], g[rows], y_ref, g_ref)
+    _check(yt.T[rows], gt.T[rows].reshape(-1, N, 3), y_ref, g_ref)
+    np.testing.assert_allclose(y1[rows].cpu().numpy(), y_ref.cpu().numpy(),
+                               atol=VAL_ATOL)
+    unread = [2, 3, 17, 21]  # the atoms no feature of alanine reads
+    assert not g[:, unread].any() and not g[-1].isnan().any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
     dict(use_angle_value=True), dict(include_position=False),
