@@ -76,10 +76,17 @@ Runs the port's serving path on the card and checks it, phase by phase:
    checkpoint that repeats the remaining steps bit for bit; where a step's
    time goes (fetch, copy, kernels, optimizer); (c) CUDA-event times of both
    kernels and their plain versions on one 65536-frame batch, and bounds.
-9. the edge-product probe: every body of ``edge_mm`` against its plain
-   version and float64; then the probe's own run (T = 512, 64 tiles) with
-   its launch count, times per body, the gather beside them, and
-   ``torch.matmul`` as the library yardstick.
+9. the edge-product probe: D prepared once (``prepare_edge_matrix``),
+   every body of ``edge_mm`` against its plain version and float64, two
+   launches to the same bits; then the probe's own run (T = 512, 64 tiles)
+   with its launch count (every call of ``edge_mm`` it made) and, per body,
+   the kernel alone (on one x, and on x rotated over four copies so that
+   none is found in L2) and with its wrapper, its bound (x, out and the
+   prepared form of D the body reads), the library call for the same
+   function on both x (``torch.matmul`` float32, ``torch.sparse.mm`` on
+   CSR, ``torch.mm`` to float32 and ``torch._int_mm`` after x's
+   conversion; one that fails fails the phase), registers, shared memory
+   and blocks an SM, and the preparation's time.
 10. coordination features in the unrolled kernels: a 22-atom model with two
    coordination features (one under a box with ``d_max``), a bond and an
    aligned position through the forward, cv+forces, backward and train
@@ -1108,18 +1115,19 @@ def edge_phase(dev, card):
     D_host, x_host = EP.probe_inputs(T)
     D = torch.as_tensor(D_host, device=dev)
     x = torch.as_tensor(x_host, device=dev)
+    prep = EP.prepare_edge_matrix(D)
     truth = D.double() @ x.double()
     top = float(truth.abs().max())
     errs, worst_plain = {}, 0.0
     for variant in EP.VARIANTS:
-        got = EP.edge_mm(D, x, variant)
+        got = EP.edge_mm(prep, x, variant)
         torch.cuda.synchronize()
         e_plain = float((got - EP.edge_mm_plain(D, x, variant)).abs().max())
         e_f64 = float((got.double() - truth).abs().max())
         if not (e_plain <= vs_plain * top and e_f64 <= vs_f64[variant] * top):
             fail(f"edge_mm {variant}: {e_plain / top} off its plain version, "
                  f"{e_f64 / top} off float64 (of max|truth|)")
-        if not torch.equal(got, EP.edge_mm(D, x, variant)):
+        if not torch.equal(got, EP.edge_mm(prep, x, variant)):
             fail(f"two launches of edge_mm {variant} differ")
         errs[variant] = e_f64 / top
         worst_plain = max(worst_plain, e_plain)
@@ -1127,22 +1135,43 @@ def edge_phase(dev, card):
     reset_counts()
     res = EP.run_probe(T, reps)
     launches = dict(F.KERNEL_LAUNCHES)
-    if launches != counts(edge_mm=len(EP.VARIANTS) * (reps + 3)):
-        fail(f"launch counts over the edge probe: {launches}")
+    # every call of edge_mm the probe made (its own count, retaken traces
+    # included) launched its kernel once
+    made = {v: res[v]["launches"] for v in EP.VARIANTS}
+    if launches != counts(edge_mm=sum(made.values())) or min(made.values()) < 1:
+        fail(f"launch counts over the edge probe: {launches}, calls {made}")
     ms_plain = cuda_ms(lambda: EP.edge_mm_plain(D, x, "split3"), reps)
     m, k = D.shape
     n = x.shape[1]
-    t_bytes = 1e3 * 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
-    t_ops = 1e3 * 3 * 2.0 * m * k * n / BF16_OPS_PER_S
     print(f"edge product D [{m}, {k}] @ x [{k}, {n}] (T = {T}, 64 tiles), "
-          f"ms per body (TFLOP/s of the dense count; error against float64 "
-          f"as a fraction of max|truth|): " + "; ".join(
-              f"{v} {res[v]['ms']:.4f} ({res[v]['tflops']:.2f}; "
-              f"{errs[v]:.3g})" for v in EP.VARIANTS)
-          + f"; torch.matmul float32 {res['library']['ms']:.4f}; plain "
-          f"split3 {ms_plain:.4f}; worst distance of a body from its plain "
-          f"version {worst_plain / top:.3g}; launches edge_mm "
-          f"{launches['edge_mm']}; card: {card}")
+          f"prepare_edge_matrix {res['prepare_ms']:.3f} ms once (host "
+          f"clock); per body: kernel alone (torch.profiler) / with its "
+          f"wrapper (CUDA events), ms, and alone on x rotated over "
+          f"{EP.COLD_BUFFERS} copies (cold: no x left in L2); its bound and "
+          f"what sets it; the library call for the same function, warm / "
+          f"cold; registers, shared memory, blocks an SM; calls; error "
+          f"against float64 (of max|truth|):")
+    for v in EP.VARIANTS:
+        r = res[v]
+        if min(r["ms"], r["cold_ms"]) < r["bound_ms"]:
+            fail(f"edge_mm {v}: {r['ms']} ms alone ({r['cold_ms']} cold), "
+                 f"under its bound {r['bound_ms']}: a time the profiler cut "
+                 f"short")
+        lib = ("none" if r["library"] is None
+               else f"{r['library_ms']:.4f} / {r['library_cold_ms']:.4f} "
+                    f"({r['library']})")
+        rs = r["resources"]
+        print(f"  {v}: {r['ms']:.4f} / {r['call_ms']:.4f}, cold "
+              f"{r['cold_ms']:.4f}; bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it, "
+              f"{100 * r['bound_ms'] / r['cold_ms']:.1f}% cold); library "
+              f"{lib}; {rs['registers']} registers, {rs['smem']} B, "
+              f"{rs['blocks_per_sm']} x {rs['threads']} threads an SM; "
+              f"{r['launches']} calls; {errs[v]:.3g}")
+    print(f"  torch.matmul float32 {res['library']['ms']:.4f}; plain split3 "
+          f"{ms_plain:.4f}; worst distance of a body from its plain version "
+          f"{worst_plain / top:.3g}; launches edge_mm {launches['edge_mm']}; "
+          f"card: {card}")
     return {"name": "edge_mm", "route": "cuda",
             "source": "molann_tpu_torch/csrc/edge_mm.cu",
             "replaces": "scripts/int8_mm_probe.py:70",
@@ -1150,10 +1179,18 @@ def edge_phase(dev, card):
             "max_abs_err": max(errs[v] for v in ("f32", "split3", "fixed4",
                                                  "gather")) * top,
             "ms": res["split3"]["ms"], "plain_ms": ms_plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": res["split3"]["bound_ms"],
+            "bound_by": res["split3"]["bound_by"],
             "library_ms": res["library"]["ms"], "body": "split3",
-            "bodies_ms": {v: res[v]["ms"] for v in EP.VARIANTS}}
+            "bodies_ms": {v: res[v]["ms"] for v in EP.VARIANTS},
+            "bodies_cold_ms": {v: res[v]["cold_ms"] for v in EP.VARIANTS},
+            "bodies_call_ms": {v: res[v]["call_ms"] for v in EP.VARIANTS},
+            "bodies_bound_ms": {v: res[v]["bound_ms"] for v in EP.VARIANTS},
+            "bodies_library_ms": {v: res[v]["library_ms"]
+                                  for v in EP.VARIANTS},
+            "bodies_library_cold_ms": {v: res[v]["library_cold_ms"]
+                                       for v in EP.VARIANTS},
+            "prepare_ms": res["prepare_ms"]}
 
 
 def profiled_ms(fn, pattern, calls=20):

@@ -100,10 +100,12 @@ def _bind(lib):
     lib.molann_blocked_backward.restype = i32
     lib.molann_blocked_train.argtypes = [vp, vp, vp, i32, vp]
     lib.molann_blocked_train.restype = i32
-    lib.molann_edge_mm_scratch.argtypes = [i32, i32]
-    lib.molann_edge_mm_scratch.restype = i64
-    lib.molann_edge_mm.argtypes = [i32, vp, vp, vp, i32, i32, i64, vp, vp, vp,
-                                   vp, i32, vp]
+    lib.molann_edge_mm_caps.argtypes = [vp]
+    lib.molann_edge_mm_caps.restype = i32
+    lib.molann_edge_mm_resources.argtypes = [i32, i32, i32, i32, i32, vp]
+    lib.molann_edge_mm_resources.restype = i32
+    lib.molann_edge_mm.argtypes = [i32, vp, vp, i32, vp, vp, i32, vp, vp, i32,
+                                   i32, i64, i32, vp]
     lib.molann_edge_mm.restype = i32
     return lib
 

@@ -950,6 +950,7 @@ def test_unrolled_coordination_matches_plain(cuda, kind, l):
 EDGE_VS_PLAIN = 5e-7
 EDGE_VS_F64 = {"f32": 5e-7, "gather": 5e-7, "split3": 5e-7, "fixed4": 5e-7,
                "bf16": 4e-3, "fixed2": 2e-4, "int8": 1.0}
+EP_VARIANTS = ("f32", "bf16", "int8", "split3", "fixed4", "fixed2", "gather")
 
 
 @pytest.mark.gpu
@@ -996,6 +997,105 @@ def test_edge_mm_refuses_what_the_kernel_does_not_take(cuda):
         EP.edge_mm(D + 0.5, torch.zeros(16, 64, device=cuda), "gather")
     with pytest.raises(ValueError, match="D is on"):
         EP.edge_mm(D.cpu(), torch.zeros(16, 64, device=cuda), "f32")
+    # the tensor-core bodies hold x for all of K in registers
+    wide = torch.zeros(16, 352, device=cuda)
+    with pytest.raises(ValueError, match="K <= 320"):
+        EP.edge_mm(wide, torch.zeros(352, 64, device=cuda), "split3")
+    assert EP.edge_mm(wide, torch.zeros(352, 64, device=cuda), "f32").shape \
+        == (16, 64)
+
+
+def _edge_cases(cuda, D, x, variants=EP_VARIANTS, prep=None):
+    """Each body on D and x: its plain version and float64 within the
+    module's tolerances, one launch, the same bits twice."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    prep = EP.prepare_edge_matrix(D) if prep is None else prep
+    truth = D.double() @ x.double()
+    top = float(truth.abs().max()) + 1e-30
+    outs = {}
+    for variant in variants:
+        before = F.KERNEL_LAUNCHES["edge_mm"]
+        got = EP.edge_mm(prep, x, variant)
+        torch.cuda.synchronize()
+        assert F.KERNEL_LAUNCHES["edge_mm"] == before + 1
+        plain = EP.edge_mm_plain(D, x, variant)
+        assert float((got - plain).abs().max()) / top <= EDGE_VS_PLAIN, variant
+        assert float((got.double() - truth).abs().max()) / top <= \
+            EDGE_VS_F64[variant], variant
+        assert torch.equal(got, EP.edge_mm(prep, x, variant)), variant
+        outs[variant] = got
+    return outs
+
+
+def _edge_x(cuda, k, n, scale, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(((rng.random((k, n)) * 2 - 1) * scale).astype(
+        np.float32), device=cuda)
+
+
+@pytest.mark.gpu
+def test_edge_mm_dense_d(cuda):
+    """D at density 0.5 (about 150 nonzeros a row): every fragment of D
+    busy, long sums."""
+    rng = np.random.default_rng(21)
+    D = torch.as_tensor((rng.integers(-1, 2, size=(552, 304)) * (
+        rng.random((552, 304)) < 0.5)).astype(np.float32), device=cuda)
+    _edge_cases(cuda, D, _edge_x(cuda, 304, 1024, 30.0, 22))
+
+
+@pytest.mark.gpu
+def test_edge_mm_empty_rows_and_zero_d(cuda):
+    """Rows with no nonzero (every third, and the first 40), and a D of
+    zeros: those rows are exactly 0 in every body."""
+    rng = np.random.default_rng(23)
+    d = (rng.integers(-1, 2, size=(300, 200)) * (
+        rng.random((300, 200)) < 0.05)).astype(np.float32)
+    d[::3] = 0
+    d[:40] = 0
+    x = _edge_x(cuda, 200, 256, 30.0, 24)
+    outs = _edge_cases(cuda, torch.as_tensor(d, device=cuda), x)
+    for got in outs.values():
+        assert not got[:40].any() and not got[::3].any()
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    prep = EP.prepare_edge_matrix(torch.zeros(552, 304, device=cuda))
+    assert prep.ent.numel() == 0
+    for variant in EP.VARIANTS:
+        got = EP.edge_mm(prep, _edge_x(cuda, 304, 128, 30.0, 25), variant)
+        torch.cuda.synchronize()
+        assert not got.any() and got.shape == (552, 128)
+
+
+@pytest.mark.gpu
+def test_edge_mm_fixed4_near_its_limit(cuda):
+    """|x| up to 4,000, where x·2^19 is within 2.4% of leaving an int32:
+    four digits still carry x exactly (and fixed2's two, int8's one, are
+    held to their plain versions)."""
+    rng = np.random.default_rng(26)
+    D = torch.as_tensor((rng.integers(-1, 2, size=(552, 304)) * (
+        rng.random((552, 304)) < 0.01)).astype(np.float32), device=cuda)
+    x = _edge_x(cuda, 304, 512, 4000.0, 27)
+    x[0, :8] = torch.tensor([4000.0, -4000.0, 3999.9998, -3999.9998, 2 ** -19,
+                             -(2 ** -19), 0.0, 1.5 * 2 ** -19], device=cuda)
+    _edge_cases(cuda, D, x, ("fixed4", "f32", "gather", "split3"))
+
+
+@pytest.mark.gpu
+def test_edge_mm_prepared_d_reused(cuda):
+    """One prepare_edge_matrix for three different x and two calls each:
+    the same bits as a D prepared anew for every call."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    rng = np.random.default_rng(28)
+    D = torch.as_tensor((rng.integers(-1, 2, size=(552, 304)) * (
+        rng.random((552, 304)) < 0.02)).astype(np.float32), device=cuda)
+    prep = EP.prepare_edge_matrix(D)
+    for seed in (29, 30, 31):
+        x = _edge_x(cuda, 304, 640, 30.0, seed)
+        outs = _edge_cases(cuda, D, x, prep=prep)
+        for variant, got in outs.items():
+            assert torch.equal(got, EP.edge_mm(D, x, variant)), variant
 
 
 @pytest.mark.gpu
