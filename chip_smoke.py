@@ -91,6 +91,27 @@ Runs the port's serving path on the card and checks it, phase by phase:
    coordination features (one under a box with ``d_max``), a bond and an
    aligned position through the forward, cv+forces, backward and train
    kernels against float64 plain versions.
+11. the CV-learning objectives: ``molann_tpu_torch.cli.main(["train",
+   ...])`` in process on the card for ``mse``, ``eigenfunction``,
+   ``committor``, ``vamp``, ``autoencoder`` and ``tae`` (``--lag 10``),
+   20 steps of 8192 frames each, ``committor`` once more with ``rmsprop``,
+   ``warmup-cosine`` and ``--grad-clip 1``, and ``eigenfunction
+   --ensemble 4 --bagging`` for 10 steps, on the full alanine model (weights
+   from a seeded generator, saved to ``.npz``) and a 65,536-frame ``.npy``
+   trajectory (``noisy_frames``' displacements filtered in time, AR(1) at
+   0.95 a frame) with positive weights and basin labels from a numpy seed.
+   Each run must exit 0, write a model that loads, log a finite loss at
+   every step, step optimizers whose tensors are all on the card, and
+   launch no fused kernel (the objectives are eager). Each objective's
+   loss and parameter gradients (second order for the eigenfunction and
+   committor losses) on the command's first batch are held against the
+   eager float64 CPU version, the committee's mean and std against the
+   same members on the CPU. One JSON line per run: steps/s between the
+   first and the last step's log line (each logged loss is a
+   synchronise), the loss trace's ends, the errors, the diagnostics, and
+   the first batch's loss and gradients alone: host-clock ms, the device
+   ms and count of its kernels (``torch.profiler``), and their ratio, the
+   device's busy share.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -111,12 +132,15 @@ and only there, the comparison allows the jump the pair can make
 Tolerances: values 1e-5 abs (5e-5 for the fluid's sums over 7,750 pairs,
 tests/test_condensed.py:101-118); gradients 2e-4·max(1, max|g|)
 (tests/test_parity_torch.py:25,52); losses 1e-5 relative against float64
-(the per-frame float32 values differ from float64 by up to ~2e-7).
+(the per-frame float32 values differ from float64 by up to ~2e-7); phase
+11's objectives: losses 1e-5 relative and parameter gradients
+2e-4·max(1, max|g|) against float64 on the CPU, committee mean and std 1e-5.
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 Imports no JAX. Usage: ``python3 chip_smoke.py``.
 """
 
+import copy
 import functools
 import itertools
 import json
@@ -1438,6 +1462,281 @@ def coordination_phase(dev):
           f"jump's size instead")
 
 
+OBJ_FRAMES = 1 << 16
+OBJ_BATCH = 8192
+OBJ_STEPS = 20
+OBJ_ENSEMBLE_STEPS = 10
+OBJ_LAG = 10
+OBJ_AR = 0.95
+OBJ_AR_NOISE = float(np.sqrt(1 - OBJ_AR ** 2))
+# the train command's runs of phase 11: (name, the loss, its flags)
+OBJ_RUNS = (
+    ("mse", "mse", ["--targets", "{d}/targets.npy"]),
+    ("eigenfunction", "eigenfunction", ["--weights", "{d}/weights.npy"]),
+    ("committor", "committor", ["--labels", "{d}/labels.npy",
+                                "--weights", "{d}/weights.npy"]),
+    ("vamp", "vamp", ["--lag", str(OBJ_LAG)]),
+    ("autoencoder", "autoencoder", ["--decoder-out", "{d}/decoder.npz"]),
+    ("tae", "tae", ["--lag", str(OBJ_LAG)]),
+    ("committor rmsprop warmup-cosine clip", "committor",
+     ["--labels", "{d}/labels.npy", "--optimizer", "rmsprop",
+      "--lr-schedule", "warmup-cosine", "--warmup-steps", "5",
+      "--grad-clip", "1"]),
+    ("eigenfunction committee", "eigenfunction",
+     ["--ensemble", "4", "--bagging", "--steps", str(OBJ_ENSEMBLE_STEPS)]),
+)
+
+
+class _TimedLines:
+    """A text stream that keeps each line written with the host's clock at
+    its end (the train command prints a step's line after the step's loss
+    has come back from the card)."""
+
+    def __init__(self):
+        self.lines = []
+        self._part = ""
+
+    def write(self, text):
+        now = time.perf_counter()
+        self._part += text
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append((now, line))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def objective_loss(loss, pair, batch):
+    """The train command's loss for ``loss`` on one of its batches."""
+    from molann_tpu_torch import train as T
+
+    model, dec = pair
+    if loss == "mse":
+        return T.mse_loss(model, batch)
+    if loss == "eigenfunction":
+        return T.make_eigenfunction_loss(alpha=10.0)(model, batch)
+    if loss == "committor":
+        return T.make_committor_loss(alpha=100.0)(model, batch)
+    if loss == "vamp":
+        return T.make_vamp_loss()(model, batch)
+    if loss == "autoencoder":
+        x, w = batch
+        return T.autoencoder_loss(model.ann_layers, dec,
+                                  model.preprocessing_layer, x, weights=w)
+    return T.timelagged_autoencoder_loss(model.ann_layers, dec,
+                                         model.preprocessing_layer, *batch)
+
+
+def objectives_phase(dev, card):
+    """Phase 11: ``python -m molann_tpu_torch train`` in process for every
+    objective on the full alanine model; prints one JSON line per run."""
+    import contextlib
+
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from molann_tpu_torch import train as T
+    from molann_tpu_torch.cli import main as cli_main
+    from molann_tpu_torch.io import load_model, save_model
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.systems import alanine_model
+
+    records = []
+    with tempfile.TemporaryDirectory() as d:
+        model, u = alanine_model(generator=torch.Generator().manual_seed(20),
+                                 device=dev)
+        save_model(os.path.join(d, "model.npz"), model)
+        # a trajectory: noisy_frames' displacements from the reference,
+        # filtered in time (AR(1), 0.95 a frame) so that the lagged
+        # objectives see correlation at the lag; the same spread per frame
+        ref = u.atoms.positions[None].astype(np.float32)
+        noise = noisy_frames(u, OBJ_FRAMES, 21, 0.05, dev).cpu().numpy() - ref
+        frames = np.empty_like(noise)
+        frames[0] = noise[0]
+        for t in range(1, OBJ_FRAMES):
+            frames[t] = OBJ_AR * frames[t - 1] + OBJ_AR_NOISE * noise[t]
+        np.save(os.path.join(d, "traj.npy"), frames + ref)
+        rng = np.random.default_rng(22)
+        weights = rng.uniform(0.5, 2.0, OBJ_FRAMES).astype(np.float32)
+        labels = rng.choice([0, 1, 2], OBJ_FRAMES, p=[0.5, 0.25, 0.25]
+                            ).astype(np.int32)
+        targets = rng.normal(size=(OBJ_FRAMES, 3)).astype(np.float32)
+        if not ((labels == 1).any() and (labels == 2).any()):
+            fail("phase 11: a basin is missing from the labels")
+        for name, arr in (("weights", weights), ("labels", labels),
+                          ("targets", targets)):
+            np.save(os.path.join(d, f"{name}.npy"), arr)
+        ds = T.TrajectoryDataset(os.path.join(d, "traj.npy"))
+
+        def first_batch(loss, use_weights):
+            """The command's first batch, on the card."""
+            if loss in ("vamp", "tae"):
+                b = next(T.lagged_pair_iterator(ds, OBJ_BATCH, OBJ_LAG,
+                                                seed=0))
+                return tuple(torch.as_tensor(a, device=dev) for a in b)
+            x, idx = next(T.batch_iterator(ds, OBJ_BATCH, seed=0,
+                                           return_indices=True))
+            side = {"mse": [targets[idx]],
+                    "committor": [labels[idx]]}.get(loss, [])
+            if use_weights:
+                side.append(weights[idx])
+            if not side:
+                return torch.as_tensor(x, device=dev)
+            return tuple(torch.as_tensor(a, device=dev) for a in (x, *side))
+
+        devices = set()
+        hook = register_optimizer_step_post_hook(
+            lambda opt, args, kwargs: devices.update(
+                p.device.type for g in opt.param_groups for p in g["params"]))
+        try:
+            for name, loss, flags in OBJ_RUNS:
+                flags = [f.format(d=d) for f in flags]
+                out = os.path.join(d, f"{loss}_{len(records)}.npz")
+                argv = ["train", os.path.join(d, "model.npz"),
+                        os.path.join(d, "traj.npy"), "--loss", loss,
+                        "--steps", str(OBJ_STEPS), "--batch-size",
+                        str(OBJ_BATCH), "--log-every", "1", "--device",
+                        dev.type, "--out", out, *flags]
+                stream = _TimedLines()
+                devices.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(stream):
+                    rc = cli_main(argv)
+                torch.cuda.synchronize()
+                t_run = time.perf_counter() - t0
+                launched = dict(F.KERNEL_LAUNCHES)
+                if rc != 0:
+                    fail(f"phase 11, {name}: the train command returned {rc}")
+                if launched != counts():
+                    fail(f"phase 11, {name}: the eager objectives launched "
+                         f"fused kernels: {launched}")
+                if devices != {dev.type}:
+                    fail(f"phase 11, {name}: parameters trained on "
+                         f"{sorted(devices)}, not on the card")
+                steps = [(t, float(line.split("loss=")[1].split()[0]))
+                         for t, line in stream.lines
+                         if line.startswith("step ")]
+                n_steps = OBJ_ENSEMBLE_STEPS if "--ensemble" in flags \
+                    else OBJ_STEPS
+                losses = [v for _, v in steps]
+                if len(losses) != n_steps or not np.isfinite(losses).all():
+                    fail(f"phase 11, {name}: losses {losses}")
+                steps_per_s = (n_steps - 1) / (steps[-1][0] - steps[0][0])
+                if "--ensemble" in flags:
+                    stem = out[:-len(".npz")]
+                    members = [load_model(f"{stem}.member{i}.npz", device=dev)
+                               for i in range(4)]
+                    x = first_batch(loss, False)[:SAMPLE_ROWS]
+                    with torch.no_grad():
+                        mean, std = T.committee(members, x)
+                        members64 = [load_model(f"{stem}.member{i}.npz",
+                                                device="cpu").double()
+                                     for i in range(4)]
+                        mean64, std64 = T.committee(members64,
+                                                    x.double().cpu())
+                    err = max(float((mean.double().cpu() - mean64).abs().max()),
+                              float((std.double().cpu() - std64).abs().max()))
+                    if not err <= VAL_TOL:
+                        fail(f"phase 11, {name}: committee on the card vs "
+                             f"float64 on the CPU: {err}")
+                    if not float(std.max()) > 0:
+                        fail(f"phase 11, {name}: the members agree exactly")
+                    rec = {"committee_max_abs_err": err}
+                else:
+                    load_model(out, device=dev)
+                    if "--decoder-out" in flags:
+                        load_model(flags[flags.index("--decoder-out") + 1],
+                                   device=dev)
+                    rec = plain_check(name, loss, flags, d, dev, first_batch)
+                records.append({
+                    "objective": name, "steps": n_steps,
+                    "steps_per_s": steps_per_s, "run_s": t_run,
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    **rec, "launches": sum(launched.values()),
+                    "diagnostics": stream.lines[-1][1], "card": card})
+                print(json.dumps(records[-1]))
+        finally:
+            hook.remove()
+
+
+def step_profile(fn, calls=3):
+    """One call of ``fn`` on the card: its time on the host's clock up to a
+    synchronise, the device time of its kernels (``torch.profiler``) and
+    their count, each a call's mean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = kernels = 0.0
+    for event in prof.key_averages():
+        t = getattr(event, "device_time_total", None)
+        t = event.cuda_time_total if t is None else t
+        if t > 0:
+            busy += t
+            kernels += event.count
+    return {"step_wall_ms": wall, "step_device_ms": busy / calls / 1e3,
+            "step_kernels": kernels / calls,
+            "device_busy": busy / calls / 1e3 / wall}
+
+
+def plain_check(name, loss, flags, d, dev, first_batch):
+    """The objective's loss and parameter gradients on the command's first
+    batch, on the card, against the eager float64 CPU version."""
+    from molann_tpu_torch.io import load_model
+    from molann_tpu_torch.models.ann import create_sequential_nn
+
+    model = load_model(os.path.join(d, "model.npz"), device=dev)
+    dec = create_sequential_nn([3, 38],
+                               generator=torch.Generator().manual_seed(1),
+                               device=dev)
+    batch = first_batch(loss, "--weights" in flags)
+    if loss == "autoencoder" and not isinstance(batch, tuple):
+        batch = (batch, None)
+    pair = (model, dec)
+    params = [p for m in pair for p in m.parameters()]
+    got = objective_loss(loss, pair, batch)
+    grads = torch.autograd.grad(got, params, allow_unused=True)
+    pair64 = tuple(copy.deepcopy(m).to("cpu", torch.float64) for m in pair)
+    params64 = [p for m in pair64 for p in m.parameters()]
+
+    def to64(a):
+        if a is None or not a.is_floating_point():
+            return None if a is None else a.cpu()
+        return a.double().cpu()
+
+    batch64 = (tuple(to64(a) for a in batch) if isinstance(batch, tuple)
+               else to64(batch))
+    want = objective_loss(loss, pair64, batch64)
+    grads64 = torch.autograd.grad(want, params64, allow_unused=True)
+    rel = abs(got.item() - want.item()) / abs(want.item())
+    if not rel <= LOSS_RTOL:
+        fail(f"phase 11, {name}: loss on the card {got.item()} vs float64 "
+             f"{want.item()}")
+    pairs = [(g, r) for g, r in zip(grads, grads64) if r is not None]
+    if any(g is None for g, _ in pairs):
+        fail(f"phase 11, {name}: a parameter lost its gradient on the card")
+    got_g, want_g = [g for g, _ in pairs], [r.to(dev) for _, r in pairs]
+    # the step's loss and gradients alone (no fetch, no optimizer)
+    prof = step_profile(lambda: torch.autograd.grad(
+        objective_loss(loss, pair, batch), params, allow_unused=True))
+    return {**prof, "loss_rel_err": rel,
+            "grad_max_abs_err": worst(got_g, want_g,
+                                      f"phase 11, {name}, gradients"),
+            "grad_rel_err": rel_err(got_g, want_g)}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1821,6 +2120,8 @@ def main():
     edge_kernel = edge_phase(dev, card)
     # 10. coordination features in the unrolled kernels
     coordination_phase(dev)
+    # 11. the CV-learning objectives through the train command
+    objectives_phase(dev, card)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]

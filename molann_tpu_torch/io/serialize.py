@@ -91,6 +91,8 @@ def _bare(cls):
 
 def _from_dict(d, arrays, device):
     kind = d["kind"]
+    if kind == "Tuple":
+        return tuple(_from_dict(item, arrays, device) for item in d["items"])
     if kind == "MolANN":
         return MolANN(_from_dict(d["preprocessing_layer"], arrays, device),
                       _from_dict(d["ann_layers"], arrays, device))
@@ -196,6 +198,8 @@ def _spec_to_dict(spec: CompiledFeatures):
 
 
 def _to_dict(obj, saver):
+    if isinstance(obj, (tuple, list)):
+        return {"kind": "Tuple", "items": [_to_dict(o, saver) for o in obj]}
     if isinstance(obj, MolANN):
         return {"kind": "MolANN",
                 "preprocessing_layer": _to_dict(obj.preprocessing_layer, saver),
@@ -234,7 +238,8 @@ def _to_dict(obj, saver):
 
 
 def save_model(path, model):
-    """Save a port model (MolANN or any of its layers) as format v1, which
+    """Save a port model (MolANN or any of its layers, or a tuple of them,
+    such as a ``(model, decoder)`` pair) as format v1, which
     ``molann_tpu.io.load_model`` and :func:`load_model` read. Returns
     ``path``."""
     saver = _Saver()

@@ -80,7 +80,13 @@ def model_dims(model):
 
 def named_tensors(model):
     """``[(name, tensor)]`` of a model's parameters, then its buffers (the
-    alignment ``ref_x``): the leaves a JAX model's pytree holds."""
+    alignment ``ref_x``): the leaves a JAX model's pytree holds. A tuple or
+    list of models (the ``(model, decoder)`` pair the autoencoder losses
+    train) gives each member's tensors under its index,
+    ``0.ann_layers.layers.0.weight``, ``1.layers.0.weight``."""
+    if isinstance(model, (tuple, list)):
+        return [(f"{i}.{name}", t) for i, m in enumerate(model)
+                for name, t in named_tensors(m)]
     return [*model.named_parameters(), *model.named_buffers()]
 
 

@@ -6,15 +6,17 @@ rather than imported: they use numpy only, and importing any ``molann_tpu``
 module imports JAX. The same seed gives the same batches as the JAX
 package. Frames are ``.npy`` arrays ``[n_frames, n_atoms, 3]`` (float32),
 memory-mapped, so a trajectory larger than host memory streams batch by
-batch. ``lagged_pair_iterator`` and ``packed_batch_iterator`` are not
-ported yet (ROADMAP.md, queue 2).
+batch. ``lagged_pair_iterator`` (``data.py:113``) yields the JAX package's
+pairs and weights for the same seed. ``packed_batch_iterator`` waits for
+the trajectory readers (ROADMAP.md, queue 2, item 4).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["TrajectoryDataset", "batch_iterator", "save_trajectory"]
+__all__ = ["TrajectoryDataset", "batch_iterator", "lagged_pair_iterator",
+           "save_trajectory"]
 
 
 def save_trajectory(path, frames):
@@ -92,4 +94,43 @@ def batch_iterator(dataset, batch_size, *, shuffle=True, seed=0,
         if not drop_remainder and rem:
             # the tail is trimmed to multiple_of as well
             yield emit(np.sort(order[n - n % batch_size:][:rem]))
+        epoch += 1
+
+
+def lagged_pair_iterator(dataset, batch_size, lag, *, shuffle=True,
+                         seed=0, epochs=None, multiple_of=1,
+                         weights=None):
+    """Yield time-lagged pairs ``(x_t [b, n, 3], x_{t+lag} [b, n, 3])``
+    (numpy) for VAMP and TICA training (:mod:`.timelagged`).
+
+    Start frames are drawn from ``[0, n_frames - lag)``: the trajectory must
+    be one contiguous time series. With per-frame ``weights [n_frames]``,
+    yields ``(x_t, x_tau, w_t)`` weighted at the pair's start frame.
+    ``epochs=None`` iterates forever.
+    """
+    n = len(dataset)
+    lag = int(lag)
+    if lag < 1 or lag >= n:
+        raise ValueError(f"lag must be in [1, n_frames) = [1, {n}), "
+                         f"got {lag}")
+    n_pairs = n - lag
+    batch_size = _effective_batch(batch_size, n_pairs, multiple_of,
+                                  "lagged pairs")
+    if weights is not None:
+        weights = np.asarray(weights, dtype=np.float32)
+        if weights.shape != (n,):
+            raise ValueError(
+                f"weights must be [n_frames]={n}, got {weights.shape}")
+    rng = np.random.default_rng(seed)
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(n_pairs) if shuffle else np.arange(n_pairs)
+        for start in range(0, n_pairs - batch_size + 1, batch_size):
+            idx = np.sort(order[start:start + batch_size])
+            x_t = dataset[idx]
+            x_tau = dataset[idx + lag]
+            if weights is not None:
+                yield x_t, x_tau, weights[idx]
+            else:
+                yield x_t, x_tau
         epoch += 1

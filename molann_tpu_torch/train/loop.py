@@ -13,7 +13,11 @@ travels through the step in the place of optax's ``opt_state``::
 
 The alignment reference ``ref_x`` is a buffer, frozen by the default mask,
 as it is in the reference (molann/ann.py:137). A step updates the model in
-place. ``mesh=`` (data parallelism) is not ported yet.
+place. A model may be a tuple of modules, such as the ``(model, decoder)``
+pair the autoencoder losses train, as JAX's ``fit`` trains a pytree: its
+tensors are named by :func:`~molann_tpu_torch.models.ann.named_tensors`.
+A batch is a tuple of arrays or one array. ``mesh=`` (data parallelism) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -57,7 +61,16 @@ def _model_device(model):
 
 
 def _to_device(batch, device):
-    return tuple(torch.as_tensor(b, device=device) for b in batch)
+    """A batch on ``device``: a tuple or list of arrays element by element,
+    and one array (the bare ``x`` of the eigenfunction loss) whole."""
+    if isinstance(batch, (tuple, list)):
+        return tuple(torch.as_tensor(b, device=device) for b in batch)
+    return torch.as_tensor(batch, device=device)
+
+
+def _zero_grad(model):
+    for _, t in named_tensors(model):
+        t.grad = None
 
 
 def trainable_mask(model, predicate: Callable | None = None):
@@ -101,7 +114,7 @@ def make_train_step(loss_fn, mesh=None):
 
     def step(model, opt, batch):
         batch = _to_device(batch, _model_device(model))
-        model.zero_grad(set_to_none=True)
+        _zero_grad(model)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch)
         loss.backward()

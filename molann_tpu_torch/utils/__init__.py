@@ -1,0 +1,3 @@
+"""Utilities of the port: tracing and throughput (:mod:`.profiling`)."""
+
+from .profiling import ThroughputMeter, annotate, capture_trace  # noqa: F401

@@ -127,7 +127,12 @@ def test_import_needs_no_jax_or_pandas():
             "molann_tpu_torch.io, molann_tpu_torch.systems, "
             "molann_tpu_torch.train, molann_tpu_torch.ops._build, "
             "molann_tpu_torch.ops.fused_blocked, "
-            "molann_tpu_torch.probes.blocked_probe; "
+            "molann_tpu_torch.probes.blocked_probe, "
+            "molann_tpu_torch.cli, molann_tpu_torch.cli.train, "
+            "molann_tpu_torch.__main__, molann_tpu_torch.utils.profiling, "
+            "molann_tpu_torch.train.losses, molann_tpu_torch.train.timelagged, "
+            "molann_tpu_torch.train.discriminant, "
+            "molann_tpu_torch.train.ensemble, molann_tpu_torch.train.optim; "
             "bad = [m for m in ('jax', 'pandas', 'molann_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

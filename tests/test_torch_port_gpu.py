@@ -1203,3 +1203,93 @@ def test_deep_heads_through_the_blocked_kernels(cuda, hidden_dims,
     for kind in ("blocked_forward", "blocked_cv_forces", "blocked_backward",
                  "blocked_train"):
         assert F.KERNEL_LAUNCHES[kind] > before[kind]
+
+
+OBJECTIVES = ("mse", "eigenfunction", "committor", "vamp", "autoencoder",
+              "tae")
+
+
+def _objective(name, pair, x, data):
+    """The loss of one objective on ``x`` (a ``[l, n, 3]`` tensor), with the
+    per-frame ``data`` (targets, weights, labels) on x's device."""
+    from molann_tpu_torch import train as T
+
+    model, dec = pair
+    y, w, labels = (data[k].to(x.device) for k in ("y", "w", "labels"))
+    if name == "mse":
+        return T.mse_loss(model, (x, y.to(x.dtype)))
+    if name == "eigenfunction":
+        return T.eigenfunction_loss(model, x, beta=2.0, weights=w)
+    if name == "committor":
+        return T.committor_loss(model, x, labels, weights=w)
+    if name == "vamp":
+        return T.vamp2_loss(model, x[:-10], x[10:], weights=w[:-10])
+    if name == "autoencoder":
+        return T.autoencoder_loss(model.ann_layers, dec,
+                                  model.preprocessing_layer, x, weights=w)
+    return T.timelagged_autoencoder_loss(
+        model.ann_layers, dec, model.preprocessing_layer, x[:-10], x[10:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OBJECTIVES)
+def test_objectives_on_the_card_match_the_cpu(cuda, name):
+    """Each CV-learning objective's loss and parameter gradients (second
+    order for the eigenfunction and committor losses) on the card against
+    the eager float64 CPU version; no fused kernel is launched."""
+    import copy
+
+    from molann_tpu_torch.models.ann import create_sequential_nn
+
+    model, u = alanine_model(generator=torch.Generator().manual_seed(12),
+                             device=cuda)
+    dec = create_sequential_nn([3, 38],
+                               generator=torch.Generator().manual_seed(13),
+                               device=cuda)
+    x = _frames(u, 2048, cuda, seed=14)
+    rng = np.random.default_rng(15)
+    data = {"y": torch.as_tensor(rng.normal(size=(2048, 3))),
+            "w": torch.as_tensor(rng.uniform(0.5, 2.0, 2048)),
+            "labels": torch.as_tensor(rng.choice([0, 1, 2], 2048))}
+    before = dict(F.KERNEL_LAUNCHES)
+    pair = (model, dec)
+    params = [p for m in pair for p in m.parameters()]
+    loss = _objective(name, pair, x, {k: v.float() if k == "w" else v
+                                      for k, v in data.items()})
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    pair64 = tuple(copy.deepcopy(m).to("cpu", torch.float64) for m in pair)
+    params64 = [p for m in pair64 for p in m.parameters()]
+    loss64 = _objective(name, pair64, x.double().cpu(), data)
+    grads64 = torch.autograd.grad(loss64, params64, allow_unused=True)
+    assert F.KERNEL_LAUNCHES == before
+    assert torch.isfinite(loss)
+    np.testing.assert_allclose(loss.item(), loss64.item(), rtol=LOSS_RTOL)
+    for g, g64 in zip(grads, grads64):
+        if g64 is None:
+            assert g is None
+            continue
+        _close(g, g64)
+
+
+@pytest.mark.gpu
+def test_train_command_on_the_card(cuda, tmp_path):
+    """``main(["train", ..., "--device", "cuda"])`` for the eigenfunction
+    loss on a small trajectory: trains on the card, writes a model that
+    loads, and launches no fused kernel."""
+    from molann_tpu_torch.cli import main
+    from molann_tpu_torch.io import load_model, save_model
+
+    model, u = alanine_model(generator=torch.Generator().manual_seed(16),
+                             device="cpu")
+    save_model(str(tmp_path / "m.npz"), model)
+    np.save(tmp_path / "t.npy", _frames(u, 1024, "cpu", seed=17).numpy())
+    before = dict(F.KERNEL_LAUNCHES)
+    rc = main(["train", str(tmp_path / "m.npz"), str(tmp_path / "t.npy"),
+               "--loss", "eigenfunction", "--steps", "5", "--batch-size",
+               "256", "--log-every", "0", "--device", "cuda",
+               "--out", str(tmp_path / "out.npz")])
+    assert rc == 0
+    assert F.KERNEL_LAUNCHES == before
+    trained = load_model(str(tmp_path / "out.npz"), device=cuda)
+    assert not torch.equal(trained.ann_layers.layers[0].weight.cpu(),
+                           model.ann_layers.layers[0].weight)

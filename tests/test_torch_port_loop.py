@@ -12,30 +12,39 @@ outputs of a reloaded model 1e-6.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 
+from molann_tpu.ann import create_sequential_nn as jcreate_sequential_nn
 from molann_tpu.io import load_model as jload_model
 from molann_tpu.io import save_model as jsave_model
 from molann_tpu.systems import alanine_model as jalanine_model
+from molann_tpu.train import autoencoder_loss as jautoencoder_loss
 from molann_tpu.train import fit as jfit
+from molann_tpu.train import make_eigenfunction_loss as jmake_eigenfunction_loss
 from molann_tpu.train import mse_loss as jmse_loss
 from molann_tpu.train.data import TrajectoryDataset as JTrajectoryDataset
 from molann_tpu.train.data import batch_iterator as jbatch_iterator
 from molann_tpu_torch.io import load_model, save_model
+from molann_tpu_torch.models.ann import named_tensors
 from molann_tpu_torch.systems import alanine_model
 from molann_tpu_torch.train import (
     TrajectoryDataset,
+    autoencoder_loss,
     batch_iterator,
     fit,
     latest_checkpoint,
+    load_training_state,
+    make_eigenfunction_loss,
     make_fused_train_step,
     make_train_step,
     masked_optimizer,
     mse_loss,
+    save_training_state,
     save_trajectory,
     trainable_mask,
 )
@@ -222,3 +231,113 @@ def test_masks(setup):
     before = load_model(path, device="cpu").preprocessing_layer.align_layer.ref_x
     assert not torch.equal(refs[0], before)
     np.testing.assert_allclose(refs[1].numpy(), refs[0].numpy(), atol=TOL)
+
+
+def _check_mlp(lins, jparams):
+    for lin, (w, b) in zip(lins, jparams):
+        np.testing.assert_allclose(lin.weight.detach().numpy(),
+                                   np.asarray(w).T, atol=TOL)
+        np.testing.assert_allclose(lin.bias.detach().numpy(), np.asarray(b),
+                                   atol=TOL)
+
+
+def test_fit_on_bare_batches_matches_jax(setup):
+    """A batch that is one array (the eigenfunction loss's bare ``x``) moves
+    to the device whole, not split into its frames: five Adam steps of
+    ``fit(model, make_eigenfunction_loss(), ...)`` against JAX ``fit``."""
+    jm, path, frames, _ = setup
+
+    def bare(iterator):
+        return iterator(frames, 16, seed=2)
+
+    jres = jfit(jm, jmake_eigenfunction_loss(alpha=5.0),
+                bare(jbatch_iterator), optimizer=optax.adam(1e-3),
+                num_steps=5)
+    res = fit(load_model(path, device="cpu"),
+              make_eigenfunction_loss(alpha=5.0), bare(batch_iterator),
+              num_steps=5)
+    np.testing.assert_allclose(res.losses, jres.losses, rtol=TOL, atol=TOL)
+    # the output bias shifts every CV by a constant, which the loss's
+    # centred covariance and gradients do not see: its gradient is 0 up to
+    # rounding, which Adam scales up to steps of lr, so it is held to
+    # Adam's bound on 5 steps rather than to JAX's rounding
+    lins = res.model.ann_layers.layers
+    jparams = jres.model.ann_layers.params
+    _check_mlp(lins[:-1], jparams[:-1])
+    np.testing.assert_allclose(lins[-1].weight.detach().numpy(),
+                               np.asarray(jparams[-1][0]).T, atol=TOL)
+    b0 = np.asarray(jm.ann_layers.params[-1][1])
+    for b in (lins[-1].bias.detach().numpy(), np.asarray(jparams[-1][1])):
+        assert np.abs(b - b0).max() <= 5 * 1e-3 * (1 + 1e-6)
+
+
+def _ae_loss(pair, x):
+    m, dec = pair
+    return autoencoder_loss(m.ann_layers, dec, m.preprocessing_layer, x)
+
+
+def _jae_loss(pair, x):
+    m, dec = pair
+    return jautoencoder_loss(m.ann_layers, dec, m.preprocessing_layer, x)
+
+
+@pytest.fixture(scope="module")
+def pair_path(setup, tmp_path_factory):
+    jm = setup[0]
+    jdec = jcreate_sequential_nn([3, 6, 38], key=jax.random.PRNGKey(7))
+    path = str(tmp_path_factory.mktemp("pair") / "pair.npz")
+    return jsave_model(path, (jm, jdec)), (jm, jdec)
+
+
+def test_pair_masks_and_fit_match_jax(setup, pair_path):
+    """A ``(model, decoder)`` pair trains as one model, as JAX's pytree
+    ``fit`` does: names carry the tuple index, the default mask freezes
+    ``ref_x`` and trains both MLPs."""
+    frames = setup[2]
+    path, jpair = pair_path
+    pair = load_model(path, device="cpu")
+    assert isinstance(pair, tuple) and len(pair) == 2
+    mask = trainable_mask(pair)
+    assert mask["0.ann_layers.layers.0.weight"]
+    assert mask["1.layers.0.weight"] and mask["1.layers.1.bias"]
+    assert not mask["0." + REF]
+    assert sum(mask.values()) == 8 and len(mask) == 9
+    opt = masked_optimizer(torch.optim.Adam, mask)(pair)
+    assert len(opt.param_groups[0]["params"]) == 8
+
+    jres = jfit(jpair, _jae_loss, jbatch_iterator(frames, 16, seed=6),
+                optimizer=optax.adam(1e-3), num_steps=5)
+    res = fit(pair, _ae_loss, batch_iterator(frames, 16, seed=6),
+              num_steps=5)
+    np.testing.assert_allclose(res.losses, jres.losses, rtol=TOL, atol=TOL)
+    _check_mlp(res.model[0].ann_layers.layers,
+               jres.model[0].ann_layers.params)
+    _check_mlp(res.model[1].layers, jres.model[1].params)
+    np.testing.assert_array_equal(
+        res.model[0].preprocessing_layer.align_layer.ref_x.numpy(),
+        np.asarray(jpair[0].preprocessing_layer.align_layer.ref_x))
+
+
+def test_pair_checkpoint_resumes_bit_identical(setup, pair_path, tmp_path):
+    frames = setup[2]
+    path = pair_path[0]
+    full = fit(load_model(path, device="cpu"), _ae_loss,
+               batch_iterator(frames, 16, seed=8), num_steps=8)
+    ckpt = str(tmp_path / "ckpt")
+    first = fit(load_model(path, device="cpu"), _ae_loss,
+                batch_iterator(frames, 16, seed=8), num_steps=4,
+                checkpoint_dir=ckpt, checkpoint_every=4)
+    resumed = fit(load_model(path, device="cpu"), _ae_loss,
+                  batch_iterator(frames, 16, seed=8), num_steps=8,
+                  checkpoint_dir=ckpt)
+    assert first.losses + resumed.losses == full.losses
+    assert isinstance(resumed.model, tuple)
+    for a, b in zip(named_tensors(resumed.model), named_tensors(full.model)):
+        assert a[0] == b[0] and torch.equal(a[1], b[1])
+    # the pair's state round-trips through the checkpoint functions
+    build = masked_optimizer(torch.optim.Adam, trainable_mask(full.model))
+    opt = build(full.model)
+    prefix = save_training_state(str(tmp_path / "again"), full.model, opt, 3)
+    model, opt2, step = load_training_state(prefix, build, device="cpu")
+    assert step == 3 and isinstance(model, tuple)
+    assert len(opt2.param_groups[0]["params"]) == 8
