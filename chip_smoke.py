@@ -106,7 +106,9 @@ Runs the port's serving path on the card and checks it, phase by phase:
    loss and parameter gradients (second order for the eigenfunction and
    committor losses) on the command's first batch are held against the
    eager float64 CPU version, the committee's mean and std against the
-   same members on the CPU. One JSON line per run: steps/s between the
+   same members on the CPU, and the weights the ``rmsprop`` run wrote
+   against its 20 steps replayed with float64 on the CPU (the same
+   optimizer, weights and batches). One JSON line per run: steps/s between the
    first and the last step's log line (each logged loss is a
    synchronise), the loss trace's ends, the errors, the diagnostics, and
    the first batch's loss and gradients alone: host-clock ms, the device
@@ -134,7 +136,8 @@ tests/test_condensed.py:101-118); gradients 2e-4·max(1, max|g|)
 (tests/test_parity_torch.py:25,52); losses 1e-5 relative against float64
 (the per-frame float32 values differ from float64 by up to ~2e-7); phase
 11's objectives: losses 1e-5 relative and parameter gradients
-2e-4·max(1, max|g|) against float64 on the CPU, committee mean and std 1e-5.
+2e-4·max(1, max|g|) against float64 on the CPU, committee mean and std 1e-5,
+the weights after the replayed steps 2e-4·max(1, max|w|).
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 Imports no JAX. Usage: ``python3 chip_smoke.py``.
@@ -1651,6 +1654,9 @@ def objectives_phase(dev, card):
                         load_model(flags[flags.index("--decoder-out") + 1],
                                    device=dev)
                     rec = plain_check(name, loss, flags, d, dev, first_batch)
+                    if "--optimizer" in flags:
+                        rec.update(optimizer_replay(name, argv, out, d,
+                                                    labels, ds))
                 records.append({
                     "objective": name, "steps": n_steps,
                     "steps_per_s": steps_per_s, "run_s": t_run,
@@ -1735,6 +1741,45 @@ def plain_check(name, loss, flags, d, dev, first_batch):
             "grad_max_abs_err": worst(got_g, want_g,
                                       f"phase 11, {name}, gradients"),
             "grad_rel_err": rel_err(got_g, want_g)}
+
+
+def optimizer_replay(name, argv, out, d, labels, ds):
+    """The committor run's steps again with float64 on the CPU: the same
+    optimizer from the same flags, the same weights and the same batches
+    (the command's ``(x, labels)`` from ``batch_iterator``). The weights
+    the card wrote must agree with the replay's within the gradient
+    tolerance."""
+    import argparse
+
+    from molann_tpu_torch import train as T
+    from molann_tpu_torch.cli import train as CT
+    from molann_tpu_torch.io import load_model
+
+    p = argparse.ArgumentParser()
+    CT.register(p.add_subparsers())
+    args = p.parse_args(argv)
+    if args.loss != "committor" or args.weights:
+        fail(f"phase 11, {name}: the replay makes the committor's (x, "
+             f"labels) batches only")
+    model = load_model(os.path.join(d, "model.npz"), device="cpu").double()
+    batches = ((torch.as_tensor(x, dtype=torch.float64),
+                torch.as_tensor(labels[idx]))
+               for x, idx in T.batch_iterator(ds, args.batch_size,
+                                              seed=args.seed,
+                                              return_indices=True))
+    res = T.fit(model, lambda m, b: objective_loss(args.loss, (m, None), b),
+                batches, optimizer=CT._make_optimizer(args),
+                num_steps=args.steps)
+    want = res.model.state_dict()
+    got = load_model(out, device="cpu").state_dict()
+    if list(got) != list(want):
+        fail(f"phase 11, {name}: the written model's tensors {list(got)} "
+             f"are not the replay's {list(want)}")
+    got, want = list(got.values()), list(want.values())
+    return {"replay_weights_max_abs_err": worst(
+                got, want, f"phase 11, {name}, weights against the float64 "
+                           f"replay"),
+            "replay_weights_rel_err": rel_err(got, want)}
 
 
 def main():

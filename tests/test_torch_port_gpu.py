@@ -1274,8 +1274,9 @@ def test_objectives_on_the_card_match_the_cpu(cuda, name):
 @pytest.mark.gpu
 def test_train_command_on_the_card(cuda, tmp_path):
     """``main(["train", ..., "--device", "cuda"])`` for the eigenfunction
-    loss on a small trajectory: trains on the card, writes a model that
-    loads, and launches no fused kernel."""
+    loss on a small trajectory, with ``rmsprop``, ``warmup-cosine`` and a
+    clip: trains on the card, writes a model that loads, launches no fused
+    kernel, and writes the weights the same command writes on the CPU."""
     from molann_tpu_torch.cli import main
     from molann_tpu_torch.io import load_model, save_model
 
@@ -1283,13 +1284,25 @@ def test_train_command_on_the_card(cuda, tmp_path):
                              device="cpu")
     save_model(str(tmp_path / "m.npz"), model)
     np.save(tmp_path / "t.npy", _frames(u, 1024, "cpu", seed=17).numpy())
+
+    def run(device):
+        return main(["train", str(tmp_path / "m.npz"),
+                     str(tmp_path / "t.npy"), "--loss", "eigenfunction",
+                     "--steps", "5", "--batch-size", "256", "--log-every",
+                     "0", "--optimizer", "rmsprop", "--lr-schedule",
+                     "warmup-cosine", "--warmup-steps", "2", "--grad-clip",
+                     "1", "--device", device,
+                     "--out", str(tmp_path / f"{device}.npz")])
+
     before = dict(F.KERNEL_LAUNCHES)
-    rc = main(["train", str(tmp_path / "m.npz"), str(tmp_path / "t.npy"),
-               "--loss", "eigenfunction", "--steps", "5", "--batch-size",
-               "256", "--log-every", "0", "--device", "cuda",
-               "--out", str(tmp_path / "out.npz")])
-    assert rc == 0
+    assert run("cuda") == 0
     assert F.KERNEL_LAUNCHES == before
-    trained = load_model(str(tmp_path / "out.npz"), device=cuda)
+    trained = load_model(str(tmp_path / "cuda.npz"), device=cuda)
     assert not torch.equal(trained.ann_layers.layers[0].weight.cpu(),
                            model.ann_layers.layers[0].weight)
+    assert run("cpu") == 0
+    want = load_model(str(tmp_path / "cpu.npz"), device="cpu").state_dict()
+    got = trained.state_dict()
+    assert list(got) == list(want)
+    for name in want:
+        _close(got[name], want[name].double())
