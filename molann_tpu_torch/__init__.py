@@ -10,7 +10,7 @@ pandas only inside ``get_feature_info``. The JAX package ``molann_tpu`` is
 the reference the port is held against; see ROADMAP.md for what is ported.
 """
 
-from . import ann, feature, ops, spec, topology  # noqa: F401
+from . import ann, feature, ops, pbc, spec, topology  # noqa: F401
 from .ann import (  # noqa: F401
     AlignmentLayer,
     FeatureLayer,
@@ -22,7 +22,12 @@ from .ann import (  # noqa: F401
     create_sequential_nn,
 )
 from .feature import Feature, FeatureFileReader  # noqa: F401
-from .ops.fused import fused_cv_forces, fused_model_forward  # noqa: F401
+from .ops.fused import (  # noqa: F401
+    active_atom_indices,
+    fused_cv_forces,
+    fused_model_forward,
+    fused_train_grads,
+)
 from .topology import Atom, AtomGroup, Universe  # noqa: F401
 
 __version__ = "0.1.0"
@@ -42,5 +47,7 @@ __all__ = [
     "AtomGroup",
     "Universe",
     "fused_model_forward",
+    "active_atom_indices",
     "fused_cv_forces",
+    "fused_train_grads",
 ]

@@ -1,15 +1,28 @@
 """Command-line tools of the port: ``python -m molann_tpu_torch``.
 
-The port of ``molann_tpu/cli/``. One subcommand is ported so far::
+The port of ``molann_tpu/cli/``, with the JAX commands' flags, messages,
+output files and exit codes::
 
+    python -m molann_tpu_torch info model.npz
+    python -m molann_tpu_torch evaluate model.npz traj.dcd --out cvs.npy
+    python -m molann_tpu_torch forces model.npz traj.xtc --component 0 \\
+        --out cv0.npy --forces-out f.npy
+    python -m molann_tpu_torch committee m0.npz m1.npz m2.npz traj.npy \\
+        --calibrate train.npy --out mean.npy --std-out std.npy
+    python -m molann_tpu_torch convert traj.dcd traj.xtc
+    python -m molann_tpu_torch unwrap wrapped.xtc system.pdb whole.xtc \\
+        --mode whole+nojump
     python -m molann_tpu_torch train model.npz traj.npy --loss eigenfunction \\
         --beta 4 --weights w.npy --steps 2000 --out trained.npz
 
-It trains on the CUDA card unless ``--device cpu`` is given; without a
-card it fails rather than fall back to the host. The JAX package's other
-subcommands (``info``, ``evaluate``, ``forces``, ``committee``, ``build``,
-``sample``, ...) exit with status 2 until they are ported (ROADMAP.md,
-queue 2, item 8).
+Trajectories are ``.npy`` ([n_frames, n_atoms, 3] or packed [n_frames,
+3n] float32), ``.dcd``, ``.trr``, ``.xtc`` or Amber ``.nc``, read by the
+native loader (``--backend native``) or the numpy decoders. ``evaluate``,
+``forces``, ``committee``, ``unwrap`` and ``train`` run on the CUDA card
+unless ``--device cpu`` is given; without a card they fail rather than
+fall back to the host. ``info`` and ``convert`` are host work. The JAX
+package's other subcommands exit with status 2 until they are ported
+(ROADMAP.md, queue 2, item 8).
 """
 
 from __future__ import annotations
@@ -18,13 +31,12 @@ import argparse
 import sys
 
 # the JAX package's subcommands that the port does not have yet
-NOT_PORTED = ("info", "evaluate", "forces", "committee", "export",
-              "import-torch", "export-torch", "build", "sample", "fes",
-              "reweight", "mep", "pmf", "msm", "convert", "unwrap")
+NOT_PORTED = ("export", "import-torch", "export-torch", "build", "sample",
+              "fes", "reweight", "mep", "pmf", "msm")
 
 
 def main(argv=None):
-    from . import train
+    from . import evaluate, traj, train
 
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
@@ -37,7 +49,9 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", required=True)
-    train.register(sub)
+    # registration order = --help listing order, as in the JAX package
+    for mod in (evaluate, traj, train):
+        mod.register(sub)
     args = p.parse_args(argv)
     try:
         return args.fn(args)

@@ -13,7 +13,7 @@ import sys
 
 import numpy as np
 
-from ._common import _load_model
+from ._common import _device, _load_model, add_device_arg
 
 
 def _make_optimizer(args):
@@ -61,7 +61,6 @@ def cmd_train(args):
     weighted objectives take per-frame importance weights."""
     import torch
 
-    from .._device import resolve_device
     from ..io import save_model
     from ..train import (
         TrajectoryDataset,
@@ -71,11 +70,7 @@ def cmd_train(args):
         mse_loss,
     )
 
-    device = resolve_device(args.device)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices N > 1 (data-parallel training) is not ported to "
-            "molann_tpu_torch yet (ROADMAP.md, queue 2, item 5)")
+    device = _device(args)
     if args.bagging and not args.ensemble:
         print("error: --bagging requires --ensemble K", file=sys.stderr)
         return 1
@@ -390,9 +385,7 @@ def register(sub):
     pt.add_argument("--devices", type=int, default=0,
                     help="shard batches over N devices (data-parallel; "
                          "N > 1 is not ported yet)")
-    pt.add_argument("--device", default="cuda",
-                    help="torch device to train on (default: the CUDA "
-                         "card, an error without one; 'cpu' for the host)")
+    add_device_arg(pt, "train")
     pt.add_argument("--checkpoint-dir", default=None)
     pt.add_argument("--checkpoint-every", type=int, default=0)
     pt.add_argument("--log-every", type=int, default=100)

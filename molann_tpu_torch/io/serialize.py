@@ -36,7 +36,7 @@ from ..models.ann import (
 from ..spec import CompiledFeatures
 from ..topology import FrozenAtomGroup
 
-__all__ = ["save_model", "load_model", "model_from_arrays",
+__all__ = ["save_model", "load_model", "ACTIVATIONS", "model_from_arrays",
            "FORMAT_VERSION"]
 
 FORMAT_VERSION = 1

@@ -13,3 +13,17 @@ from .ann import (  # noqa: F401
     model_dims,
     named_tensors,
 )
+
+__all__ = [
+    "AlignmentLayer",
+    "FeatureMap",
+    "FeatureLayer",
+    "PreprocessingANN",
+    "MolANN",
+    "SequentialNN",
+    "Identity",
+    "create_sequential_nn",
+    "ACTIVATIONS",
+    "model_dims",
+    "named_tensors",
+]

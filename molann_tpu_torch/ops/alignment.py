@@ -28,9 +28,26 @@ __all__ = [
 ]
 
 
-def kabsch_covariance(x_centered, ref_x):
+# The names JAX takes for a matmul's precision. The port computes every
+# product here in float32 (PyTorch's default, torch.get_float32_matmul_
+# precision() == "highest"), the reference's HIGHEST: the keyword is checked
+# and changes nothing.
+PRECISIONS = ("highest", "float32", "high", "tensorfloat32", "default",
+              "bfloat16")
+
+
+def _check_precision(precision):
+    name = getattr(precision, "name", precision)
+    if name is not None and str(name).lower() not in PRECISIONS:
+        raise ValueError(f"precision must be None or one of {PRECISIONS}, "
+                         f"got {precision!r}")
+
+
+def kabsch_covariance(x_centered, ref_x, precision="highest"):
     """``H = x_centeredᵀ @ ref_x`` per frame: ``[l, n_a, 3] × [n_a, 3] →
-    [l, 3, 3]``."""
+    [l, 3, 3]``. ``precision``: a JAX precision name, checked (the product
+    is float32 for every name)."""
+    _check_precision(precision)
     return torch.einsum("lni,nj->lij", x_centered, ref_x)
 
 
@@ -166,13 +183,16 @@ ROTATION_METHODS = {
 }
 
 
-def align_frames(x, ref_x, align_indices, method: str = "qcp"):
+def align_frames(x, ref_x, align_indices, method: str = "qcp",
+                 precision="highest"):
     """Kabsch-align frames onto the (pre-centred) reference.
 
     x: ``[l, n_inp, 3]``; ref_x: ``[n_a, 3]`` centred reference;
     align_indices: static local indices of the align atoms. Returns
-    ``(x - c) @ R`` per frame, ``[l, n_inp, 3]``.
+    ``(x - c) @ R`` per frame, ``[l, n_inp, 3]``. ``precision``: a JAX
+    precision name, checked (the products are float32 for every name).
     """
+    _check_precision(precision)
     idx = torch.as_tensor(tuple(align_indices), dtype=torch.long,
                           device=x.device)
     sub = x[:, idx, :]

@@ -38,6 +38,7 @@ otherwise ignored, as in the unrolled TPU kernels, which have no matmuls.
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from .features import (
 )
 
 __all__ = [
+    "fused_apply",
     "fused_model_forward",
     "fused_cv_forces",
     "fused_train_grads",
@@ -65,6 +67,7 @@ __all__ = [
     "model_chunk_matrix",
     "active_atom_indices",
     "resolve_precision",
+    "qcp_rotation",
     "KERNEL_LAUNCHES",
 ]
 
@@ -789,6 +792,23 @@ def _as_packed(x, n_atoms):
     return x, True
 
 
+def check_tile_args(tile=None, interpret=False):
+    """Check the TPU kernels' ``tile`` (None, a positive int, or a tuple of
+    them such as ``(tile, bwd_tile)``) and ``interpret`` (a bool), which the
+    port's entry points take for the JAX signatures and which change
+    nothing: the CUDA kernels choose their own tile, and interpret mode is
+    the plain version a CPU tensor runs."""
+    tiles = tile if isinstance(tile, (tuple, list)) else (tile,)
+    for t in tiles:
+        if t is not None and (isinstance(t, bool)
+                              or not isinstance(t, numbers.Integral)
+                              or t <= 0):
+            raise ValueError(f"tile must be None or a positive int, got "
+                             f"{tile!r}")
+    if not isinstance(interpret, bool):
+        raise ValueError(f"interpret must be a bool, got {interpret!r}")
+
+
 def _check_device(x):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
@@ -817,8 +837,34 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_apply
 
-        return blocked_apply(spec, align_idx, activation, params, ref_x, x,
-                             precision=precision, c_mat=c_mat)
+        return blocked_apply(spec, align_idx, activation, (tile, bwd_tile),
+                             interpret, precision, params, ref_x, x, c_mat)
+    return fused_apply(spec, align_idx, activation, (tile, bwd_tile),
+                       interpret, params, ref_x, x)
+
+
+def fused_apply(spec, align_idx, activation, tiles, interpret, params, ref_x,
+                x):
+    """The unrolled forward with its backward as the VJP, on a model's
+    parts: ``x [l, n, 3]`` or packed ``[l, 3n]`` → ``[l, d_out]``, the
+    reference's ``fused_apply`` (``molann_tpu/ops/fused.py:744``) with its
+    positional order.
+
+    ``spec``: the :class:`~molann_tpu_torch.spec.CompiledFeatures`;
+    ``align_idx``: local align-atom indices or None; ``activation``: a name
+    in :data:`~molann_tpu_torch.models.ann.ACTIVATIONS`; ``tiles`` and
+    ``interpret`` are accepted and change nothing; ``params``: ``(W
+    [d_out, d_in], b [d_out] or [d_out, 1])`` per layer (torch's weight
+    layout, the reference's transposed one); ``ref_x``: the centred
+    reference ``[n_align, 3]``, or None (an empty array is taken as None)
+    without alignment.
+
+    On a CUDA tensor the forward kernel (K1) runs and autograd runs the
+    backward kernel (K2); on a CPU tensor :func:`forward_plain` runs."""
+    check_tile_args(tiles, interpret)
+    if ref_x is not None and ref_x.numel() == 0:
+        ref_x = None
+    params = tuple((w, b if b.ndim == 1 else b.reshape(-1)) for w, b in params)
     _check_envelope(spec, params, activation)
     _check_device(x)
     n = spec.n_input_atoms
@@ -830,6 +876,18 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     _check_cuda_input(x)
     return _FusedApply.apply((spec, align_idx, activation), xm, ref_x,
                              *(t for wb in params for t in wb))
+
+
+def qcp_rotation(H):
+    """Horn/QCP optimal rotation from per-frame covariances, in the
+    reference's nested form (``molann_tpu/ops/fused.py:192``): ``H`` a 3x3
+    nested list of same-shaped tensors, one covariance entry per frame;
+    returns the 3x3 nested list ``R`` with ``aligned_i = Σ_j v_j R[j][i]``.
+    The same rotation as :func:`~.alignment.rotation_qcp` (12 Newton steps,
+    then one differentiable step, the adjugate's largest column)."""
+    Ht = torch.stack([torch.stack(list(row), dim=-1) for row in H], dim=-2)
+    R = rotation_qcp(Ht)
+    return [[R[..., j, i] for i in range(3)] for j in range(3)]
 
 
 def fused_cv_forces(model, x, *, component=None, tile=None,
@@ -858,6 +916,7 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
     ``active_atom_indices(model)[k]``), and ``c_mat`` may carry the pair
     operand of :func:`model_chunk_matrix`."""
     resolve_precision(precision, training=False)
+    check_tile_args(tile, interpret)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
     if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_cv_forces
@@ -865,7 +924,8 @@ def fused_cv_forces(model, x, *, component=None, tile=None,
         out_layout = "t" if (transposed_input or transposed_outputs) else None
         return blocked_cv_forces(
             spec, align_idx, activation, params, ref_x, x,
-            component=component, out_layout=out_layout, precision=precision,
+            component=component, tile=tile, interpret=interpret,
+            out_layout=out_layout, precision=precision,
             compact_grads=compact_grads, c_mat=c_mat)
     if compact_grads:
         raise ValueError("compact_grads requires the blocked formulation "
@@ -943,6 +1003,7 @@ def fused_train_grads(model, x, y_target, *, tile=None, interpret=False,
     ``y_target`` ``[l, d_out]`` or ``[d_out, l]``, and ``c_mat`` may carry
     the pair operand of :func:`model_chunk_matrix`."""
     precision = resolve_precision(precision, training=True)
+    check_tile_args(tile, interpret)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
     if _resolve_mode(spec, params, mode, c_mat) == "blocked":
         from .fused_blocked import blocked_train_grads

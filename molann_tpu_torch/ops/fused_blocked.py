@@ -1008,12 +1008,15 @@ class _BlockedApply(torch.autograd.Function):
                 *(g for wb in gparams for g in wb))
 
 
-def blocked_apply(spec, align_idx, activation, params, ref_x, x, *,
-                  precision="exact", c_mat=None):
+def blocked_apply(spec, align_idx, activation, tiles, interpret, precision,
+                  params, ref_x, x, c_mat=None):
     """The blocked fused forward: ``x`` in any layout :func:`_classify`
     takes ``→ [l, d_out]`` (final feature order when there is no MLP),
     differentiable with respect to x, the MLP parameters and ``ref_x``
-    (``c_mat`` is a constant).
+    (``c_mat`` is a constant). The arguments come in the reference's
+    positional order (``molann_tpu/ops/fused_blocked.py:1757``); ``tiles``
+    (the TPU kernels' tile sizes, None or a tuple) and ``interpret`` (a
+    bool) are checked and change nothing.
 
     On a CUDA tensor this launches the blocked forward kernel (K6);
     autograd then runs the blocked backward kernel (K7), which computes
@@ -1021,6 +1024,7 @@ def blocked_apply(spec, align_idx, activation, params, ref_x, x, *,
     requires grad, the ``ref_x`` gradient only when ``ref_x`` does. Under
     ``torch.no_grad()`` only K6 runs. On a CPU tensor it runs
     :func:`blocked_forward_plain`, which autograd differentiates."""
+    _F.check_tile_args(tiles, interpret)
     lay, tag, l, pair_op = _prepare(spec, align_idx, params, activation, x,
                                     precision, c_mat)
     n = lay.n_atoms
@@ -1132,7 +1136,8 @@ def _kernel_train(lay, ref_x, params, activation, x, tag, l, y_target,
 
 
 def blocked_cv_forces(spec, align_idx, activation, params, ref_x, x, *,
-                      component=None, out_layout=None, precision="exact",
+                      component=None, tile=None, interpret=False,
+                      out_layout=None, precision="exact",
                       compact_grads=False, c_mat=None):
     """CV values and their coordinate gradients in one kernel, blocked
     formulation.
@@ -1150,7 +1155,9 @@ def blocked_cv_forces(spec, align_idx, activation, params, ref_x, x, *,
 
     On a CUDA tensor this launches the blocked cv+forces kernel (K8), which
     reads and writes every layout in place; on a CPU tensor it runs
-    :func:`blocked_cv_forces_plain`."""
+    :func:`blocked_cv_forces_plain`. ``tile`` and ``interpret`` are
+    accepted for the JAX signature, checked, and change nothing."""
+    _F.check_tile_args(tile, interpret)
     lay, tag, l, pair_op = _prepare(spec, align_idx, params, activation, x,
                                     precision, c_mat)
     n = lay.n_atoms

@@ -373,6 +373,26 @@ def device_ms(fn, calls=PROFILED_CALLS, pattern=None):
                        f"{pattern!r}")
 
 
+def bare_ms(prep, x, variant, launches=PROFILED_CALLS):
+    """CUDA-event ms a launch of body ``variant`` on ``x``, over ``launches``
+    back-to-back bare launches (no wrapper, one preallocated out, counted
+    nowhere), after one warm-up: the event cross-check of a warm profiler
+    reading on the same x."""
+    lib = _library()
+    m, k = prep.D.shape
+    _check_fits(variant, prep, m, k)
+    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=x.device)
+    _launch(lib, prep, x, variant, out)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        _launch(lib, prep, x, variant, out)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 # the dense operations of each body, and the peak rate of their unit
 OPS = {"f32": (1, 67e12), "bf16": (1, 989e12), "split3": (3, 989e12),
        "int8": (1, 1979e12), "fixed4": (4, 1979e12), "fixed2": (2, 1979e12)}
@@ -389,19 +409,34 @@ def form_bytes(prep, variant):
     return prep.image.numel()
 
 
+class Bound(NamedTuple):
+    """A body's least time: ``ms`` and what sets it (``by``, "bytes" or
+    "operations") on a cold x, and ``warm_ms``, the floor of a reading on
+    an x that the 50 MB L2 may keep between calls."""
+
+    ms: float
+    by: str
+    warm_ms: float
+
+
 def body_bound(variant, m, k, n, nnz, d_bytes):
-    """``(ms, "bytes" or "operations")``: the least time of body
-    ``variant``: x and out (float32) and the ``d_bytes`` of D's form it
-    reads (:func:`form_bytes`), each moved once at 3.35 TB/s, against its
+    """The least time of body ``variant`` as a :class:`Bound`. ``ms``: x
+    and out (float32) and the ``d_bytes`` of D's form it reads
+    (:func:`form_bytes`), each moved once at 3.35 TB/s, against its
     operations at its unit's peak (the gather: one f32 add a nonzero and
-    column)."""
+    column), whichever is larger. ``warm_ms``: the same with x's bytes left
+    out, since a warm x (39.8 MB at the probe's shape) can stay in the L2
+    between calls; out (72.4 MB) and D's form must still cross HBM."""
     t_bytes = 1e3 * (4 * (k * n + m * n) + d_bytes) / HBM_BYTES_PER_S
+    t_warm = 1e3 * (4 * m * n + d_bytes) / HBM_BYTES_PER_S
     if variant == "gather":
         t_ops = 1e3 * nnz * n / 67e12
     else:
         passes, rate = OPS[variant]
         t_ops = 1e3 * passes * 2.0 * m * k * n / rate
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return Bound(max(t_bytes, t_ops),
+                 "bytes" if t_bytes >= t_ops else "operations",
+                 max(t_warm, t_ops))
 
 
 def library_calls(D):
@@ -447,9 +482,11 @@ def run_probe(T=512, reps=8, device=None):
     Returns ``{variant: {...}}`` with, per body, ``ms`` (the kernel alone,
     ``torch.profiler``, on one x) and ``cold_ms`` (on x rotated over
     :data:`COLD_BUFFERS` copies), ``call_ms`` (with its wrapper, CUDA
-    events), ``launches`` (calls of :func:`edge_mm` made), ``tflops`` of
-    the dense count at ``ms``, ``rel_err`` against float64 as a fraction of
-    max|truth|, ``bound_ms`` and ``bound_by``, ``library``,
+    events), ``bare_ms`` (20 bare launches on the same x, CUDA events:
+    :func:`bare_ms`), ``launches`` (calls of :func:`edge_mm` made),
+    ``tflops`` of the dense count at ``ms``, ``rel_err`` against float64 as
+    a fraction of max|truth|, ``bound_ms``, ``bound_by`` and
+    ``warm_bound_ms`` (:func:`body_bound`), ``library``,
     ``library_ms`` and ``library_cold_ms`` (None where no library call
     computes the body's function; a library call that fails raises) and
     ``resources``; ``"library"``, ``torch.matmul`` in float32;
@@ -496,13 +533,14 @@ def run_probe(T=512, reps=8, device=None):
         if cuda:
             row["call_ms"] = cuda_ms(call, reps)
             row["ms"] = device_ms(call, pattern="edge_mm")
+            row["bare_ms"] = bare_ms(prep, x, variant)
             row["cold_ms"] = device_ms(lambda: call(cold()), pattern="edge_mm")
             row["resources"] = resources(variant, m, k, nnz, x.device.index)
         else:
             row["ms"] = row["call_ms"] = _host_ms(call, reps)
         row["launches"] = launches
         row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-        row["bound_ms"], row["bound_by"] = body_bound(
+        row["bound_ms"], row["bound_by"], row["warm_bound_ms"] = body_bound(
             variant, m, k, n, nnz, form_bytes(prep, variant))
         row["library"] = row["library_ms"] = row["library_cold_ms"] = None
         if variant in libs:
@@ -951,10 +989,12 @@ def main(argv):
         lib = ("" if r["library"] is None else
                f"; library {r['library_ms']:.4f} ms, cold "
                f"{r['library_cold_ms']:.4f} ({r['library']})")
-        print(f"{LABELS[name]:40s} {r['ms']:8.4f} ms alone, cold "
-              f"{r['cold_ms']:.4f}, {r['call_ms']:.4f} with its wrapper, "
+        print(f"{LABELS[name]:40s} {r['ms']:8.4f} ms alone (bare "
+              f"launches {r['bare_ms']:.4f}), cold {r['cold_ms']:.4f}, "
+              f"{r['call_ms']:.4f} with its wrapper, "
               f"{r['tflops']:6.2f} TFLOP/s, bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']}), rel err vs f64 {r['rel_err']:.3g}, "
+              f"({r['bound_by']}; warm {r['warm_bound_ms']:.4f}), rel err "
+              f"vs f64 {r['rel_err']:.3g}, "
               f"{json.dumps(r['resources'])}{lib}")
     r = res["library"]
     print(f"{LABELS['library']:40s} {r['ms']:8.4f} ms, {r['tflops']:.2f} TFLOP/s")

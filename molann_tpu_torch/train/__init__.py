@@ -2,8 +2,9 @@
 lagged-pair iterator, the losses (MSE, autoencoder, eigenfunction,
 committor, VAMP-2), TICA, HLDA, committees, the loop and checkpoints, the
 coordinate-gradient oracle (:mod:`.forces`), and optax's update rules in
-``torch.optim`` form (:mod:`.optim`). ``packed_batch_iterator`` and
-data-parallel training are still to be ported (ROADMAP.md, queue 2)."""
+``torch.optim`` form (:mod:`.optim`). Data-parallel training is still to be
+ported (ROADMAP.md, queue 2, item 5). ``loss_registry`` is the objectives'
+registry under the JAX package's name; ``registry`` is the same dict."""
 
 from .checkpoint import (  # noqa: F401
     latest_checkpoint,
@@ -14,6 +15,7 @@ from .data import (  # noqa: F401
     TrajectoryDataset,
     batch_iterator,
     lagged_pair_iterator,
+    packed_batch_iterator,
     save_trajectory,
 )
 from .discriminant import HLDAResult, hlda  # noqa: F401
@@ -43,6 +45,7 @@ from .losses import (  # noqa: F401
     registry,
     timelagged_autoencoder_loss,
 )
+from .losses import registry as loss_registry  # noqa: F401
 from .loop import (  # noqa: F401
     TrainResult,
     fit,
@@ -58,3 +61,50 @@ from .timelagged import (  # noqa: F401
     vamp2_loss,
     vamp2_score,
 )
+
+__all__ = [
+    "make_train_step",
+    "make_fused_train_step",
+    "masked_optimizer",
+    "fit",
+    "TrainResult",
+    "trainable_mask",
+    "mse_loss",
+    "fused_mse_loss",
+    "autoencoder_loss",
+    "timelagged_autoencoder_loss",
+    "cv_coordinate_gradients",
+    "eigenfunction_loss",
+    "make_eigenfunction_loss",
+    "committor_loss",
+    "make_committor_loss",
+    "loss_registry",
+    "TrajectoryDataset",
+    "batch_iterator",
+    "lagged_pair_iterator",
+    "packed_batch_iterator",
+    "save_trajectory",
+    "coordinate_gradients",
+    "force_fn",
+    "save_training_state",
+    "load_training_state",
+    "latest_checkpoint",
+    "HLDAResult",
+    "hlda",
+    "EnsembleResult",
+    "stack_models",
+    "unstack_model",
+    "ensemble_size",
+    "ensemble_apply",
+    "committee",
+    "committee_calibration",
+    "calibrated_committee",
+    "reinitialized_members",
+    "make_ensemble_train_step",
+    "fit_ensemble",
+    "TICAResult",
+    "tica",
+    "vamp2_score",
+    "vamp2_loss",
+    "make_vamp_loss",
+]

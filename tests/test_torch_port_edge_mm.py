@@ -158,7 +158,7 @@ def test_bound_counts_the_form_each_body_reads():
     assert all(form[v] == 512 * mt * kc == 184320 for v in EP.TENSOR_CORE)
     xo = 4 * (k * n + m * n)
     for v in EP.VARIANTS:
-        ms, by = EP.body_bound(v, m, k, n, nnz, form[v])
+        ms, by, _ = EP.body_bound(v, m, k, n, nnz, form[v])
         if v == "f32":
             assert by == "operations"
             assert ms == pytest.approx(1e3 * 2.0 * m * k * n / 67e12)

@@ -132,7 +132,10 @@ def test_import_needs_no_jax_or_pandas():
             "molann_tpu_torch.__main__, molann_tpu_torch.utils.profiling, "
             "molann_tpu_torch.train.losses, molann_tpu_torch.train.timelagged, "
             "molann_tpu_torch.train.discriminant, "
-            "molann_tpu_torch.train.ensemble, molann_tpu_torch.train.optim; "
+            "molann_tpu_torch.train.ensemble, molann_tpu_torch.train.optim, "
+            "molann_tpu_torch.io.native_loader, molann_tpu_torch.ops.neighbor, "
+            "molann_tpu_torch.pbc, molann_tpu_torch.cli.evaluate, "
+            "molann_tpu_torch.cli.traj; "
             "bad = [m for m in ('jax', 'pandas', 'molann_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1306,3 +1306,148 @@ def test_train_command_on_the_card(cuda, tmp_path):
     assert list(got) == list(want)
     for name in want:
         _close(got[name], want[name].double())
+
+
+def _serve_files(tmp_path, l=700):
+    from molann_tpu_torch.io import save_model, write_xtc
+
+    model, u = alanine_model(generator=torch.Generator().manual_seed(18),
+                             device="cpu")
+    save_model(str(tmp_path / "m.npz"), model)
+    x = _frames(u, l, "cpu", seed=19).numpy()
+    np.save(tmp_path / "t.npy", x)
+    write_xtc(str(tmp_path / "t.xtc"), x)
+    return model, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ext,backend", [("npy", "native"),
+                                         ("xtc", "native"),
+                                         ("xtc", "numpy")])
+def test_forces_command_on_the_card_matches_the_cpu(cuda, tmp_path, ext,
+                                                    backend):
+    """``forces`` on the card launches K4 once a batch (the last one
+    short) and writes what ``--device cpu`` writes, within the value and
+    gradient tolerances; ``evaluate`` launches K1 the same way."""
+    from molann_tpu_torch.cli import main
+
+    _serve_files(tmp_path)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        for k in F.KERNEL_LAUNCHES:
+            F.KERNEL_LAUNCHES[k] = 0
+        assert main(["forces", str(tmp_path / "m.npz"),
+                     str(tmp_path / f"t.{ext}"), "--batch-size", "256",
+                     "--backend", backend, "--device", device,
+                     "--out", str(tmp_path / f"y_{device}.npy"),
+                     "--forces-out", str(tmp_path / f"f_{device}.npy")]) == 0
+        want = 3 if device == "cuda" else 0
+        assert F.KERNEL_LAUNCHES["cv_forces"] == want
+        outs[device] = (np.load(tmp_path / f"y_{device}.npy"),
+                        np.load(tmp_path / f"f_{device}.npy"))
+    np.testing.assert_allclose(outs["cuda"][0], outs["cpu"][0],
+                               atol=VAL_ATOL)
+    _close(torch.as_tensor(outs["cuda"][1]),
+           torch.as_tensor(outs["cpu"][1]).double())
+    for k in F.KERNEL_LAUNCHES:
+        F.KERNEL_LAUNCHES[k] = 0
+    assert main(["evaluate", str(tmp_path / "m.npz"),
+                 str(tmp_path / f"t.{ext}"), "--batch-size", "256",
+                 "--backend", backend,
+                 "--out", str(tmp_path / "ye.npy")]) == 0
+    assert F.KERNEL_LAUNCHES["forward"] == 3
+    np.testing.assert_allclose(np.load(tmp_path / "ye.npy"), outs["cpu"][0],
+                               atol=VAL_ATOL)
+
+
+@pytest.mark.gpu
+def test_forces_command_compact_route_on_the_card(cuda, tmp_path):
+    """A blocked model whose CVs read six of 200 atoms: ``forces`` on the
+    card launches K8 with compact gradients, leaves the other atoms' forces
+    exactly 0 and writes what ``--device cpu`` writes."""
+    from molann_tpu_torch.cli import main
+    from molann_tpu_torch.feature import Feature
+    from molann_tpu_torch.io import save_model
+    from molann_tpu_torch.models.ann import (FeatureLayer, MolANN,
+                                             PreprocessingANN,
+                                             create_sequential_nn)
+    from molann_tpu_torch.systems import synthetic_peptide
+
+    u = synthetic_peptide(40)
+    n = len(u.atoms)
+
+    def sel(nm, r):
+        return u.select_atoms(f"name {nm} and resid {r}")
+
+    feats = [Feature("b", "bond", sel("CA", 3) + sel("CA", 30)),
+             Feature("d", "dihedral", sel("C", 10) + sel("N", 11)
+                     + sel("CA", 11) + sel("C", 11))]
+    pp = PreprocessingANN(None, FeatureLayer(feats, u.atoms))
+    model = MolANN(pp, create_sequential_nn(
+        [pp.output_dimension(), 6, 2],
+        generator=torch.Generator().manual_seed(20)))
+    save_model(str(tmp_path / "m.npz"), model)
+    rng = np.random.default_rng(21)
+    np.save(tmp_path / "t.npy", (u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(96, n, 3))).astype(np.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        for k in F.KERNEL_LAUNCHES:
+            F.KERNEL_LAUNCHES[k] = 0
+        assert main(["forces", str(tmp_path / "m.npz"),
+                     str(tmp_path / "t.npy"), "--batch-size", "40",
+                     "--device", device,
+                     "--out", str(tmp_path / f"y_{device}.npy"),
+                     "--forces-out", str(tmp_path / f"f_{device}.npy")]) == 0
+        assert F.KERNEL_LAUNCHES["blocked_cv_forces"] == (
+            3 if device == "cuda" else 0)
+        outs[device] = (np.load(tmp_path / f"y_{device}.npy"),
+                        np.load(tmp_path / f"f_{device}.npy"))
+    active = F.active_atom_indices(model)
+    inactive = np.setdiff1d(np.arange(n), active)
+    assert np.all(outs["cuda"][1].reshape(96, n, 3)[:, inactive] == 0.0)
+    np.testing.assert_allclose(outs["cuda"][0], outs["cpu"][0],
+                               atol=VAL_ATOL)
+    _close(torch.as_tensor(outs["cuda"][1]),
+           torch.as_tensor(outs["cpu"][1]).double())
+
+
+@pytest.mark.gpu
+def test_unwrap_and_pbc_on_the_card_match_the_cpu(cuda, tmp_path, capsys):
+    """``minimum_image``, ``wrap``, ``make_whole`` and ``unwrap_time`` on
+    card tensors give the CPU's values; ``unwrap`` on the card writes what
+    ``--device cpu`` writes and prints the same bond diagnostics."""
+    from molann_tpu_torch import pbc
+    from molann_tpu_torch.cli import main
+    from molann_tpu_torch.systems import alanine_pdb_text
+
+    _, u = _serve_files(tmp_path, 64)
+    rng = np.random.default_rng(22)
+    box = np.diag([9.0, 10.0, 11.0]).astype(np.float32)
+    x = (u.atoms.positions[None] + np.cumsum(rng.normal(
+        scale=0.5, size=(64, 1, 3)), axis=0)).astype(np.float32)
+    xw = pbc.wrap(torch.as_tensor(x), torch.as_tensor(box))
+    got = pbc.wrap(torch.as_tensor(x, device=cuda),
+                   torch.as_tensor(box, device=cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), xw.numpy(), atol=VAL_ATOL)
+    bonds = pbc.guess_bonds(u)
+    for fn in (lambda a, b: pbc.make_whole(a, b, bonds=bonds),
+               pbc.unwrap_time, pbc.minimum_image):
+        want = fn(xw, torch.as_tensor(box))
+        have = fn(xw.to(cuda), torch.as_tensor(box, device=cuda))
+        assert have.device.type == "cuda"
+        np.testing.assert_allclose(have.cpu().numpy(), want.numpy(),
+                                   atol=VAL_ATOL)
+    np.save(tmp_path / "w.npy", xw.numpy())
+    (tmp_path / "a.pdb").write_text(alanine_pdb_text())
+    outs, printed = {}, {}
+    for device in ("cuda", "cpu"):
+        capsys.readouterr()
+        assert main(["unwrap", str(tmp_path / "w.npy"),
+                     str(tmp_path / "a.pdb"),
+                     str(tmp_path / f"u_{device}.npy"), "--box", "9,10,11",
+                     "--mode", "whole+nojump", "--device", device]) == 0
+        printed[device] = capsys.readouterr().out.split("(", 1)[1]
+        outs[device] = np.load(tmp_path / f"u_{device}.npy")
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=VAL_ATOL)
+    assert printed["cuda"] == printed["cpu"]

@@ -57,3 +57,30 @@ def test_table_form_follows_the_kernel(kernel, slots):
     del keep
     assert (args.n_slots, bool(args.slot_col), bool(args.col_slot)) == (
         (18, True, True) if slots else (0, False, False))
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "int8", "split3",
+                                     "fixed4", "fixed2", "gather"])
+def test_edge_bounds_cold_keeps_x_warm_leaves_it_out(variant):
+    """Phase 9's gates: the cold bound moves x, out and D's form over HBM;
+    the warm bound moves out and D's form only (a warm x may stay in the
+    50 MB L2), and either is the operations' time where that is larger."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    m, k, n, nnz, d_bytes = EP.M, EP.K, 64 * 512, 1700, 184320
+    b = EP.body_bound(variant, m, k, n, nnz, d_bytes)
+    rate = EP.HBM_BYTES_PER_S
+    cold = 1e3 * (4 * k * n + 4 * m * n + d_bytes) / rate
+    warm = 1e3 * (4 * m * n + d_bytes) / rate
+    if variant == "gather":
+        ops = 1e3 * nnz * n / 67e12
+    else:
+        passes, peak = EP.OPS[variant]
+        ops = 1e3 * passes * 2.0 * m * k * n / peak
+    assert b.ms == pytest.approx(max(cold, ops), rel=1e-12)
+    assert b.warm_ms == pytest.approx(max(warm, ops), rel=1e-12)
+    assert b.by == ("bytes" if cold >= ops else "operations")
+    assert b.warm_ms <= b.ms
+    # x's 39.8 MB are the whole difference where bytes bound both
+    if warm >= ops:
+        assert (b.ms - b.warm_ms) * 1e-3 * rate == pytest.approx(4 * k * n)

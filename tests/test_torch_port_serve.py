@@ -84,26 +84,39 @@ def test_component_and_packed_input(setup):
 
 
 def test_reader_formats(setup, tmp_path):
+    """``.npy`` and every trajectory format the JAX package writes read
+    back through ``open_frame_reader`` (XTC to its 1/1000 nm lattice)."""
+    from molann_tpu.io import write_dcd, write_netcdf, write_trr, write_xtc
+
     _, _, frames, path, _ = setup
-    read, n, a = open_frame_reader(path)
+    read, n, a = open_frame_reader(path, backend="numpy")
     assert (n, a) == (N_FRAMES, 22)
-    chunk = read(190, 64)
+    chunk = read(190, 64)  # a slice of the map: cut at the end
     assert chunk.shape == (10, 22, 3) and chunk.flags.writeable
     np.testing.assert_array_equal(chunk, frames[190:])
-    for ext in (".xtc", ".trr", ".dcd", ".nc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            open_frame_reader(str(tmp_path / f"t{ext}"))
+    for ext, write in ((".xtc", write_xtc), (".trr", write_trr),
+                       (".dcd", write_dcd), (".nc", write_netcdf)):
+        write(str(tmp_path / f"t{ext}"), frames)
+        read, n, a = open_frame_reader(str(tmp_path / f"t{ext}"))
+        assert (n, a) == (N_FRAMES, 22)
+        np.testing.assert_allclose(read(190, 10), frames[190:],
+                                   atol=5e-4 if ext == ".xtc" else 0)
+        # the native loader refuses a range past the end, as the JAX
+        # package's reader does under "auto"
+        with pytest.raises(IndexError):
+            read(190, 64)
+        read.close()
     with pytest.raises(ValueError, match="expected"):
         open_frame_reader(np.zeros((4, 5)))
 
 
 @pytest.mark.parametrize("backend", ["auto", "numpy"])
 def test_backend_and_mesh_keywords(setup, backend):
-    """``backend=`` and ``mesh=`` are the reference's keywords: "auto" and
-    "numpy" read the ``.npy`` as the reference's numpy reader does, with
-    its values; ``backend="native"`` (its native loader) and a mesh (serving
-    over several devices) are not ported and raise, naming their ROADMAP
-    items; an unknown backend is the reference's ValueError."""
+    """``backend=`` and ``mesh=`` are the reference's keywords: "auto",
+    "numpy" and "native" (the native loader) read the ``.npy`` to the
+    reference's values; a mesh (serving over several devices) is not
+    ported and raises, naming its ROADMAP item; an unknown backend is the
+    reference's ValueError."""
     jm, tm, frames, path, _ = setup
     cvs_ref = jevaluate(jm, path, batch_size=64, backend="numpy")
     cvs = evaluate_trajectory(tm, path, device="cpu", batch_size=64,
@@ -112,8 +125,9 @@ def test_backend_and_mesh_keywords(setup, backend):
     cvs_arr = evaluate_trajectory(tm, frames, device="cpu", batch_size=64,
                                   backend="native")
     np.testing.assert_array_equal(cvs_arr, cvs)
-    with pytest.raises(NotImplementedError, match="queue 2, item 4"):
-        evaluate_trajectory(tm, path, device="cpu", backend="native")
+    np.testing.assert_array_equal(
+        evaluate_trajectory(tm, path, device="cpu", batch_size=64,
+                            backend="native"), cvs)
     with pytest.raises(NotImplementedError, match="queue 2, item 5"):
         evaluate_trajectory(tm, path, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="auto/native/numpy"):
