@@ -143,6 +143,32 @@ Runs the port's serving path on the card and checks it, phase by phase:
    ``pbc.unwrap_time`` on the CPU; (d) the 2,000-atom sparse peptide,
    8,192 frames as ``.dcd``: ``forces`` through K8's compact gradients,
    inactive rows exactly 0, 512 rows against the float64 plain version.
+13. the enhanced-sampling loop: ``sample`` in process on the card with the
+   alanine model (seeded weights, saved as ``.npz``) and its PDB, each run
+   with every launch count set to 0 before it and held after it to exactly
+   what the run implies (K1 once a step and once a deposit, K2 once a step
+   for metad and OPES; once a step each for steered; none without a bias;
+   twice a step with ``--path --tube-k``). (a) metad, well-tempered metad,
+   adaptive OPES, steered, and no bias (overdamped and BAOAB) at 4 and 256
+   walkers: steps/s of the command, K1/K2 launches a step, kernels a step
+   and the card's busy share (device time of a profiled 50-step run over
+   the timed run's wall time a step), one JSON line each; (b) 200 steps of
+   well-tempered metad through K1/K2 against the same run through the eager
+   model on the card from the same seed of the CUDA generator, and 100
+   steps with a ``[38, 65, 3]`` head through K6/K7 (also through the
+   command), coordinates and deposits within 1e-4; neither run makes the
+   host wait for the card (``torch.cuda.set_sync_debug_mode``), nor does a
+   steered run, and adaptive OPES once (its count, read at the end); (c)
+   the escape check of ``tests/test_cli.py`` (metad, 4000 steps, 3
+   walkers, max cos(phi) > 0; no bias, 2000 steps, max cos(phi) < 0) on the
+   model ``build`` makes from that test's features (without its MLP, whose
+   JAX weights torch cannot draw); (d) ``fes`` of the metad run's hills on
+   a 16^3 grid, ``mep`` on it between the start's CV and the flipped
+   torsion's, and ``sample --path --tube-k`` along that path (deposits of
+   the progress in [0, 1]); (e) ``evaluate`` and ``reweight`` on the metad
+   run, ``msm`` on the 256-walker run's CVs, ``umbrella_sampling`` of 8
+   windows (torsions rotated over [0, pi]) through K1/K2 and ``pmf`` on
+   its samples.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -171,7 +197,10 @@ commands' outputs bit-identical to the serve route where they run the same
 kernel on the same frames, values and gradients against float64 plain
 versions as above, ``unwrap`` on the card against the CPU 1e-5, the
 calibrated committee against float64 on the CPU 1e-5·max(1, max|z|) (its
-outputs are z-scores: a member's float32 rounding is divided by its sd).
+outputs are z-scores: a member's float32 rounding is divided by its sd);
+phase 13: sampling through the kernels against the eager path on the card
+1e-4 on coordinates and deposits (the same bar the CPU tests hold the port
+to against JAX after at most 100 steps).
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 Imports no JAX. Usage: ``python3 chip_smoke.py``.
@@ -1718,8 +1747,6 @@ def step_profile(fn, calls=3):
     """One call of ``fn`` on the card: its time on the host's clock up to a
     synchronise, the device time of its kernels (``torch.profiler``) and
     their count, each a call's mean."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1727,20 +1754,10 @@ def step_profile(fn, calls=3):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / calls * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy = kernels = 0.0
-    for event in prof.key_averages():
-        t = getattr(event, "device_time_total", None)
-        t = event.cuda_time_total if t is None else t
-        if t > 0:
-            busy += t
-            kernels += event.count
-    return {"step_wall_ms": wall, "step_device_ms": busy / calls / 1e3,
+    busy, kernels, _ = device_ms(lambda: [fn() for _ in range(calls)])
+    return {"step_wall_ms": wall, "step_device_ms": busy / calls,
             "step_kernels": kernels / calls,
-            "device_busy": busy / calls / 1e3 / wall}
+            "device_busy": busy / calls / wall}
 
 
 def plain_check(name, loss, flags, d, dev, first_batch):
@@ -2212,6 +2229,406 @@ def files_phase(dev, card, tmp):
     return launched
 
 
+# the enhanced-sampling loop of phase 13: walkers and steps of the timed runs
+SAMPLE_WALKERS = (4, 256)
+SAMPLE_STEPS = {4: 250, 256: 200}
+SAMPLE_PROFILE_STEPS = 50   # the run profiled for the card's busy share
+SAMPLE_STRIDE = 50          # the command's default deposit stride and thin
+ESCAPE_STEPS = 4000         # tests/test_cli.py::test_sample_cli_metadynamics_escapes
+STAY_STEPS = 2000           # tests/test_cli.py::test_sample_cli_unbiased_stays
+PLAIN_STEPS = 200           # the metad run through the kernels vs the eager path
+BLOCKED_STEPS = 100
+UMBRELLA_WINDOWS = 8
+UMBRELLA_STEPS = 1000
+UMBRELLA_K = 50.0
+# kernels vs the eager path on the card, the same CUDA generator: coordinates
+# (Angstrom), deposit centers and weights after every step of the run
+SAMPLE_TOL = 1e-4
+# the command's runs of phase 13: (name, flags)
+SAMPLE_RUNS = (
+    ("metad", ["--bias", "metad"]),
+    ("metad well-tempered", ["--bias", "metad", "--well-tempered-gamma",
+                             "10"]),
+    ("opes adaptive", ["--bias", "opes", "--opes-adaptive"]),
+    ("steered", ["--bias", "steered"]),
+    ("none", ["--bias", "none"]),
+    ("none baoab", ["--bias", "none", "--integrator", "baoab", "--dt",
+                    "5e-3"]),
+)
+
+
+def sample_counts(name, steps, cv_calls=1, blocked=False):
+    """The launches a ``sample`` run must show: the model's forward and
+    backward kernels once a step for each call of the CV in the step's
+    energy, and the forward kernel once more a period for the deposits of
+    metadynamics and OPES; none without a bias."""
+    if name.startswith("none"):
+        return counts()
+    fwd = cv_calls * steps + (0 if name == "steered"
+                              else steps // SAMPLE_STRIDE)
+    pre = "blocked_" if blocked else ""
+    return counts(**{pre + "forward": fwd, pre + "backward": cv_calls * steps})
+
+
+FUSED_KERNELS = r"fused_unrolled_kernel|fused_grads_kernel|blocked|reduce_partials"
+
+
+def device_ms(fn):
+    """``(device ms, kernels, ms of the fused kernels)`` of one call of fn
+    by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = kernels = fused = 0.0
+    for event in prof.key_averages():
+        t = getattr(event, "device_time_total", None)
+        t = event.cuda_time_total if t is None else t
+        if t > 0:
+            busy += t
+            kernels += event.count
+            if re.search(FUSED_KERNELS, event.key):
+                fused += t
+    return busy / 1e3, kernels, fused / 1e3
+
+
+def cos_phi(path):
+    from molann_tpu_torch.sampling import ToyPeptidePotential
+    from molann_tpu_torch.systems import alanine_universe
+
+    pot = ToyPeptidePotential(alanine_universe())
+    return np.cos(pot.phi(torch.from_numpy(np.load(path))).numpy())
+
+
+def host_syncs(fn):
+    """The calls of ``fn`` that made the host wait for the card, counted
+    by ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # ("called a synchronizing CUDA operation"; the mode's own note that it
+    # is "a prototype feature" is not a wait)
+    return sum("synchronizing" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
+
+
+def held_to_eager(model, label, steps, expect, dev):
+    """A well-tempered metadynamics run through the fused kernels against
+    the same run through the eager model on the card, from one seed of the
+    CUDA generator; fails past ``SAMPLE_TOL`` or on other launch counts.
+    Returns the largest error."""
+    from molann_tpu_torch import sampling as S
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    pot = S.ToyPeptidePotential(u)
+    x0 = torch.as_tensor(np.repeat(u.atoms.positions[None], 4, axis=0),
+                         device=dev)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    xw = x0.clone().requires_grad_(True)  # the tables each puts on the
+    torch.autograd.grad(  # card at its first forward and backward
+        (pot.energy(xw) + F.fused_model_forward(model, xw).sum(-1)).sum(), xw)
+
+    def run(cv):
+        g = torch.Generator(device=dev).manual_seed(5)
+        return S.metadynamics_langevin(
+            pot.energy, cv, x0, n_steps=steps, dt=2e-4, kT=0.25, generator=g,
+            height=0.5, sigma=0.25, stride=SAMPLE_STRIDE,
+            well_tempered_gamma=10.0)
+
+    reset_counts()
+    got = []
+    syncs = host_syncs(lambda: got.append(run(
+        lambda x: F.fused_model_forward(model, x))))
+    tk, xk, bk = got[0]
+    torch.cuda.synchronize()
+    if syncs:
+        fail(f"phase 13, {label}: the run made the host wait {syncs} times")
+    if dict(F.KERNEL_LAUNCHES) != expect:
+        fail(f"phase 13, {label}: launches {dict(F.KERNEL_LAUNCHES)}, "
+             f"expected {expect}")
+    reset_counts()
+    te, xe, be = run(model)
+    if dict(F.KERNEL_LAUNCHES) != counts():
+        fail(f"phase 13, {label}: the eager run launched a kernel")
+    err = max(float((tk - te).abs().max()), float((xk - xe).abs().max()),
+              float((bk.centers - be.centers).abs().max()),
+              float((bk.weights - be.weights).abs().max()))
+    if not err <= SAMPLE_TOL:
+        fail(f"phase 13, {label}: kernels vs the eager path {err} > "
+             f"{SAMPLE_TOL}")
+    if not (torch.isfinite(tk).all() and bk.weights.min() > 0):
+        fail(f"phase 13, {label}: non-finite walkers or empty deposits")
+    return err
+
+
+def sampling_phase(dev, card, tmp):
+    """Phase 13: the enhanced-sampling loop through the commands, in
+    process. Returns ``{kernel: launches over the phase's runs}``."""
+    from molann_tpu_torch import sampling as S
+    from molann_tpu_torch.io import save_model
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.systems import (alanine_model, alanine_pdb_text,
+                                          alanine_universe)
+
+    def p(name):
+        return os.path.join(tmp, name)
+
+    launched = dict.fromkeys(("forward", "backward", "blocked_forward",
+                              "blocked_backward"), 0)
+
+    def tally(expect):
+        for k in launched:
+            launched[k] += expect[k]
+        return expect
+
+    def cli(argv, expect):
+        return run_cli(argv, tally(expect))
+
+    t_phase = time.perf_counter()
+    lines = []
+    model, u = alanine_model(generator=torch.Generator().manual_seed(31),
+                             device=dev)
+    save_model(p("ala.npz"), model)
+    with open(p("ala.pdb"), "w") as fh:
+        fh.write(alanine_pdb_text())
+    n = u.atoms.n_atoms
+    with torch.no_grad():
+        cv0 = model(torch.as_tensor(u.atoms.positions[None], device=dev))
+    cv0 = cv0[0].cpu().numpy()
+    steer = ["--s0=" + ",".join(f"{v:.6f}" for v in cv0),
+             "--s1=" + ",".join(f"{v + 0.5:.6f}" for v in cv0)]
+    base = ["sample", p("ala.npz"), p("ala.pdb")]
+
+    # (a) every bias at W = 4 and 256: exact launch counts, steps/s, and the
+    # card's busy share (device time of a profiled run over the wall time)
+    rates = {}
+    for W in SAMPLE_WALKERS:
+        steps = SAMPLE_STEPS[W]
+        cli(base + ["--walkers", str(W), "--steps", str(SAMPLE_STRIDE),
+                    "--out", p("warm.npy")], sample_counts("metad",
+                                                           SAMPLE_STRIDE))
+        for name, flags in SAMPLE_RUNS:
+            flags = flags + (steer if name == "steered" else [])
+            tag = f"{name.replace(' ', '_')}_{W}"
+            argv = base + flags + ["--walkers", str(W), "--steps",
+                                   str(steps), "--out", p(f"{tag}.npy"),
+                                   "--bias-out", p(f"{tag}.npz")]
+            _, _, sec = cli(argv, sample_counts(name, steps))
+            frames = np.load(p(f"{tag}.npy"))
+            if not (frames.shape == (steps // SAMPLE_STRIDE * W, n, 3)
+                    and np.isfinite(frames).all()):
+                fail(f"phase 13, sample {name} W={W}: frames "
+                     f"{frames.shape}, finite {np.isfinite(frames).all()}")
+            prof_steps = SAMPLE_PROFILE_STEPS
+            ms, kernels, fused_ms = device_ms(lambda: cli(
+                base + flags + ["--walkers", str(W), "--steps",
+                                str(prof_steps), "--out", p("prof.npy")],
+                sample_counts(name, prof_steps)))
+            want = sample_counts(name, steps)
+            per_step = (sum(want.values())) / steps
+            wall_ms = 1e3 * sec / steps
+            rates[name, W] = {
+                "steps_per_s": steps / sec, "kernel_launches_per_step":
+                per_step, "device_ms_per_step": ms / prof_steps,
+                "fused_kernel_ms_per_step": fused_ms / prof_steps,
+                "kernels_per_step": kernels / prof_steps,
+                "busy": ms / prof_steps / wall_ms}
+    for (name, W), r in rates.items():
+        print(json.dumps({"phase": 13, "sample": name, "walkers": W,
+                          "steps": SAMPLE_STEPS[W], **r, "card": card}))
+    dep = np.load(p("metad_4.npz"))
+    if dep["centers"].shape != (SAMPLE_STEPS[4] // SAMPLE_STRIDE * 4, 3):
+        fail(f"phase 13: metad deposits {dep['centers'].shape}")
+    wt = np.load(p("metad_well-tempered_4.npz"))
+    if not (wt["weights"].max() <= 1.0 + 1e-6 and "gamma" in wt):
+        fail("phase 13: well-tempered deposits carry no decaying weights")
+    op = np.load(p("opes_adaptive_256.npz"))
+    if not ("opes" in op and op["centers"].shape[0] <= 512):
+        fail("phase 13: the adaptive OPES kernels file")
+
+    # (b) the kernels against the eager path, the same CUDA noise: the
+    # unrolled kernels (K1, K2) and a head past their width (K6, K7)
+    err_u = held_to_eager(model, "unrolled kernels", PLAIN_STEPS,
+                          tally(sample_counts("metad", PLAIN_STEPS)), dev)
+    wide, _ = alanine_model(hidden_dims=(65, 3), device=dev,
+                            generator=torch.Generator().manual_seed(11))
+    if F.model_select_mode(wide) != "blocked":
+        fail("phase 13: the [38, 65, 3] head is not blocked under auto")
+    err_b = held_to_eager(wide, "[38, 65, 3] head, blocked kernels",
+                          BLOCKED_STEPS, tally(sample_counts(
+                              "metad", BLOCKED_STEPS, blocked=True)), dev)
+    save_model(p("wide.npz"), wide)
+    cli(["sample", p("wide.npz"), p("ala.pdb"), "--steps",
+         str(BLOCKED_STEPS), "--out", p("wide.npy")],
+        sample_counts("metad", BLOCKED_STEPS, blocked=True))
+    # no step waits for the host: steered and adaptive OPES through the
+    # kernels, whose one read is OPES's count of kernels at the end
+    pot = S.ToyPeptidePotential(u)
+    x0 = torch.as_tensor(np.repeat(u.atoms.positions[None], 4, axis=0),
+                         device=dev)
+    cv = torch.as_tensor(cv0, device=dev)
+    pot.energy(x0)  # its tables on the card, before the runs are watched
+    reset_counts()
+    waits = {
+        "steered": host_syncs(lambda: S.steered_langevin(
+            pot.energy, lambda x: F.fused_model_forward(model, x), x0,
+            s0=cv, s1=cv + 0.5, k_spring=10.0, n_steps=100, dt=2e-4, kT=0.25,
+            generator=torch.Generator(device=dev))),
+        "opes adaptive": host_syncs(lambda: S.opes_langevin(
+            pot.energy, lambda x: F.fused_model_forward(model, x), x0,
+            n_steps=100, dt=2e-4, kT=0.25, sigma=0.05, stride=SAMPLE_STRIDE,
+            barrier=8.0, adaptive=True, generator=torch.Generator(
+                device=dev)))}
+    if waits != {"steered": 0, "opes adaptive": 1}:
+        fail(f"phase 13: host waits {waits}, expected none but OPES's one "
+             "read of its count")
+    want = tally(counts(forward=100 + 100 + 100 // SAMPLE_STRIDE,
+                        backward=200))
+    if dict(F.KERNEL_LAUNCHES) != want:
+        fail(f"phase 13: launches of the steered and OPES runs "
+             f"{dict(F.KERNEL_LAUNCHES)}, expected {want}")
+    lines.append(f"kernels vs the eager path on the card (the same CUDA "
+                 f"generator), well-tempered metad, W=4: K1/K2 "
+                 f"{PLAIN_STEPS} steps max abs err {err_u:.3g}, K6/K7 "
+                 f"([38, 65, 3] head) {BLOCKED_STEPS} steps {err_b:.3g} "
+                 f"(tolerance {SAMPLE_TOL}); host waits "
+                 f"(torch.cuda.set_sync_debug_mode): 0 in both, steered 0, "
+                 f"adaptive OPES 1 (its count, read once at the end)")
+
+    # (c) the escape check of tests/test_cli.py on its features. The test's
+    # "--mlp 5 2" head has weights from JAX's PRNGKey(0), which torch cannot
+    # draw; the port's seed-0 head couples its CVs to phi too weakly to
+    # cross in 4000 steps, so the check runs on the aligned features (cos
+    # phi, sin phi, the bond) themselves, through K1 and K2 without a head
+    with open(p("features.txt"), "w") as fh:
+        fh.write("[Output]\nd1, dihedral, bynum 5, bynum 7, bynum 9, "
+                 "bynum 15\nb1, bond, bynum 2 5\n[End]\n")
+    cli(["build", p("ala.pdb"), p("features.txt"), "--section", "Output",
+         "--align", "bynum 1 2 5", "--out", p("built.npz")], counts())
+    built = ["sample", p("built.npz"), p("ala.pdb")]
+    _, _, t_esc = cli(built + ["--bias", "metad", "--steps",
+                               str(ESCAPE_STEPS), "--walkers", "3", "--out",
+                               p("escape.npy"), "--bias-out",
+                               p("escape.npz")],
+                      sample_counts("metad", ESCAPE_STEPS))
+    _, _, t_stay = cli(built + ["--bias", "none", "--steps",
+                                str(STAY_STEPS), "--walkers", "2",
+                                "--out", p("stay.xtc")], counts())
+    from molann_tpu_torch.io.xdr import read_xtc
+
+    frames_stay, _, _ = read_xtc(p("stay.xtc"))
+    np.save(p("stay.npy"), frames_stay)
+    up, stay = cos_phi(p("escape.npy")).max(), cos_phi(p("stay.npy")).max()
+    if np.load(p("escape.npz"))["centers"].shape[0] != 3 * (
+            ESCAPE_STEPS // SAMPLE_STRIDE):
+        fail("phase 13: the escape run's deposits")
+    if not (up > 0.0 and stay < 0.0):
+        fail(f"phase 13: metad max cos(phi) {up} (must cross 0), unbiased "
+             f"{stay} (must stay below 0)")
+    lines.append(f"escape check: metad {ESCAPE_STEPS} steps W=3 max "
+                 f"cos(phi) {up:+.3f} in {t_esc:.3g} s, unbiased {STAY_STEPS} "
+                 f"steps W=2 {stay:+.3f} in {t_stay:.3g} s")
+
+    # (d) fes -> mep -> sample --path --tube-k, on the metad run's hills
+    u_flip = alanine_universe()
+    pos_b = S.rotate_torsion(u_flip, (4, 6, 8, 14), np.pi)
+    with torch.no_grad():
+        cv_b = model(torch.as_tensor(pos_b[None], device=dev))[0].cpu().numpy()
+    pts = np.concatenate([dep["centers"], cv0[None], cv_b[None]])
+    lo, hi = pts.min(axis=0) - 0.5, pts.max(axis=0) + 0.5
+    grid = ",".join(f"{a:.4f}:{b:.4f}:16" for a, b in zip(lo, hi))
+    cli(["fes", p("metad_4.npz"), f"--grid={grid}", "--out", p("fes.npy")],
+        counts())
+    out, _, _ = cli(["mep", p("fes.npy"), f"--grid={grid}",
+                     "--start=" + ",".join(f"{v:.6f}" for v in cv0),
+                     "--end=" + ",".join(f"{v:.6f}" for v in cv_b),
+                     "--images", "16", "--iterations", "500", "--step",
+                     "1e-3", "--out", p("path.npy")], counts())
+    steps = SAMPLE_STEPS[4]
+    _, _, t_path = cli(base + ["--bias", "metad", "--path", p("path.npy"),
+                               "--tube-k", "5.0", "--tube-max", "0.1",
+                               "--sigma", "0.1", "--steps", str(steps),
+                               "--out", p("path_s.npy"), "--bias-out",
+                               p("path_b.npz")],
+                       sample_counts("metad", steps, cv_calls=2))
+    c = np.load(p("path_b.npz"))["centers"]
+    if not (c.shape == (4 * steps // SAMPLE_STRIDE, 1) and c.min() >= 0.0
+            and c.max() <= 1.0):
+        fail(f"phase 13: path-progress deposits {c.shape}, "
+             f"[{c.min()}, {c.max()}]")
+    lines.append(f"fes -> mep ({out.strip().splitlines()[0]}) -> sample "
+                 f"--path --tube-k: {steps / t_path:.4g} steps/s, two CV "
+                 "calls a step")
+
+    # (e) reweight and msm on the sampled CVs, pmf on umbrella windows
+    cli(["evaluate", p("ala.npz"), p("metad_4.npy"), "--out",
+         p("cvs4.npy")], counts(forward=1))
+    cli(["reweight", p("metad_4.npz"), p("cvs4.npy"), "--kT", "0.25",
+         "--out", p("w.npy")], counts())
+    w = np.load(p("w.npy"))
+    if not (np.isfinite(w).all() and abs(float(w.mean()) - 1.0) < 1e-5):
+        fail(f"phase 13: reweight weights mean {w.mean()}")
+    cli(["evaluate", p("ala.npz"), p("metad_256.npy"), "--out",
+         p("cvs256.npy")], counts(forward=1))
+    cvs = np.load(p("cvs256.npy"))
+    msm_grid = ",".join(f"{a:.4f}:{b:.4f}:3" for a, b in
+                        zip(cvs.min(axis=0) - 1e-3, cvs.max(axis=0) + 1e-3))
+    out_msm, _, _ = cli(["msm", p("cvs256.npy"), "--lag", "1", "--walkers",
+                         "256", f"--grid={msm_grid}", "--out",
+                         p("msm.npz")], counts())
+    if abs(float(np.load(p("msm.npz"))["pi"].sum()) - 1.0) > 1e-9:
+        fail("phase 13: msm stationary distribution")
+    angles = np.linspace(0.0, np.pi, UMBRELLA_WINDOWS)
+    xu = torch.as_tensor(np.stack([S.rotate_torsion(u_flip, (4, 6, 8, 14), a)
+                                   for a in angles]), device=dev)
+    with torch.no_grad():
+        centers = model(xu)[:, 0]
+    pot = S.ToyPeptidePotential(u_flip)
+    reset_counts()
+    t0 = time.perf_counter()
+    samples, _ = S.umbrella_sampling(
+        pot.energy, lambda x: F.fused_model_forward(model, x)[:, 0], xu,
+        centers, k_spring=UMBRELLA_K, n_steps=UMBRELLA_STEPS, dt=2e-4,
+        kT=0.25, generator=torch.Generator(device=dev).manual_seed(9),
+        thin=10, n_equil=10)
+    torch.cuda.synchronize()
+    t_umb = time.perf_counter() - t0
+    T = UMBRELLA_STEPS // 10 - 10
+    if dict(F.KERNEL_LAUNCHES) != tally(counts(forward=UMBRELLA_STEPS + T,
+                                               backward=UMBRELLA_STEPS)):
+        fail(f"phase 13: umbrella launches {dict(F.KERNEL_LAUNCHES)}")
+    np.save(p("umb.npy"), samples.cpu().numpy())
+    c_all = samples.cpu().numpy()
+    out_pmf, _, _ = cli(["pmf", p("umb.npy"), "--centers=" + ",".join(
+        f"{v:.6f}" for v in centers.cpu().numpy()), "--k-spring",
+        str(UMBRELLA_K), "--kT", "0.25",
+        f"--grid={c_all.min() - 1e-3:.4f}:{c_all.max() + 1e-3:.4f}:20",
+        "--out", p("pmf.npy")], counts())
+    pmf = np.load(p("pmf.npy"))
+    if not (pmf.shape == (2, 20) and np.isfinite(pmf[1]).sum() >= 10):
+        fail(f"phase 13: pmf {pmf}")
+    lines.append(f"reweight on {len(w)} frames; msm ({out_msm.splitlines()[0]}); "
+                 f"umbrella {UMBRELLA_WINDOWS} windows x {UMBRELLA_STEPS} "
+                 f"steps {UMBRELLA_STEPS / t_umb:.4g} steps/s, pmf "
+                 f"({out_pmf.splitlines()[1]})")
+    lines.append("launches over the phase: " + json.dumps(launched))
+    print("enhanced sampling (phase 13, "
+          f"{time.perf_counter() - t_phase:.1f} s): " + "; ".join(lines)
+          + f"; card: {card}")
+    return launched
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2600,6 +3017,9 @@ def main():
     # 12. serving from trajectory files through the commands
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = files_phase(dev, card, tmp)
+    # 13. the enhanced-sampling loop through the commands
+    with tempfile.TemporaryDirectory() as tmp:
+        sample_launches = sampling_phase(dev, card, tmp)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -2622,12 +3042,14 @@ def main():
          "replaces": "molann_tpu/ops/fused.py:578",
          "launches": launches["forward"],
          "cli_launches": cli_launches["forward"],
+         "sample_launches": sample_launches["forward"],
          "max_abs_err": max_err["forward"], "ms": ms_k1,
          "plain_ms": ms_p1, "alone_ms": split["forward"][0],
          **alanine_bound("forward")},
         {"name": "backward", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:586",
          "launches": fit_launches["backward"],
+         "sample_launches": sample_launches["backward"],
          "max_abs_err": max_err["backward"], "ms": ms_k2,
          "plain_ms": ms_p2, "alone_ms": split["backward"][0],
          **alanine_bound("backward")},
@@ -2637,8 +3059,11 @@ def main():
          "max_abs_err": max_err["train"], "ms": ms_k3,
          "plain_ms": ms_p3, "alone_ms": split["train"][0],
          **alanine_bound("train")},
-        *({**k, "cli_launches": cli_launches[k["name"]]}
-          if k["name"] in cli_launches else k for k in blocked_kernels),
+        *({**k, **({"cli_launches": cli_launches[k["name"]]}
+                   if k["name"] in cli_launches else {}),
+           **({"sample_launches": sample_launches[k["name"]]}
+              if k["name"] in sample_launches else {})}
+          for k in blocked_kernels),
         edge_kernel,
     ]}))
     print(json.dumps({"ok": True, "device": {

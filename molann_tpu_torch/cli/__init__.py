@@ -12,17 +12,28 @@ output files and exit codes::
     python -m molann_tpu_torch convert traj.dcd traj.xtc
     python -m molann_tpu_torch unwrap wrapped.xtc system.pdb whole.xtc \\
         --mode whole+nojump
+    python -m molann_tpu_torch build model.pdb features.txt --section Output \\
+        --align "bynum 1 2 5" --mlp 8 5 3 --out model.npz
     python -m molann_tpu_torch train model.npz traj.npy --loss eigenfunction \\
         --beta 4 --weights w.npy --steps 2000 --out trained.npz
+    python -m molann_tpu_torch sample model.npz model.pdb --bias metad \\
+        --out sampled.xtc --bias-out bias.npz
+    python -m molann_tpu_torch fes bias.npz --grid=-3.2:3.2:200 --out fes.npy
+    python -m molann_tpu_torch mep fes.npy --grid=-3.2:3.2:200 \\
+        --start=-1 --end 1 --out path.npy
+    python -m molann_tpu_torch msm cvs.npy --lag 10 --grid=-1:1:10
 
 Trajectories are ``.npy`` ([n_frames, n_atoms, 3] or packed [n_frames,
 3n] float32), ``.dcd``, ``.trr``, ``.xtc`` or Amber ``.nc``, read by the
 native loader (``--backend native``) or the numpy decoders. ``evaluate``,
-``forces``, ``committee``, ``unwrap`` and ``train`` run on the CUDA card
-unless ``--device cpu`` is given; without a card they fail rather than
-fall back to the host. ``info`` and ``convert`` are host work. The JAX
-package's other subcommands exit with status 2 until they are ported
-(ROADMAP.md, queue 2, item 8).
+``forces``, ``committee``, ``unwrap``, ``build``, ``sample``, ``fes``,
+``reweight``, ``mep``, ``pmf`` and ``train`` run on the CUDA card unless
+``--device cpu`` is given; without a card they fail rather than fall back
+to the host. ``sample`` runs the CV model through the fused kernels
+(``fused_model_forward``: the forward kernel every step and deposit, the
+backward kernel for every step's force). ``info``, ``convert`` and
+``msm`` are host work. ``export``, ``import-torch`` and ``export-torch``
+exit with status 2 until they are ported (ROADMAP.md, queue 2, item 8).
 """
 
 from __future__ import annotations
@@ -31,12 +42,11 @@ import argparse
 import sys
 
 # the JAX package's subcommands that the port does not have yet
-NOT_PORTED = ("export", "import-torch", "export-torch", "build", "sample",
-              "fes", "reweight", "mep", "pmf", "msm")
+NOT_PORTED = ("export", "import-torch", "export-torch")
 
 
 def main(argv=None):
-    from . import evaluate, traj, train
+    from . import analysis, evaluate, export, sampling, traj, train
 
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED:
@@ -50,7 +60,7 @@ def main(argv=None):
     )
     sub = p.add_subparsers(dest="command", required=True)
     # registration order = --help listing order, as in the JAX package
-    for mod in (evaluate, traj, train):
+    for mod in (evaluate, traj, export, sampling, analysis, train):
         mod.register(sub)
     args = p.parse_args(argv)
     try:

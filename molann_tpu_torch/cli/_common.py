@@ -1,7 +1,7 @@
 """Shared plumbing of the CLI command modules (the port of
 ``molann_tpu/cli/_common.py``): model and trajectory loading and checks,
-the per-extension trajectory writers, ``--cull``, and the port's own
-``--device``."""
+the per-extension trajectory writers, the grid grammar, ``--cull``, and
+the port's own ``--device``."""
 
 from __future__ import annotations
 
@@ -33,6 +33,29 @@ def _device(args):
     if getattr(args, "devices", 0) > 1:
         raise NotImplementedError(DEVICES_TODO)
     return resolve_device(args.device)
+
+
+def _parse_grid(gridspec, d, *, subject=None):
+    """Parse a ``lo:hi:n[,lo:hi:n...]`` grid option into ``d`` ``(lo, hi,
+    n)`` triples, broadcasting a single spec to all dimensions — the one
+    grammar shared by the fes/mep/msm/pmf subcommands (callers decide
+    whether ``n`` means grid points or bins)."""
+    specs = gridspec.split(",")
+    if len(specs) == 1 and d > 1:
+        specs = specs * d
+    if len(specs) != d:
+        prefix = f"{subject}; " if subject else ""
+        raise SystemExit(f"error: {prefix}--grid needs 1 or {d} "
+                         "lo:hi:n specs")
+    out = []
+    for spec in specs:
+        try:
+            lo, hi, n = spec.split(":")
+            out.append((float(lo), float(hi), int(n)))
+        except ValueError:
+            raise SystemExit(f"error: bad --grid spec {spec!r} "
+                             "(want lo:hi:n)")
+    return out
 
 
 def _open_traj_writer(out, *, xtc_precision=1000.0, with_box=False):

@@ -104,7 +104,17 @@ SIGNATURE = {
         f"{OPTIMIZER}; {DONATE}"),
     "molann_tpu_torch.train.checkpoint.save_training_state": OPTIMIZER,
     "molann_tpu_torch.train.checkpoint.load_training_state": DEVICE,
+    **{f"molann_tpu_torch.sampling.{name}": GENERATOR for name in (
+        "langevin.overdamped_langevin", "langevin.baoab_langevin",
+        "bias.steered_langevin", "bias.metadynamics_langevin",
+        "opes.opes_langevin", "mbar.umbrella_sampling",
+        "remd.replica_exchange_langevin",
+        "committor.empirical_committor")},
 }
+
+# the sampling modules the port has, all of the reference's
+SAMPLING_MODULES = ("bias", "committor", "langevin", "mbar", "msm", "opes",
+                    "pathcv", "potentials", "remd", "string", "tpt")
 
 # the port's modules without a counterpart, and why
 OWN_MODULES = {
@@ -260,3 +270,27 @@ def test_repaired_entry_points():
         parts[0], parts[1], parts[4], parts[3], parts[2], xp, tile=64,
         interpret=False)
     assert yc.shape == yb.shape and gc.shape == xp.shape
+
+
+def test_sampling_matches_the_reference_but_for_generators(differences):
+    """``molann_tpu_torch.sampling`` and each of its modules exist with the
+    reference's ``__all__`` (the 35 names of the package), and the only
+    signature difference in them is ``key`` -> ``generator``."""
+    import molann_tpu.sampling as ref
+    import molann_tpu_torch.sampling as port
+
+    assert port.__all__ == ref.__all__ and len(port.__all__) == 35
+    missing, extra, sigs, unmatched = differences
+    for name in SAMPLING_MODULES:
+        assert f"molann_tpu_torch.sampling.{name}" in _port_modules()
+    assert not any(".sampling" in m for m, _ in list(missing) + list(extra))
+    assert not any(".sampling" in m for m in unmatched)
+    ours = {q for q in sigs if ".sampling." in q}
+    assert ours and all(SIGNATURE[q] == GENERATOR for q in ours)
+    for q in ours:
+        mod, fn = q.rsplit(".", 1)
+        p = inspect.signature(getattr(importlib.import_module(mod), fn))
+        r = inspect.signature(getattr(importlib.import_module(
+            "molann_tpu" + mod[len("molann_tpu_torch"):]), fn))
+        rename = ["generator" if n == "key" else n for n in r.parameters]
+        assert list(p.parameters) == rename, q

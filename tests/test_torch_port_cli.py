@@ -242,7 +242,7 @@ def test_train_error_paths(workdir, capsys):
     with pytest.raises(NotImplementedError, match="queue 2, item 5"):
         main(["train", str(d / "model.npz"), str(d / "traj.npy"),
               "--devices", "2", "--device", "cpu"])
-    for cmd in ("export", "build", "sample", "msm"):
+    for cmd in ("export", "import-torch", "export-torch"):
         assert main([cmd, str(d / "model.npz")]) == 2
         assert "queue 2, item 8" in capsys.readouterr().err
     with pytest.raises(SystemExit):

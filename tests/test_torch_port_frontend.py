@@ -135,7 +135,9 @@ def test_import_needs_no_jax_or_pandas():
             "molann_tpu_torch.train.ensemble, molann_tpu_torch.train.optim, "
             "molann_tpu_torch.io.native_loader, molann_tpu_torch.ops.neighbor, "
             "molann_tpu_torch.pbc, molann_tpu_torch.cli.evaluate, "
-            "molann_tpu_torch.cli.traj; "
+            "molann_tpu_torch.cli.traj, molann_tpu_torch.sampling, "
+            "molann_tpu_torch.cli.sampling, molann_tpu_torch.cli.analysis, "
+            "molann_tpu_torch.cli.export; "
             "bad = [m for m in ('jax', 'pandas', 'molann_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

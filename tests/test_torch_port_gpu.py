@@ -1451,3 +1451,132 @@ def test_unwrap_and_pbc_on_the_card_match_the_cpu(cuda, tmp_path, capsys):
         outs[device] = np.load(tmp_path / f"u_{device}.npy")
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=VAL_ATOL)
     assert printed["cuda"] == printed["cpu"]
+
+
+def _metad_pair(model, cuda, steps, **kw):
+    """One well-tempered metadynamics run of 4 alanine walkers through the
+    fused kernels and one through the eager model, from the same seed of
+    the CUDA generator; returns both results and the kernels' launches."""
+    from molann_tpu_torch import sampling as S
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    pot = S.ToyPeptidePotential(u)
+    x0 = torch.as_tensor(np.repeat(u.atoms.positions[None], 4, axis=0),
+                         device=cuda)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    xw = x0.clone().requires_grad_(True)  # the tables each puts on the
+    torch.autograd.grad(  # card at its first forward and backward
+        (pot.energy(xw) + F.fused_model_forward(model, xw).sum(-1)).sum(), xw)
+    runs, launches = [], None
+    for cv in (lambda x: F.fused_model_forward(model, x), model):
+        for k in F.KERNEL_LAUNCHES:
+            F.KERNEL_LAUNCHES[k] = 0
+        g = torch.Generator(device=cuda).manual_seed(5)
+        # the run through the kernels never makes the host wait for the card
+        torch.cuda.set_sync_debug_mode("error" if launches is None
+                                       else "default")
+        try:
+            runs.append(S.metadynamics_langevin(
+                pot.energy, cv, x0, n_steps=steps, dt=2e-4, kT=0.25,
+                generator=g, height=0.5, sigma=0.25, stride=25, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = launches or dict(F.KERNEL_LAUNCHES)
+    return runs, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,prefix", [((5, 3), ""),
+                                           ((65, 3), "blocked_")])
+def test_metadynamics_through_the_kernels_matches_eager(cuda, hidden,
+                                                        prefix):
+    """Metadynamics with the CV through ``fused_model_forward`` runs the
+    forward kernel every step and deposit and the backward kernel every
+    step (K1/K2; K6/K7 for a head past the unrolled kernels' width) and
+    follows the eager model on the same CUDA noise within 1e-4; no call
+    of the run makes the host wait for the card."""
+    model, _ = alanine_model(hidden_dims=hidden, device=cuda,
+                             generator=torch.Generator().manual_seed(11))
+    (k, e), launches = _metad_pair(model, cuda, 100, well_tempered_gamma=10.0)
+    want = dict.fromkeys(F.KERNEL_LAUNCHES, 0)
+    want.update({prefix + "forward": 104, prefix + "backward": 100})
+    assert launches == want
+    for a, b in ((k[0], e[0]), (k[2].centers, e[2].centers),
+                 (k[2].weights, e[2].weights)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_adaptive_opes_on_the_card_matches_the_host(cuda):
+    """The adaptive OPES deposits (merge or append, the count on the card)
+    on card tensors give the host's kernels from the same noise."""
+    from molann_tpu_torch import sampling as S
+    from molann_tpu_torch.sampling import langevin as L
+    from molann_tpu_torch.systems import alanine_universe
+
+    u = alanine_universe()
+    pot = S.ToyPeptidePotential(u)
+    model, _ = alanine_model(device="cpu",
+                             generator=torch.Generator().manual_seed(2))
+    noise = torch.randn((200, 6, N, 3), generator=torch.Generator()
+                        .manual_seed(3))
+    out = {}
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        it = iter(noise.to(dev))
+        orig = L._normal
+        L._normal = lambda shape, g: next(it)
+        try:
+            out[str(dev)] = S.opes_langevin(
+                pot.energy, m, torch.as_tensor(
+                    np.repeat(u.atoms.positions[None], 6, axis=0),
+                    device=dev), n_steps=200, dt=2e-4, kT=0.25,
+                generator=torch.Generator(device=dev), sigma=0.05,
+                stride=25, barrier=8.0, adaptive=True, max_kernels=12)
+        finally:
+            L._normal = orig
+    (th, _, bh), (tc, _, bc) = out["cpu"], out[str(cuda)]
+    assert bh.n_active == bc.n_active
+    for a, b in ((th, tc), (bh.centers, bc.centers),
+                 (bh.weights, bc.weights), (bh.sigmas, bc.sigmas)):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sample_command_on_the_card(cuda, tmp_path, capsys):
+    """``sample`` on the card launches K1 once a step and deposit and K2
+    once a step (twice with ``--path --tube-k``), and writes what the
+    JAX command writes: frames, deposits and its two lines."""
+    from molann_tpu_torch.cli import main
+    from molann_tpu_torch.io import save_model
+    from molann_tpu_torch.systems import alanine_pdb_text
+
+    model, u = alanine_model(device=cuda,
+                             generator=torch.Generator().manual_seed(4))
+    save_model(tmp_path / "m.npz", model)
+    (tmp_path / "a.pdb").write_text(alanine_pdb_text())
+    with torch.no_grad():
+        cv0 = model(torch.as_tensor(u.atoms.positions[None], device=cuda))
+    t = np.linspace(0.0, 1.0, 5)[:, None]
+    cv0 = cv0[0].cpu().numpy()
+    np.save(tmp_path / "path.npy", np.concatenate(
+        [cv0 * (1 - t) + (cv0 + 1.0) * t, np.zeros((5, 1))], axis=1))
+    for extra, fwd, bwd in (([], 204, 200),
+                            (["--path", str(tmp_path / "path.npy"),
+                              "--tube-k", "5"], 404, 400)):
+        for k in F.KERNEL_LAUNCHES:
+            F.KERNEL_LAUNCHES[k] = 0
+        assert main(["sample", str(tmp_path / "m.npz"),
+                     str(tmp_path / "a.pdb"), "--steps", "200", "--walkers",
+                     "3", "--out", str(tmp_path / "s.npy"), "--bias-out",
+                     str(tmp_path / "b.npz"), *extra]) == 0
+        assert F.KERNEL_LAUNCHES["forward"] == fwd
+        assert F.KERNEL_LAUNCHES["backward"] == bwd
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith(f"wrote {tmp_path / 's.npy'}: 12 frames")
+        assert out[1] == f"wrote {tmp_path / 'b.npz'}: 12 deposits"
+        assert np.isfinite(np.load(tmp_path / "s.npy")).all()
