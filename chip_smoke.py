@@ -169,6 +169,29 @@ Runs the port's serving path on the card and checks it, phase by phase:
    run, ``msm`` on the 256-walker run's CVs, ``umbrella_sampling`` of 8
    windows (torsions rotated over [0, pi]) through K1/K2 and ``pmf`` on
    its samples.
+14. the engine artifact: the op libraries (``csrc/torch_ops.cpp``, and
+   ``csrc/torch_ops_cuda.cpp`` with ``csrc/torch_ops_launch.cpp`` over the
+   kernel library) and the container ``serve_torch`` built with g++ side by
+   side; for ``alanine_model()`` (unrolled: K1, K4), ``peptide_model(60)``
+   and ``lj_fluid_model(5)`` (blocked: K6, K8; the fluid's pair operand a
+   buffer of the artifact) the fused and eager artifacts, with and without
+   the gradient, exported from a host copy of the model and loaded on the
+   card: on 65,536 frames the fused artifact bit-identical to the Python
+   route (``fused_model_forward``, ``fused_cv_forces``) with one launch of
+   each op (``launch_counts()``), against the float32 plain versions on
+   65,536 alanine, 8,192 peptide and 4,096 fluid frames (the float64
+   error of both printed), the eager artifacts against the eager model;
+   each op's CUDA-event time per 65,536 frames through the artifact and
+   through the Python route, in turns; a fused artifact on CPU tensors
+   raises; ``serve_torch`` on 1,048,576 alanine frames from ``.dcd``
+   through the fused gradient artifact (K4 once a batch, ``--verbose``
+   split and frames/s beside the ``forces`` command's on the same file)
+   and on 131,072 peptide frames from ``.npy`` through the fused forward
+   artifact (K6), each bit-identical to ``evaluate_trajectory``; without
+   ``--ops`` the container refuses the fused artifact. The ``kernels``
+   line gains ``artifact_launches``, ``artifact_ms``, ``route_ms`` and
+   ``artifact_max_abs_err`` on K1, K4, K6 and K8 (K6/K8's times on the
+   peptide).
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -200,7 +223,11 @@ calibrated committee against float64 on the CPU 1e-5·max(1, max|z|) (its
 outputs are z-scores: a member's float32 rounding is divided by its sd);
 phase 13: sampling through the kernels against the eager path on the card
 1e-4 on coordinates and deposits (the same bar the CPU tests hold the port
-to against JAX after at most 100 steps).
+to against JAX after at most 100 steps); phase 14: the fused artifact bit
+for bit against the Python route and the container against
+``evaluate_trajectory``, the fused artifact against the float32 plain
+versions and the eager artifacts against the eager model at the values
+and gradients tolerances above (the fluid's with its jump slack).
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 Imports no JAX. Usage: ``python3 chip_smoke.py``.
@@ -2629,6 +2656,278 @@ def sampling_phase(dev, card, tmp):
     return launched
 
 
+ENGINE_FRAMES = 1 << 16
+SERVE_FRAMES = 1 << 20
+PEPTIDE_SERVE_FRAMES = 1 << 17
+# the artifact ops' launch counters, in launch_counts()'s order
+ARTIFACT_OPS = (("unrolled_forward", "forward"), ("unrolled_cv_forces",
+                                                  "cv_forces"),
+                ("blocked_forward", "blocked_forward"),
+                ("blocked_cv_forces", "blocked_cv_forces"))
+
+
+def artifact_counts():
+    """The launches of the artifact's ops since the last reset, by kernel."""
+    got = torch.ops.molann_tpu_torch.launch_counts().tolist()
+    return {k: int(v) for (_, k), v in zip(ARTIFACT_OPS, got)}
+
+
+def serve_line(err, prefix):
+    lines = [ln for ln in err.splitlines() if ln.startswith(prefix)]
+    if len(lines) != 1:
+        fail(f"serve_torch printed no {prefix!r} line: {err[-1500:]}")
+    return lines[0]
+
+
+def engine_phase(dev, card, tmp):
+    """Phase 14: the engine artifact on the card. Returns per kernel (K1,
+    K4, K6, K8) its launches through the artifacts and both times."""
+    import concurrent.futures
+
+    from molann_tpu_torch.io import (DCDWriter, export_artifact,
+                                     load_artifact, save_model)
+    from molann_tpu_torch.ops import _build
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.ops import fused_blocked as FB
+    from molann_tpu_torch.serve import evaluate_trajectory
+    from molann_tpu_torch.systems import (alanine_model, lj_fluid_model,
+                                          peptide_model)
+
+    def p(name):
+        return os.path.join(tmp, name)
+
+    # build: the op libraries and the container, g++ side by side
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        serve_job = pool.submit(_build.build_serve_torch)
+        ops_lib = _build.load_op_library()
+        serve_bin = serve_job.result()
+    print(f"engine build: {time.perf_counter() - t0:.1f} s (op libraries "
+          f"{_build.BUILD_INFO['ops_seconds']:.1f} s, serve_torch "
+          f"{_build.BUILD_INFO['serve_seconds']:.1f} s, side by side) -> "
+          f"{os.path.basename(ops_lib)}, {os.path.basename(serve_bin)}")
+    ops = torch.ops.molann_tpu_torch
+
+    gen = torch.Generator().manual_seed(0)
+    alanine, au = alanine_model(generator=gen, device=dev)
+    peptide, pu = peptide_model(60, generator=torch.Generator().manual_seed(0),
+                                device=dev)
+    fluid, fu, _ = lj_fluid_model(5, generator=torch.Generator().manual_seed(0),
+                                  device=dev)
+    cases = (("alanine_model()", alanine, au, 0.05, ENGINE_FRAMES, VAL_TOL,
+              "unrolled", ("forward", "cv_forces")),
+             ("peptide_model(60)", peptide, pu, 0.05, BLK_CHECK_FRAMES,
+              VAL_TOL, "blocked", ("blocked_forward", "blocked_cv_forces")),
+             ("lj_fluid_model(5)", fluid, fu, LJ_SIGMA, LJ_PLAIN_FRAMES,
+              VAL_TOL_PAIRS, "blocked",
+              ("blocked_forward", "blocked_cv_forces")))
+    tally = dict.fromkeys((k for _, k in ARTIFACT_OPS), 0)
+    times, lines = {}, []
+    max_err = {}
+    for seed, (name, model, u, sigma, plain_l, val_tol, mode, kinds) in \
+            enumerate(cases):
+        if F.model_select_mode(model) != mode:
+            fail(f"{name}: mode {F.model_select_mode(model)}, expected {mode}")
+        n = u.atoms.n_atoms
+        host = copy.deepcopy(model).to("cpu")  # exported on the host
+        arts = {(fused, grad): load_artifact(export_artifact(
+            host, n, fused=fused, with_gradient=grad), device=dev)
+            for fused in (True, False) for grad in (False, True)}
+        x = noisy_frames(u, ENGINE_FRAMES, 40 + seed, sigma, dev)
+        # the fused artifact against the Python route: one launch each,
+        # the same kernel on the same stream, the same bits
+        reset_counts()
+        ops.reset_launch_counts()
+        y_a = arts[True, False](x)
+        y_ag, g_ag = arts[True, True](x)
+        got = artifact_counts()
+        if got != {**dict.fromkeys(tally, 0), kinds[0]: 1, kinds[1]: 1}:
+            fail(f"{name}: artifact launch counts {got}")
+        with torch.no_grad():
+            y_r = F.fused_model_forward(model, x)
+        y_rg, g_rg = F.fused_cv_forces(model, x)
+        if dict(F.KERNEL_LAUNCHES) != counts(**{kinds[0]: 1, kinds[1]: 1}):
+            fail(f"{name}: Python route launch counts {F.KERNEL_LAUNCHES}")
+        for k in kinds:
+            tally[k] += 1
+        for what, a, b in (("values", y_a, y_r), ("cv+forces values", y_ag,
+                                                  y_rg),
+                           ("gradients", g_ag, g_rg)):
+            same_bits(a.cpu().numpy(), b.cpu().numpy(),
+                      f"{name}: fused artifact vs Python route, {what}")
+        # the fused and the eager artifacts against the plain versions
+        y_e = arts[False, False](x[:plain_l]).detach()
+        y_eg, g_eg = arts[False, True](x[:plain_l])
+        if artifact_counts() != got:
+            fail(f"{name}: an eager artifact launched an op")
+        parts = F._extract_model(model)
+        xp = x[:plain_l]
+        # the plain versions in float32, as phase 4 holds K1 and K4 (a
+        # frame's float32 rounding is its own: the error of both against
+        # float64 is printed)
+        if mode == "unrolled":
+            y_ref = F.forward_plain(*parts, xp).detach()
+            y_ref_g, g_ref = F.cv_forces_plain(*parts, xp)
+            slack = torch.zeros(xp.shape[:2], dtype=torch.float64,
+                                device=dev)
+        else:
+            y_ref = FB.blocked_forward_plain(*parts, xp).detach()
+            y_ref_g, g_ref = FB.blocked_cv_forces_plain(*parts, xp)
+            slack = FB.gradient_jump_slack(parts[0], parts[3], xp.double())
+        y64, g64 = (FB.blocked_cv_forces_plain if mode == "blocked"
+                    else F.cv_forces_plain)(*f64(parts), xp.double())
+        # the eager artifacts against the eager model on the card, the same
+        # float32 math (the eager model's own error against the plain
+        # float64 version is its own, and is printed)
+        xe = xp.clone().requires_grad_(True)
+        y_m = model(xe)
+        (g_m,) = torch.autograd.grad(y_m.sum(), xe)
+        y_m = y_m.detach()
+        errs = {}
+        for what, y, yr in (("fused values", y_a[:plain_l], y_ref),
+                            ("fused cv+forces values", y_ag[:plain_l],
+                             y_ref_g),
+                            ("eager values", y_e, y_m),
+                            ("eager gradient artifact values", y_eg, y_m)):
+            e = float((y.double() - yr.double()).abs().max())
+            if not e <= val_tol:
+                fail(f"{name}: {what}: {e} > {val_tol}")
+            errs[what] = e
+        for what, g, gr in (("fused gradients", g_ag[:plain_l], g_ref),
+                            ("eager gradients", g_eg, g_m)):
+            errs[what] = worst_gx(g, gr.double(), slack,
+                                  f"{name}: {what}")
+        errs["vs float64: fused gradients"] = float(
+            ((g_ag[:plain_l].double() - g64).abs().amax(-1)
+             [slack == 0]).max())
+        errs["vs float64: float32 plain gradients"] = float(
+            ((g_ref.double() - g64).abs().amax(-1)[slack == 0]).max())
+        for k in kinds:
+            max_err[k] = max(max_err.get(k, 0.0), *(
+                v for w, v in errs.items() if w.startswith("fused")))
+        # each op per 65,536 frames through the loaded artifact and through
+        # the Python route (ctypes), in turns
+        with torch.no_grad():
+            fwd_route = cuda_ms(lambda: F.fused_model_forward(model, x), 20)
+        fwd_art = cuda_ms(lambda: arts[True, False](x), 20)
+        fwd_art2 = cuda_ms(lambda: arts[True, False](x), 20)
+        with torch.no_grad():
+            fwd_route2 = cuda_ms(lambda: F.fused_model_forward(model, x), 20)
+        cv_route = cuda_ms(lambda: F.fused_cv_forces(model, x), 20)
+        cv_art = cuda_ms(lambda: arts[True, True](x), 20)
+        cv_art2 = cuda_ms(lambda: arts[True, True](x), 20)
+        cv_route2 = cuda_ms(lambda: F.fused_cv_forces(model, x), 20)
+        t = {kinds[0]: ((fwd_art + fwd_art2) / 2,
+                        (fwd_route + fwd_route2) / 2),
+             kinds[1]: ((cv_art + cv_art2) / 2, (cv_route + cv_route2) / 2)}
+        if name != "lj_fluid_model(5)":
+            times.update(t)
+        lines.append(
+            f"{name} ({mode}): fused artifact bit-identical to the Python "
+            f"route on {ENGINE_FRAMES} frames, launches {got}; fused vs "
+            f"plain, eager vs the eager model on {plain_l} frames: "
+            + ", ".join(f"{w} {v:.3g}"
+                                             for w, v in errs.items())
+            + "; ms per " + f"{ENGINE_FRAMES} frames, artifact / Python "
+            "route: " + ", ".join(f"{k} {a:.4f} / {r:.4f}"
+                                  for k, (a, r) in t.items()))
+
+    # refusals: a fused artifact on CPU tensors, and without its op library
+    x_cpu = torch.zeros(4, au.atoms.n_atoms, 3)
+    on_cpu = load_artifact(export_artifact(copy.deepcopy(alanine).to("cpu"),
+                                           au.atoms.n_atoms, fused=True),
+                           device="cpu")
+    try:
+        on_cpu(x_cpu)
+    except (RuntimeError, NotImplementedError) as e:
+        refusal = next((ln.strip() for ln in str(e).splitlines()
+                        if "Could not run" in ln and "'CPU'" in ln), None)
+        if refusal is None:
+            fail(f"a fused artifact on CPU tensors raised otherwise: {e}")
+    else:
+        fail("a fused artifact ran on CPU tensors")
+
+    # the container: 1,048,576 alanine frames from a .dcd through the
+    # fused gradient artifact (K4), against evaluate_trajectory
+    n = au.atoms.n_atoms
+    rng = np.random.default_rng(44)
+    with DCDWriter(p("ala.dcd")) as w:
+        for s in range(0, SERVE_FRAMES, BATCH):
+            w.append((au.atoms.positions[None] + 0.05 * rng.normal(
+                size=(BATCH, n, 3))).astype(np.float32))
+    host = copy.deepcopy(alanine).to("cpu")
+    export_artifact(host, n, p("ala_forces.pt"), fused=True,
+                    with_gradient=True)
+    save_model(p("ala.npz"), host)
+
+    def serve(args):
+        proc = subprocess.run([serve_bin, *args], capture_output=True,
+                              text=True, timeout=600)
+        return proc.returncode, proc.stderr
+
+    rc, err = serve([p("ala_forces.pt"), p("ala.dcd"), p("out.npy"),
+                     "--ops", ops_lib, "--verbose"])
+    if rc != 0:
+        fail(f"serve_torch exited {rc}: {err[-2000:]}")
+    served, timing = serve_line(err, "served"), serve_line(err, "timing:")
+    launched = serve_line(err, "launches:")
+    want = (f"launches: unrolled_forward 0, unrolled_cv_forces "
+            f"{-(-SERVE_FRAMES // BATCH)}, blocked_forward 0, "
+            "blocked_cv_forces 0")
+    if launched != want:
+        fail(f"serve_torch launches: {launched!r}, expected {want!r}")
+    tally["cv_forces"] += -(-SERVE_FRAMES // BATCH)
+    cvs, grads = evaluate_trajectory(alanine, p("ala.dcd"), device=dev,
+                                     forces=True, backend="native")
+    same_bits(np.load(p("out.npy")), cvs, "serve_torch vs "
+              "evaluate_trajectory, values")
+    same_bits(np.load(p("out.grad.npy")), grads.reshape(SERVE_FRAMES, 3 * n),
+              "serve_torch vs evaluate_trajectory, gradients")
+    _, cmd_err, _ = run_cli(["forces", p("ala.npz"), p("ala.dcd"), "--out",
+                             p("y.npy"), "--forces-out", p("f.npy"),
+                             "--batch-size", str(BATCH), "--backend",
+                             "native", "--verbose"],
+                            counts(cv_forces=-(-SERVE_FRAMES // BATCH)))
+    rc, err = serve([p("ala_forces.pt"), p("ala.dcd"), p("out.npy")])
+    missing = serve_line(err, "serve_torch: cannot load")
+    if rc != 1 or "molann_tpu_torch::" not in err:
+        fail(f"serve_torch ran a fused artifact without its op library "
+             f"(exit {rc}): {err[-500:]}")
+
+    # the container on the peptide's fused forward artifact (K6)
+    n_p = pu.atoms.n_atoms
+    np.save(p("pep.npy"), noisy_frames(pu, PEPTIDE_SERVE_FRAMES, 45, 0.05,
+                                       dev).cpu().numpy())
+    export_artifact(copy.deepcopy(peptide).to("cpu"), n_p, p("pep.pt"),
+                    fused=True)
+    rc, err = serve([p("pep.pt"), p("pep.npy"), p("pep_out.npy"), "--ops",
+                     ops_lib, "--verbose"])
+    if rc != 0:
+        fail(f"serve_torch on the peptide exited {rc}: {err[-2000:]}")
+    want = (f"launches: unrolled_forward 0, unrolled_cv_forces 0, "
+            f"blocked_forward {-(-PEPTIDE_SERVE_FRAMES // BATCH)}, "
+            "blocked_cv_forces 0")
+    if serve_line(err, "launches:") != want:
+        fail(f"serve_torch peptide launches: {serve_line(err, 'launches:')}")
+    tally["blocked_forward"] += -(-PEPTIDE_SERVE_FRAMES // BATCH)
+    same_bits(np.load(p("pep_out.npy")),
+              evaluate_trajectory(peptide, p("pep.npy"), device=dev),
+              "serve_torch peptide vs evaluate_trajectory")
+    pep_served = serve_line(err, "served")
+    print("engine artifact (phase 14): " + "; ".join(lines)
+          + f"; on CPU tensors the fused artifact raises ({refusal!r}); "
+          f"serve_torch, {SERVE_FRAMES} alanine frames from .dcd through "
+          f"the fused gradient artifact: {served}, {timing}, {launched}, "
+          "bit-identical to evaluate_trajectory; the forces command on the "
+          f"same file and batch: {timing_line(cmd_err)}; without --ops: {missing!r}; "
+          f"peptide, {PEPTIDE_SERVE_FRAMES} frames from .npy through the "
+          f"fused forward artifact: {pep_served}, bit-identical to "
+          f"evaluate_trajectory; card: {card}")
+    return {k: {"artifact_launches": tally[k],
+                "artifact_ms": times[k][0], "route_ms": times[k][1],
+                "artifact_max_abs_err": max_err[k]} for k in tally}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3020,6 +3319,9 @@ def main():
     # 13. the enhanced-sampling loop through the commands
     with tempfile.TemporaryDirectory() as tmp:
         sample_launches = sampling_phase(dev, card, tmp)
+    # 14. the engine artifact: K1/K4/K6/K8 as torch custom ops
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = engine_phase(dev, card, tmp)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -3037,7 +3339,7 @@ def main():
          "cli_launches": cli_launches["cv_forces"],
          "max_abs_err": max_err["cv_forces"], "ms": ms_k4,
          "plain_ms": ms_p4, "alone_ms": split["cv_forces"][0],
-         **alanine_bound("cv_forces")},
+         **alanine_bound("cv_forces"), **engine["cv_forces"]},
         {"name": "forward", "route": "cuda", "source": src,
          "replaces": "molann_tpu/ops/fused.py:578",
          "launches": launches["forward"],
@@ -3045,7 +3347,7 @@ def main():
          "sample_launches": sample_launches["forward"],
          "max_abs_err": max_err["forward"], "ms": ms_k1,
          "plain_ms": ms_p1, "alone_ms": split["forward"][0],
-         **alanine_bound("forward")},
+         **alanine_bound("forward"), **engine["forward"]},
         {"name": "backward", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:586",
          "launches": fit_launches["backward"],
@@ -3062,7 +3364,8 @@ def main():
         *({**k, **({"cli_launches": cli_launches[k["name"]]}
                    if k["name"] in cli_launches else {}),
            **({"sample_launches": sample_launches[k["name"]]}
-              if k["name"] in sample_launches else {})}
+              if k["name"] in sample_launches else {}),
+           **engine.get(k["name"], {})}
           for k in blocked_kernels),
         edge_kernel,
     ]}))

@@ -14,6 +14,10 @@ output files and exit codes::
         --mode whole+nojump
     python -m molann_tpu_torch build model.pdb features.txt --section Output \\
         --align "bynum 1 2 5" --mlp 8 5 3 --out model.npz
+    python -m molann_tpu_torch export model.npz --n-atoms 22 --fused \\
+        --with-gradient --out model.pt
+    python -m molann_tpu_torch import-torch reference_model.pt --out model.npz
+    python -m molann_tpu_torch export-torch trained.npz --out model.pt
     python -m molann_tpu_torch train model.npz traj.npy --loss eigenfunction \\
         --beta 4 --weights w.npy --steps 2000 --out trained.npz
     python -m molann_tpu_torch sample model.npz model.pdb --bias metad \\
@@ -32,8 +36,9 @@ native loader (``--backend native``) or the numpy decoders. ``evaluate``,
 to the host. ``sample`` runs the CV model through the fused kernels
 (``fused_model_forward``: the forward kernel every step and deposit, the
 backward kernel for every step's force). ``info``, ``convert`` and
-``msm`` are host work. ``export``, ``import-torch`` and ``export-torch``
-exit with status 2 until they are ported (ROADMAP.md, queue 2, item 8).
+``msm`` are host work. ``export`` writes a TorchScript engine artifact
+(``--fused``: the CUDA kernels as torch custom ops), ``import-torch`` and
+``export-torch`` convert reference-layout TorchScript ``.pt`` files.
 """
 
 from __future__ import annotations
@@ -41,19 +46,14 @@ from __future__ import annotations
 import argparse
 import sys
 
-# the JAX package's subcommands that the port does not have yet
-NOT_PORTED = ("export", "import-torch", "export-torch")
+# the JAX package's subcommands that the port does not have: none
+NOT_PORTED = ()
 
 
 def main(argv=None):
     from . import analysis, evaluate, export, sampling, traj, train
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"error: the {argv[0]!r} command is not ported to "
-              "molann_tpu_torch yet (ROADMAP.md, queue 2, item 8); use "
-              "python -m molann_tpu", file=sys.stderr)
-        return 2
     p = argparse.ArgumentParser(
         prog="molann_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,

@@ -26,10 +26,12 @@ from ._common import (_apply_cull, _check_traj, _device, _load_model,
 def feature_table(feature_list):
     """The rows of the reference's ``get_feature_info()`` table (name,
     type, type_id, 1-based atom indices) as text, laid out as pandas'
-    ``to_string`` lays it out, without pandas."""
+    ``to_string`` lays it out, without pandas: a text column's cells carry
+    a leading space and follow one space, the integer column follows two."""
     head = ("name", "type", "type_id", "atom indices (1-based)")
-    rows = [(f.name, f.type_name, str(f.type_id),
-             str([int(i) for i in f.get_atom_indices()]))
+    seps = (" ", " ", "  ", " ")
+    rows = [(f" {f.name}", f" {f.type_name}", str(f.type_id),
+             f" {[int(i) for i in f.get_atom_indices()]}")
             for f in feature_list]
     idx = [str(i) for i in range(len(rows))]
     wi = max(len(s) for s in idx)
@@ -37,8 +39,8 @@ def feature_table(feature_list):
               for c, h in enumerate(head)]
 
     def line(first, cells):
-        return first.ljust(wi) + " " + "  ".join(
-            cell.rjust(w) for cell, w in zip(cells, widths))
+        return first.ljust(wi) + "".join(
+            sep + cell.rjust(w) for sep, cell, w in zip(seps, cells, widths))
 
     return "\n".join([line("", head)]
                      + [line(i, r) for i, r in zip(idx, rows)])

@@ -1,12 +1,17 @@
-"""Model saving and loading, and trajectory reading and writing, for the
-port: the readers and writers ``molann_tpu/io/__init__.py`` exports. The
-StableHLO and TorchScript artifacts are still to be ported (ROADMAP.md,
-queue 2, item 6)."""
+"""Model saving and loading, trajectory reading and writing, and the
+artifacts for engines, for the port: what ``molann_tpu/io/__init__.py``
+exports, with the TorchScript engine artifact (:func:`export_artifact`,
+:func:`load_artifact`) in place of StableHLO, and the reference-layout
+TorchScript both ways (:func:`export_torchscript`,
+:func:`load_torchscript`)."""
 
 from .dcd import DCDWriter, read_dcd, write_dcd
+from .export import export_artifact, load_artifact
 from .netcdf import NetCDFReader, NetCDFWriter, read_netcdf, write_netcdf
 from .reader import open_frame_reader
 from .serialize import load_model, model_from_arrays, save_model
+from .torch_export import export_torchscript
+from .torch_import import load_torchscript
 from .xdr import TRRWriter, XTCWriter, read_trr, read_xtc, write_trr, write_xtc
 
 __all__ = [
@@ -14,6 +19,10 @@ __all__ = [
     "save_model",
     "load_model",
     "model_from_arrays",
+    "export_artifact",
+    "load_artifact",
+    "export_torchscript",
+    "load_torchscript",
     "read_dcd",
     "write_dcd",
     "read_trr",

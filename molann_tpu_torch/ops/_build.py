@@ -11,6 +11,19 @@ library goes to ``molann_tpu_torch/_build/`` under a name keyed by a hash of
 the sources and flags, so an edited source builds anew and an unchanged one
 is reused. Nothing is built at import: the CPU tests import every module
 without ``nvcc``.
+
+The engine artifact's pieces are built with ``g++`` against PyTorch
+(:func:`load_op_library`, :func:`build_serve_torch`): the torch custom ops'
+schemas (``csrc/torch_ops.cpp``, PyTorch alone, so that a machine without
+a card or ``nvcc`` can script, save and load a fused artifact), their CUDA
+implementations (``csrc/torch_ops_cuda.cpp`` and
+``csrc/torch_ops_launch.cpp``, linked with the schema library and the
+kernel library above), and the serving container ``serve_torch``
+(``csrc/serve_torch.cpp`` with the trajectory loader). Only the include
+paths, library paths and ABI flag come from ``torch.utils.cpp_extension``;
+each output is keyed by a hash of its sources, flags and PyTorch's
+version, written to a temporary name and renamed into place, so that
+processes that build at once never load a half-written file.
 """
 
 from __future__ import annotations
@@ -25,7 +38,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_path", "BUILD_INFO"]
+__all__ = ["load_library", "load_op_library", "build_serve_torch",
+           "nvcc_path", "BUILD_INFO"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -41,6 +55,10 @@ BUILD_INFO: dict = {}
 
 _lock = threading.Lock()
 _lib = None
+GXX_FLAGS = ["-std=c++20", "-O2", "-fPIC", "-Wno-unknown-pragmas"]
+# The engine artifact's libraries loaded in this process, by kind.
+_op_libs: dict = {}
+_op_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -178,3 +196,150 @@ def load_library():
         _lib = _bind(ctypes.CDLL(str(out)))
         BUILD_INFO.update(path=str(out), seconds=seconds, log=log)
         return _lib
+
+
+def _torch_flags():
+    """``(compile flags, library directory)`` for g++ against PyTorch:
+    include paths and library path from ``torch.utils.cpp_extension``, the
+    C++ ABI PyTorch was built with."""
+    import torch
+    from torch.utils import cpp_extension
+
+    abi = int(torch.compiled_with_cxx11_abi())
+    return ([f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+             *(f"-I{p}" for p in cpp_extension.include_paths())],
+            cpp_extension.library_paths()[0])
+
+
+def _gxx_output(stem, files, flags, suffix=".so"):
+    """The output path of a g++ build: keyed by the sources, the flags and
+    PyTorch's version."""
+    import torch
+
+    h = hashlib.sha256(" ".join([*flags, torch.__version__]).encode())
+    for p in files:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}{suffix}"
+
+
+def _run_all(jobs):
+    """Run each ``(name, argv)`` at once; raise with its output where one
+    fails. Returns the combined output, one ``== <name>`` section each."""
+    procs = [(name, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+             for name, cmd in jobs]
+    log, failed = [], []
+    for name, cmd, proc in procs:
+        text = proc.communicate()[0]
+        log.append(f"== {name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("g++ failed:\n" + "\n".join(failed))
+    return "".join(log)
+
+
+def _link_torch(libdir, *names):
+    """Link flags for PyTorch's libraries ``names``, found at run time in
+    ``libdir``."""
+    return [f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-Wl,--no-as-needed",
+            *(f"-l{n}" for n in names), "-Wl,--as-needed"]
+
+
+def _build_gxx(out, compile_jobs, link):
+    """Compile ``compile_jobs`` (``[(source, extra flags)]``) into objects
+    at once, then link them with ``link`` into ``out``, via temporary
+    names. Returns the seconds taken and g++'s output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    objs = out.with_suffix(f".{os.getpid()}.obj")
+    objs.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        jobs, paths = [], []
+        for src, flags in compile_jobs:
+            obj = objs / (src.stem + ".o")
+            paths.append(str(obj))
+            jobs.append((src.name, ["g++", *GXX_FLAGS, *flags, f"-I{SRC_DIR}",
+                                    "-c", str(src), "-o", str(obj)]))
+        log = _run_all(jobs)
+        log += _run_all([(out.name, ["g++", *paths, "-o", str(tmp), *link])])
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+        shutil.rmtree(objs, ignore_errors=True)
+    return time.perf_counter() - t0, log
+
+
+def _cuda_include():
+    return str(Path(nvcc_path()).resolve().parent.parent / "include")
+
+
+def _op_libraries(cuda):
+    """``[(path, compile jobs, link flags)]`` of the engine artifact's
+    libraries: the schemas and, with ``cuda``, their CUDA implementations
+    (which needs the kernel library built first)."""
+    cflags, libdir = _torch_flags()
+    schema_src = SRC_DIR / "torch_ops.cpp"
+    schema = _gxx_output("libmolann_ops", [schema_src], cflags)
+    libs = [(schema, [(schema_src, cflags)],
+             ["-shared", *_link_torch(libdir, "c10", "torch_cpu")])]
+    if cuda:
+        kernels = Path(load_library()._name)
+        srcs = [SRC_DIR / "torch_ops_cuda.cpp", SRC_DIR / "torch_ops_launch.cpp"]
+        deps = [*srcs, *sorted(SRC_DIR.glob("*.cuh")),
+                SRC_DIR / "torch_ops_launch.h"]
+        cuda_flags = [*cflags, f"-I{_cuda_include()}"]
+        out = _gxx_output("libmolann_ops_cuda", deps,
+                          [*cuda_flags, schema.name, kernels.name])
+        libs.append((out, [(srcs[0], cuda_flags), (srcs[1], [])],
+                     ["-shared", str(schema), str(kernels),
+                      *_link_torch(libdir, "c10", "c10_cuda", "torch_cpu")]))
+    return libs
+
+
+def load_op_library(cuda=True):
+    """Build (at first use) and load the engine artifact's torch custom
+    ops, ``torch.ops.molann_tpu_torch.*``: their schemas and, with
+    ``cuda``, their CUDA implementations, which launch K1, K4, K6 and K8
+    from the kernel library (built with ``nvcc`` first). Returns the path
+    of the library a serving process loads (``serve_torch --ops``): the
+    CUDA one, which loads the schemas itself, or the schemas. Records the
+    build seconds in ``BUILD_INFO["ops_seconds"]``."""
+    import torch
+
+    kind = "cuda" if cuda else "schemas"
+    with _op_lock:
+        if kind in _op_libs:
+            return _op_libs[kind]
+        seconds, log = 0.0, ""
+        for out, jobs, link in _op_libraries(cuda):
+            if not out.exists():
+                dt, text = _build_gxx(out, jobs, link)
+                seconds, log = seconds + dt, log + text
+            torch.ops.load_library(str(out))
+        BUILD_INFO.update(ops_seconds=seconds, ops_log=log)
+        _op_libs[kind] = str(out)
+        return _op_libs[kind]
+
+
+def build_serve_torch():
+    """Build (at first use) the serving container ``serve_torch`` against
+    LibTorch (with its CUDA libraries where PyTorch has them) and the
+    port's trajectory loader. Returns its path; records the build seconds
+    in ``BUILD_INFO["serve_seconds"]``."""
+    cflags, libdir = _torch_flags()
+    srcs = [SRC_DIR / "serve_torch.cpp", SRC_DIR / "traj_loader.cpp"]
+    out = _gxx_output("serve_torch", [*srcs, SRC_DIR / "traj_loader.h"],
+                      cflags, suffix="")
+    seconds = 0.0
+    if not out.exists():
+        libs = ["torch", "torch_cpu", "c10"]
+        if (Path(libdir) / "libtorch_cuda.so").exists():
+            libs += ["torch_cuda", "c10_cuda"]
+        seconds, _ = _build_gxx(out, [(srcs[0], cflags), (srcs[1], ["-O3"])],
+                                [*_link_torch(libdir, *libs), "-pthread",
+                                 "-ldl"])
+    BUILD_INFO["serve_seconds"] = seconds
+    return str(out)

@@ -68,6 +68,7 @@ __all__ = [
     "active_atom_indices",
     "resolve_precision",
     "qcp_rotation",
+    "artifact_tables",
     "KERNEL_LAUNCHES",
 ]
 
@@ -457,6 +458,56 @@ def coord_parameters(spec):
     return par
 
 
+def _index_tables(spec, align_idx):
+    """The model's int32 index tables, atom form then slot form, as one
+    flat list: ``(flat, offsets, n_slots)`` with ``offsets[form, name]``
+    the element offset of each table (``form`` ``"atoms"`` or
+    ``"slots"``; the slot form adds ``slot_col`` and ``col_slot``)."""
+    col_of = list(range(spec.out_dim))
+    for k, row in enumerate(spec.perm or ()):
+        col_of[row] = k  # column k holds type-grouped row perm[k]
+    starts = [0]
+    for _, npairs in spec.coord_slices:
+        starts.append(starts[-1] + npairs)
+    tables = {
+        "angle_idx": [i for t in spec.angle_idx for i in t],
+        "bond_idx": [i for t in spec.bond_idx for i in t],
+        "dihedral_idx": [i for t in spec.dihedral_idx for i in t],
+        "pos_idx": list(spec.position_idx),
+        "align_idx": list(align_idx or ()),
+        "col_of": col_of,
+        "coord_start": starts,
+        "coord_pairs": [i for p in spec.coord_pairs for i in p],
+    }
+    n = spec.n_input_atoms
+    slot_atom = sorted({i for name in _ATOM_TABLES for i in tables[name]})
+    slot_of = {a: k for k, a in enumerate(slot_atom)}
+    slotted = {name: ([slot_of[i] for i in tables[name]]
+                      if name in _ATOM_TABLES else tables[name])
+               for name in _TABLES}
+    slotted["slot_col"] = [3 * a + c for a in slot_atom for c in range(3)]
+    slotted["col_slot"] = [3 * slot_of[a] + c if a in slot_of else -1
+                           for a in range(n) for c in range(3)]
+    flat, offsets = [], {}
+    for form, tabs in (("atoms", tables), ("slots", slotted)):
+        for name, values in tabs.items():
+            offsets[form, name] = len(flat)
+            flat.extend(values)
+    return flat, offsets, len(slot_atom)
+
+
+def _sizes(spec, n_align, activation, dims):
+    """``(field, value)`` of the sizes a :class:`ModelArgs` holds, but for
+    ``dims`` and ``n_slots``."""
+    return (("n_atoms", spec.n_input_atoms), ("n_angles", spec.n_angles),
+            ("n_bonds", spec.n_bonds), ("n_dihedrals", spec.n_dihedrals),
+            ("n_pos", spec.n_position_atoms), ("n_align", n_align),
+            ("n_coord", spec.n_coordinations),
+            ("use_angle_value", int(spec.use_angle_value)),
+            ("n_feat", spec.out_dim), ("n_layers", len(dims) - 1),
+            ("activation", KERNEL_ACTIVATIONS[activation]))
+
+
 class _Statics:
     """What every kernel call of one model on one device shares, built
     once: the index tables and coordination parameters on the device, a
@@ -477,56 +528,20 @@ class _Statics:
         self.d_out = dims[-1]
         self.tiles = {}
         self.grids = {}
-        col_of = list(range(spec.out_dim))
-        for k, row in enumerate(spec.perm or ()):
-            col_of[row] = k  # column k holds type-grouped row perm[k]
-        starts = [0]
-        for _, npairs in spec.coord_slices:
-            starts.append(starts[-1] + npairs)
-        tables = {
-            "angle_idx": [i for t in spec.angle_idx for i in t],
-            "bond_idx": [i for t in spec.bond_idx for i in t],
-            "dihedral_idx": [i for t in spec.dihedral_idx for i in t],
-            "pos_idx": list(spec.position_idx),
-            "align_idx": list(align_idx or ()),
-            "col_of": col_of,
-            "coord_start": starts,
-            "coord_pairs": [i for p in spec.coord_pairs for i in p],
-        }
-        n = spec.n_input_atoms
-        slot_atom = sorted({i for name in _ATOM_TABLES for i in tables[name]})
-        slot_of = {a: k for k, a in enumerate(slot_atom)}
-        slotted = {name: ([slot_of[i] for i in tables[name]]
-                          if name in _ATOM_TABLES else tables[name])
-                   for name in _TABLES}
-        slotted["slot_col"] = [3 * a + c for a in slot_atom for c in range(3)]
-        slotted["col_slot"] = [3 * slot_of[a] + c if a in slot_of else -1
-                               for a in range(n) for c in range(3)]
-        flat, offsets = [], {}
-        for form, tabs in (("atoms", tables), ("slots", slotted)):
-            for name, values in tabs.items():
-                offsets[form, name] = len(flat)
-                flat.extend(values)
+        flat, offsets, n_slots = _index_tables(spec, align_idx)
         ints = torch.tensor(flat + [0], dtype=torch.int32, device=device)
         par = torch.from_numpy(np.concatenate(
             [coord_parameters(spec).reshape(-1), np.zeros(1, np.float32)])
         ).to(device)
         self.keep = (ints, par)
         a = self.args = ModelArgs()
-        a.n_atoms = spec.n_input_atoms
-        a.n_angles, a.n_bonds = spec.n_angles, spec.n_bonds
-        a.n_dihedrals, a.n_pos = spec.n_dihedrals, spec.n_position_atoms
-        a.n_align = self.n_align
-        a.n_coord = spec.n_coordinations
-        a.use_angle_value = int(spec.use_angle_value)
-        a.n_feat = spec.out_dim
-        a.n_layers = len(dims) - 1
-        a.activation = KERNEL_ACTIVATIONS[activation]
+        for name, value in _sizes(spec, self.n_align, activation, dims):
+            setattr(a, name, value)
         for i, d in enumerate(dims):
             a.dims[i] = d
         a.coord_par = par.data_ptr()
         self.slot_args = ModelArgs.from_buffer_copy(a)
-        self.slot_args.n_slots = len(slot_atom)
+        self.slot_args.n_slots = n_slots
         base = ints.data_ptr()
         for (form, name), off in offsets.items():
             args = a if form == "atoms" else self.slot_args
@@ -619,6 +634,85 @@ def model_args(spec, align_idx, ref_x, params, activation, device, kernel):
     st = _statics(spec, align_idx, activation, params, device)
     args, keep = st.model_args(kernel, ref_x, params, device)
     return args, (st, keep)
+
+
+# The int meta-data of an engine artifact of K1/K4, in the order
+# csrc/torch_ops_launch.cpp reads it (UnrMeta there): the format, the sizes
+# of ModelArgs, the output width, the element offset of each slot-form table
+# in the int32 tensor and of each float table in the float32 tensor (-1:
+# absent).
+UNROLLED_META = (
+    "format", "n_atoms", "n_angles", "n_bonds", "n_dihedrals", "n_pos",
+    "n_align", "n_coord", "use_angle_value", "n_feat", "n_layers",
+    "activation", *(f"dim{i}" for i in range(KERNEL_MAX_LAYERS + 1)),
+    "n_slots", "d_out", *(f"{t}_off" for t in (*_TABLES, "slot_col",
+                                                 "col_slot")),
+    "coord_par_off", "ref_x_off",
+    *(f"w{i}_off" for i in range(KERNEL_MAX_LAYERS)),
+    *(f"b{i}_off" for i in range(KERNEL_MAX_LAYERS)))
+UNROLLED_FORMAT = 1
+
+
+def _aligned(pieces, to=4):
+    """numpy pieces laid end to end, each starting at a multiple of ``to``
+    elements: ``(flat array, offsets)``."""
+    out, offs, o = [], [], 0
+    for p in pieces:
+        pad = -o % to
+        if pad:
+            out.append(np.zeros(pad, p.dtype))
+            o += pad
+        offs.append(o)
+        out.append(p)
+        o += p.size
+    return np.concatenate(out + [np.zeros(1, pieces[0].dtype)]), offs
+
+
+def artifact_tables(model):
+    """What an engine artifact carries to run ``model`` through the unrolled
+    kernels K1 (values) and K4 (values and coordinate gradients) as torch
+    custom ops (:mod:`molann_tpu_torch.io.export`): ``{"ints", "floats",
+    "meta"}``, host tensors and a list of ints.
+
+    ``ints`` holds the int32 index tables of :class:`_Statics`, the atom
+    form then the slot form; ``floats`` the coordination parameters
+    (:func:`coord_parameters`), ``ref_x`` and each layer's ``W [d_out,
+    d_in]`` and ``b``, every piece 16-byte aligned; ``meta`` the sizes and
+    offsets, named by :data:`UNROLLED_META`. The ops rebuild
+    :class:`ModelArgs` from them on every call, in the slot form K1 and K4
+    take, so an artifact's kernel reads the tables and weights the
+    Python route's launch reads."""
+    spec, align_idx, ref_x, params, activation = _extract_model(model)
+    _check_envelope(spec, params, activation)
+    dims = (spec.out_dim, *(int(w.shape[0]) for w, _ in params))
+    n_align = len(align_idx) if align_idx is not None else 0
+    flat, offsets, n_slots = _index_tables(spec, align_idx)
+
+    def host(t):
+        return t.detach().to("cpu", torch.float32).contiguous().numpy()
+
+    pieces = [coord_parameters(spec).reshape(-1)]
+    if n_align:
+        pieces.append(host(ref_x).reshape(-1))
+    for w, b in params:
+        pieces += [host(w).reshape(-1), host(b).reshape(-1)]
+    floats, offs = _aligned(pieces)
+    offs = iter(offs)
+    coord_off = next(offs)
+    ref_off = next(offs) if n_align else -1
+    w_offs, b_offs = [-1] * KERNEL_MAX_LAYERS, [-1] * KERNEL_MAX_LAYERS
+    for i in range(len(params)):
+        w_offs[i], b_offs[i] = next(offs), next(offs)
+    meta = [UNROLLED_FORMAT,
+            *(v for _, v in _sizes(spec, n_align, activation, dims)),
+            *dims, *([0] * (KERNEL_MAX_LAYERS + 1 - len(dims))),
+            n_slots, dims[-1],
+            *(offsets["slots", t] for t in (*_TABLES, "slot_col",
+                                             "col_slot")),
+            coord_off, ref_off, *w_offs, *b_offs]
+    assert len(meta) == len(UNROLLED_META)
+    return {"ints": torch.tensor(flat + [0], dtype=torch.int32),
+            "floats": torch.from_numpy(floats), "meta": meta}
 
 
 def _check_cuda_input(x):

@@ -58,6 +58,7 @@ __all__ = [
     "BlockedLayout",
     "blocked_layout",
     "chunk_matrix",
+    "artifact_tables",
     "blocked_apply",
     "blocked_cv_forces",
     "blocked_train_grads",
@@ -75,6 +76,7 @@ COORD_RESIDENT_MAX = 512
 # Mirrors of csrc/blocked_math.cuh, checked against the built library.
 BLK_COORD_FLOATS = _F.COORD_FLOATS
 BLK_THREADS = 256
+BLK_THREADS_WIDE = 512  # MOLANN_BLK_THREADS_WIDE
 BLK_GRAD_BLOCKS = 528
 # Where a backward or train block's running sums live (BLK_SUMS_*), and the
 # floats of a thread's rectangle of a large layer's weight gradient.
@@ -709,19 +711,14 @@ def check_blocked_envelope(params, activation):
                          f"kernels take {sorted(_F.KERNEL_ACTIVATIONS)}")
 
 
-def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
-                 compact_out=False):
-    """``(BlockedArgs, keepalive)`` for the kernels on ``device``; the
-    tile (frames, pitch and the feature batches) is left for
-    :func:`set_tile`."""
-    device = torch.device(device)
-    ints, offsets, par = lay.device_tables(device)
-    spec = lay.spec
+def param_block(lay, ref_x, params, device):
+    """The blocked kernels' float parameters on ``device``: a leading pad of
+    4 zeros, then ``ref_x`` (where the layout aligns) and per layer ``W``
+    transposed ``[d_in, d_out]`` and ``b``, every piece padded to a
+    multiple of 4 floats so that the kernels may load a row of four weights
+    in one 16-byte access (the leading pad keeps the pointer valid for a
+    model without any); one zeros and one cat."""
     with torch.no_grad():
-        # [ref_x | per layer: W transposed [d_in, d_out], b], every piece
-        # padded to a multiple of 4 floats so that the kernels may load a
-        # row of four weights in one 16-byte access (a leading pad keeps the
-        # pointer valid for a model without any); one zeros and one cat
         zeros = torch.zeros(4, dtype=torch.float32, device=device)
         pieces = [zeros]
         tensors = [ref_x.reshape(-1)] if lay.has_align else []
@@ -735,17 +732,36 @@ def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
             pieces.append(p.to(torch.float32))
             if p.numel() % 4:
                 pieces.append(zeros[:-p.numel() % 4])
-        floats = torch.cat(pieces)
+        return torch.cat(pieces)
+
+
+def _sizes(lay, params, activation, compact_out=False):
+    """``(field, value)`` of the sizes a :class:`BlockedArgs` holds, but
+    for the tile's."""
+    spec = lay.spec
+    return (("n_act", lay.n_active),
+            ("n_out", lay.n_active if compact_out else lay.n_atoms),
+            ("n_angles", spec.n_angles), ("n_bonds", spec.n_bonds),
+            ("n_dihedrals", spec.n_dihedrals),
+            ("n_coord", spec.n_coordinations),
+            ("n_pos", spec.n_position_atoms), ("n_align", lay.n_align),
+            ("use_angle_value", int(spec.use_angle_value)),
+            ("n_feat", spec.out_dim), ("n_layers", len(params)),
+            ("activation", _F.KERNEL_ACTIVATIONS[activation]))
+
+
+def blocked_args(lay, ref_x, params, activation, pair_op, device, *,
+                 compact_out=False):
+    """``(BlockedArgs, keepalive)`` for the kernels on ``device``; the
+    tile (frames, pitch and the feature batches) is left for
+    :func:`set_tile`."""
+    device = torch.device(device)
+    ints, offsets, par = lay.device_tables(device)
+    spec = lay.spec
+    floats = param_block(lay, ref_x, params, device)
     a = BlockedArgs()
-    a.n_act = lay.n_active
-    a.n_out = lay.n_active if compact_out else lay.n_atoms
-    a.n_angles, a.n_bonds = spec.n_angles, spec.n_bonds
-    a.n_dihedrals, a.n_coord = spec.n_dihedrals, spec.n_coordinations
-    a.n_pos, a.n_align = spec.n_position_atoms, lay.n_align
-    a.use_angle_value = int(spec.use_angle_value)
-    a.n_feat = spec.out_dim
-    a.n_layers = len(params)
-    a.activation = _F.KERNEL_ACTIVATIONS[activation]
+    for name, value in _sizes(lay, params, activation, compact_out):
+        setattr(a, name, value)
     head_dev, head_host = lay.device_head(
         (spec.out_dim, *(int(w.shape[0]) for w, _ in params)), device)
     a.head, a.head_host = head_dev.data_ptr(), head_host.ctypes.data
@@ -826,6 +842,83 @@ def _library():
         raise RuntimeError(f"kernel library caps {list(caps)} do not match "
                            f"ops/fused_blocked.py {want}")
     return lib
+
+
+# The batches of bonds, angles and dihedrals a blocked launch may ask for:
+# max(1, threads // frames) over a block's threads and every tile.
+BATCH_GROUPS = tuple(sorted({max(1, t // f)
+                             for t in (BLK_THREADS, BLK_THREADS_WIDE)
+                             for f in (32, 16, 8, 4, 2, 1)}))
+# The int meta-data of an engine artifact of K6/K8, in the order
+# csrc/torch_ops_launch.cpp reads it (BlkMeta there): the format, the sizes
+# of BlockedArgs, the input's atoms and the output width, whether the layout
+# compacts atoms, walks pairs heavily (pair_heavy) and has a pair operand,
+# the operand's length, the element offset of each int32 table, of the head
+# table and of each group's batches (with their count) in the int32 tensor,
+# and of the coordination parameters, ref_x and the parameters in the
+# float32 tensor; then the head table itself, for the host's sizing.
+BLOCKED_META = (
+    "format", "n_act", "n_out", "n_angles", "n_bonds", "n_dihedrals",
+    "n_coord", "n_pos", "n_align", "use_angle_value", "n_feat", "n_layers",
+    "activation", "n_atoms", "d_out", "has_active", "pair_heavy",
+    "has_pairs", "n_pair_operand", *(f"{t}_off" for t in _INT_TABLES),
+    "head_off", *(f"{k}{g}" for g in BATCH_GROUPS
+                  for k in ("batches_off_", "n_batches_")),
+    "coord_par_off", "ref_x_off", "params_off")
+BLOCKED_FORMAT = 1
+
+
+def artifact_tables(model, c_mat="auto"):
+    """What an engine artifact carries to run ``model`` through the blocked
+    kernels K6 (values) and K8 (values and coordinate gradients) as torch
+    custom ops (:mod:`molann_tpu_torch.io.export`): ``{"ints", "floats",
+    "pairs", "meta"}``, host tensors and a list of ints.
+
+    ``ints`` holds the layout's int32 tables (:meth:`BlockedLayout.
+    device_tables`), the head table (:meth:`BlockedLayout.device_head`) and
+    the batches of bonds, angles and dihedrals for every group a tile may
+    ask for (:data:`BATCH_GROUPS`), each piece 32-byte aligned; ``floats``
+    the coordination parameters and :func:`param_block`; ``pairs`` the pair
+    operand (:meth:`BlockedLayout.pair_operand`, or ``c_mat`` checked as
+    :func:`resolve_c_mat` checks it; empty without coordination features);
+    ``meta`` the sizes and offsets named by :data:`BLOCKED_META`, then the
+    head table. The ops choose the tile as :func:`choose_frames` and
+    :func:`set_tile` do and rebuild :class:`BlockedArgs` on every call, so
+    an artifact's kernel reads what the Python route's launch reads."""
+    spec, align_idx, ref_x, params, activation = _F._extract_model(model)
+    check_blocked_envelope(params, activation)
+    lay = blocked_layout(spec, align_idx)
+    cpu = torch.device("cpu")
+    if isinstance(c_mat, str) and c_mat == "auto" or c_mat is None:
+        pairs = (lay.pair_operand() if lay.coord_npairs
+                 else np.zeros(0, np.int32))
+    else:
+        pairs = resolve_c_mat(lay, c_mat, cpu).numpy()
+    ints, offsets, par = lay.device_tables(cpu)
+    dims = (spec.out_dim, *(int(w.shape[0]) for w, _ in params))
+    head = lay.device_head(dims, cpu)[1]
+    pieces = [ints.numpy()[:-1], head]
+    batches = [lay.feature_batches(g) for g in BATCH_GROUPS]
+    pieces += [np.concatenate(pb) for pb in batches]
+    flat_ints, offs = _F._aligned(pieces, 8)
+    floats = param_block(lay, None if ref_x is None else ref_x.detach().cpu(),
+                         tuple((w.detach().cpu(), b.detach().cpu())
+                               for w, b in params), cpu).numpy()
+    flat_floats, (coord_off, params_off) = _F._aligned(
+        [par.numpy()[:-1], floats])
+    meta = [BLOCKED_FORMAT, *(v for _, v in _sizes(lay, params, activation)),
+            lay.n_atoms, dims[-1], int(lay.active_idx is not None),
+            int(pair_heavy(lay)), int(pairs.size > 0), lay.pair_operand_size,
+            *(offsets[t] for t in _INT_TABLES), offs[1],
+            *(v for (ptr, _), o in zip(batches, offs[2:])
+              for v in (o, len(ptr) - 1)),
+            coord_off, params_off + 4,
+            params_off + 4 + -(-3 * lay.n_align // 4) * 4]
+    assert len(meta) == len(BLOCKED_META)
+    return {"ints": torch.from_numpy(flat_ints),
+            "floats": torch.from_numpy(flat_floats),
+            "pairs": torch.from_numpy(np.ascontiguousarray(pairs, np.int32)),
+            "meta": meta + [int(v) for v in head]}
 
 
 def choose_frames(smem_bytes, l=None, backward=False, pairs=False):

@@ -33,8 +33,18 @@ OPTIMIZER = ("the optimizer outside the step: a step takes and returns the "
 DONATE = "donate: JAX buffer donation has no counterpart in PyTorch"
 AUTO_TILE = ("auto_tile: sizes VMEM tiles of the TPU kernels; the CUDA "
              "kernels choose their own tile")
-STABLEHLO = ("StableHLO and TorchScript artifacts: not ported yet (ROADMAP.md "
-             "queue 2, item 6); StableHLO is replaced, not ported")
+STABLEHLO = ("StableHLO artifacts: replaced by design by the TorchScript "
+             "engine artifact (io.export.export_artifact/load_artifact), "
+             "which LibTorch loads; raw_mlir, the bare StableHLO framing for "
+             "a PJRT runtime, has no counterpart")
+BUNDLE = ("export_bundle/read_bundle: replaced by design; a bundle of "
+          "fixed-batch modules exists because a bare PJRT runtime cannot "
+          "refine a polymorphic batch, and a TorchScript artifact takes any "
+          "batch; the bundle's c_mat section is a buffer of the artifact")
+ARTIFACT = ("the TorchScript engine artifact (fused: K1/K4/K6/K8 as torch "
+            "custom ops) in place of StableHLO")
+TABLES = ("artifact_tables: the tables an engine artifact carries for the "
+          "fused kernels, as tensors and ints")
 PYTREE = ("utils.pytree: JAX pytree registration, removed, not ported "
           "(ROADMAP.md queue 2, 'Removed')")
 SERVING_FN = ("make_serving_fn: serving over several devices is not ported "
@@ -44,12 +54,10 @@ PLAIN = ("the port's additions: each kernel's plain PyTorch version, the "
 
 # (module, name) the reference exports and the port does not
 MISSING = {
-    ("molann_tpu_torch.io", "export_bundle"): STABLEHLO,
-    ("molann_tpu_torch.io", "export_stablehlo"): STABLEHLO,
-    ("molann_tpu_torch.io", "load_stablehlo"): STABLEHLO,
-    ("molann_tpu_torch.io", "read_bundle"): STABLEHLO,
-    ("molann_tpu_torch.io", "export_torchscript"): STABLEHLO,
-    ("molann_tpu_torch.io", "load_torchscript"): STABLEHLO,
+    **{(mod, n): (BUNDLE if "bundle" in n else STABLEHLO)
+       for mod in ("molann_tpu_torch.io", "molann_tpu_torch.io.export")
+       for n in ("export_bundle", "export_stablehlo", "load_stablehlo",
+                 "read_bundle")},
     ("molann_tpu_torch.ops.fused_blocked", "auto_tile"): AUTO_TILE,
     ("molann_tpu_torch.serve", "make_serving_fn"): SERVING_FN,
     ("molann_tpu_torch.utils", "PytreeNode"): PYTREE,
@@ -73,6 +81,11 @@ EXTRA = {
     ("molann_tpu_torch.models.ann", "ACTIVATIONS"): ACTIVATION,
     ("molann_tpu_torch.models.ann", "named_tensors"): (
         "named_tensors, as above"),
+    **{(mod, n): ARTIFACT
+       for mod in ("molann_tpu_torch.io", "molann_tpu_torch.io.export")
+       for n in ("export_artifact", "load_artifact")},
+    ("molann_tpu_torch.ops.fused", "artifact_tables"): TABLES,
+    ("molann_tpu_torch.ops.fused_blocked", "artifact_tables"): TABLES,
     **{("molann_tpu_torch.ops.fused", n): PLAIN for n in (
         "KERNEL_LAUNCHES", "backward_plain", "cv_forces_plain",
         "forward_plain", "model_select_mode", "resolve_precision",
@@ -90,6 +103,7 @@ SIGNATURE = {
     "molann_tpu_torch.models.ann.Identity": MODULE,
     "molann_tpu_torch.models.ann.create_sequential_nn": GENERATOR,
     "molann_tpu_torch.io.serialize.load_model": DEVICE,
+    "molann_tpu_torch.io.torch_import.load_torchscript": DEVICE,
     "molann_tpu_torch.pbc.wrap": DEVICE,
     "molann_tpu_torch.pbc.minimum_image": DEVICE,
     "molann_tpu_torch.pbc.unwrap_time": DEVICE,

@@ -242,9 +242,12 @@ def test_train_error_paths(workdir, capsys):
     with pytest.raises(NotImplementedError, match="queue 2, item 5"):
         main(["train", str(d / "model.npz"), str(d / "traj.npy"),
               "--devices", "2", "--device", "cpu"])
-    for cmd in ("export", "import-torch", "export-torch"):
-        assert main([cmd, str(d / "model.npz")]) == 2
-        assert "queue 2, item 8" in capsys.readouterr().err
+    # the three artifact commands are ported; export refuses the two
+    # StableHLO framings with exit 2
+    for flag in (["--raw-mlir"], ["--batch-sizes", "4,2"]):
+        assert main(["export", str(d / "model.npz"), "--n-atoms", "22",
+                     *flag, "--device", "cpu"]) == 2
+        assert "TorchScript artifact" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         main(["nope"])
     if not torch.cuda.is_available():

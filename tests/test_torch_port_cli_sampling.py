@@ -405,8 +405,8 @@ def test_build_matches_jax(workdir, capsys):
 
 
 def test_help_lists_the_jax_commands_in_order(capsys):
-    """The port's commands are the JAX package's, in its ``--help`` order,
-    but for the three not ported, which exit 2."""
+    """The port's commands are the JAX package's, all of them, in its
+    ``--help`` order."""
     names = {}
     for fn, tag in ((jmain, "j"), (main, "p")):
         capsys.readouterr()
@@ -415,6 +415,6 @@ def test_help_lists_the_jax_commands_in_order(capsys):
         text = capsys.readouterr().out
         names[tag] = re.search(r"\{([^}]*)\}", text).group(1).split(",")
     assert names["p"] == [c for c in names["j"] if c not in NOT_PORTED]
-    assert set(NOT_PORTED) == {"export", "import-torch", "export-torch"}
+    assert NOT_PORTED == ()
     u = alanine_universe()
     assert u.atoms.n_atoms == 22

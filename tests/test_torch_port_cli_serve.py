@@ -327,10 +327,11 @@ def test_error_paths_match_jax(workdir, capsys):
     with pytest.raises(ValueError, match="tile must be"):
         main(["evaluate", str(d / "model.npz"), str(d / "traj.npy"),
               "--tile", "0", "--out", str(d / "x.npy"), *CPU])
-    for cmd in NOT_PORTED:
-        assert main([cmd, str(d / "model.npz")]) == 2
-        assert "queue 2, item 8" in capsys.readouterr().err
-    assert set(NOT_PORTED) == {"export", "import-torch", "export-torch"}
+    assert NOT_PORTED == ()  # every JAX command is ported
+    for flag in (["--raw-mlir"], ["--batch-sizes", "8"]):
+        assert main(["export", str(d / "model.npz"), "--n-atoms", str(N),
+                     *flag, *CPU]) == 2
+        assert "TorchScript artifact" in capsys.readouterr().err
     if not torch.cuda.is_available():
         for argv in (["evaluate", str(d / "model.npz"), str(d / "traj.npy")],
                      ["unwrap", str(d / "wrapped.dcd"), str(d / "system.pdb"),

@@ -137,7 +137,9 @@ def test_import_needs_no_jax_or_pandas():
             "molann_tpu_torch.pbc, molann_tpu_torch.cli.evaluate, "
             "molann_tpu_torch.cli.traj, molann_tpu_torch.sampling, "
             "molann_tpu_torch.cli.sampling, molann_tpu_torch.cli.analysis, "
-            "molann_tpu_torch.cli.export; "
+            "molann_tpu_torch.cli.export, molann_tpu_torch.io.export, "
+            "molann_tpu_torch.io.torch_export, "
+            "molann_tpu_torch.io.torch_import; "
             "bad = [m for m in ('jax', 'pandas', 'molann_tpu') "
             "if m in sys.modules]; assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

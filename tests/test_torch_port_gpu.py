@@ -1580,3 +1580,103 @@ def test_sample_command_on_the_card(cuda, tmp_path, capsys):
         assert out[0].startswith(f"wrote {tmp_path / 's.npy'}: 12 frames")
         assert out[1] == f"wrote {tmp_path / 'b.npz'}: 12 deposits"
         assert np.isfinite(np.load(tmp_path / "s.npy")).all()
+
+
+# ---------------------------------------------------------------------------
+# the engine artifact: K1/K4/K6/K8 as torch custom ops
+# ---------------------------------------------------------------------------
+
+
+def _artifact_case(name):
+    from molann_tpu_torch.systems import lj_fluid_model, peptide_model
+
+    gen = torch.Generator().manual_seed(7)
+    if name == "alanine":
+        model, u = alanine_model(generator=gen, device="cpu")
+    elif name == "peptide":
+        model, u = peptide_model(60, generator=gen, device="cpu")
+    else:
+        model, u = lj_fluid_model(5, generator=gen, device="cpu")[:2]
+    return model, u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["alanine", "peptide", "fluid"])
+def test_fused_artifact_matches_the_python_route(cuda, name):
+    """A fused artifact exported from the host runs K1/K4 or K6/K8 on the
+    card: the same bits as the Python route (the same kernel on the same
+    stream), one launch a call, and the float32 plain versions within the
+    tolerances (the fluid's gradients off the pairs at a jump)."""
+    import copy
+
+    from molann_tpu_torch.io import export_artifact, load_artifact
+    from molann_tpu_torch.ops import fused_blocked as FB
+
+    host, u = _artifact_case(name)
+    n = u.atoms.n_atoms
+    model = copy.deepcopy(host).to(cuda)
+    rng = np.random.default_rng(5)
+    sigma = 0.5 if name == "fluid" else 0.05
+    x = torch.as_tensor((u.atoms.positions[None] + sigma * rng.normal(
+        size=(1000, n, 3))).astype(np.float32), device=cuda)
+    fwd = load_artifact(export_artifact(host, n, fused=True), device=cuda)
+    cvf = load_artifact(export_artifact(host, n, fused=True,
+                                        with_gradient=True), device=cuda)
+    ops = torch.ops.molann_tpu_torch
+    ops.reset_launch_counts()
+    y_a = fwd(x)
+    y_ag, g_ag = cvf(x)
+    blocked = F.model_select_mode(model) == "blocked"
+    assert ops.launch_counts().tolist() == ([0, 0, 1, 1] if blocked
+                                            else [1, 1, 0, 0])
+    with torch.no_grad():
+        y_r = F.fused_model_forward(model, x)
+    y_rg, g_rg = F.fused_cv_forces(model, x)
+    for a, b in ((y_a, y_r), (y_ag, y_rg), (g_ag, g_rg)):
+        assert torch.equal(a, b)
+    parts = F._extract_model(model)
+    if blocked:
+        y_ref, g_ref = FB.blocked_cv_forces_plain(*parts, x)
+        slack = FB.gradient_jump_slack(parts[0], parts[3], x.double())
+    else:
+        y_ref, g_ref = F.cv_forces_plain(*parts, x)
+        slack = torch.zeros(x.shape[:2], dtype=torch.float64, device=cuda)
+    tol = 5e-5 if name == "fluid" else VAL_ATOL
+    assert float((y_a - y_ref).abs().max()) <= tol
+    err = (g_ag.double() - g_ref.double()).abs().amax(-1) - slack
+    assert float(err.max()) <= GRAD_RTOL * max(1.0, float(g_ref.abs().max()))
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        load_artifact(export_artifact(host, n, fused=True),
+                      device="cpu")(x.cpu())
+
+
+@pytest.mark.gpu
+def test_serve_torch_on_the_card_matches_evaluate(cuda, tmp_path):
+    """The container on a fused gradient artifact: the outputs of
+    evaluate_trajectory, bit for bit, and one K4 launch a batch."""
+    import subprocess
+
+    from molann_tpu_torch.io import export_artifact, write_dcd
+    from molann_tpu_torch.ops import _build
+    from molann_tpu_torch.serve import evaluate_trajectory
+
+    host, u = _artifact_case("alanine")
+    rng = np.random.default_rng(8)
+    x = (u.atoms.positions[None] + 0.05 * rng.normal(
+        size=(5000, N, 3))).astype(np.float32)
+    write_dcd(str(tmp_path / "t.dcd"), x)
+    export_artifact(host, N, tmp_path / "a.pt", fused=True,
+                    with_gradient=True)
+    ops_lib = _build.load_op_library()
+    proc = subprocess.run([_build.build_serve_torch(), str(tmp_path / "a.pt"),
+                           str(tmp_path / "t.dcd"), str(tmp_path / "o.npy"),
+                           "2048", "--ops", ops_lib, "--verbose"],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert ("launches: unrolled_forward 0, unrolled_cv_forces 3, "
+            "blocked_forward 0, blocked_cv_forces 0") in proc.stderr
+    cvs, grads = evaluate_trajectory(host, tmp_path / "t.dcd", device=cuda,
+                                     forces=True, batch_size=2048)
+    np.testing.assert_array_equal(np.load(tmp_path / "o.npy"), cvs)
+    np.testing.assert_array_equal(np.load(tmp_path / "o.grad.npy"),
+                                  grads.reshape(5000, 3 * N))
