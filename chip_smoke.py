@@ -90,7 +90,9 @@ Runs the port's serving path on the card and checks it, phase by phase:
    body's bound fails the phase; a warm reading (one x, which the 50 MB L2
    may keep) fails under its warm bound (out and D's form over HBM, or the
    operations: ``edge_mm_probe.body_bound``) or more than 25% under the
-   CUDA-event time of 20 bare launches of the body on the same x.
+   CUDA-event time of 20 bare launches of the body on the same x, queued
+   behind a spin of the card so that the events time the card and not the
+   host's launch rate.
 10. coordination features in the unrolled kernels: a 22-atom model with two
    coordination features (one under a box with ``d_max``), a bond and an
    aligned position through the forward, cv+forces, backward and train
@@ -192,6 +194,31 @@ Runs the port's serving path on the card and checks it, phase by phase:
    line gains ``artifact_launches``, ``artifact_ms``, ``route_ms`` and
    ``artifact_max_abs_err`` on K1, K4, K6 and K8 (K6/K8's times on the
    peptide).
+15. data parallelism and multi-device serving
+   (``molann_tpu_torch/probes/mesh_probe.py``, its ranks child processes
+   under a timeout): (a) a world of one over NCCL
+   (``initialize_multihost()``): ``make_fused_train_step(mesh)`` on ``[3n,
+   l]`` (K3) and ``fit(fused_mse_loss, mesh=)`` (K1, K2), 10 Adam steps of
+   65,536 alanine frames, the same two on ``peptide_model(60)`` (K5; K6,
+   K7), 5 steps, and ``evaluate_trajectory(mesh=)`` of 1,048,576 alanine
+   frames with and without forces (K4, K1) and of 131,072 peptide frames
+   with forces (K8), all from ``.npy``: each the bits of the same call
+   without a mesh; (b) two ranks sharing the card over gloo with CUDA
+   tensors (NCCL refuses two ranks on one card): the same runs, 32,768
+   frames a rank, the served rows into memmaps: both ranks hold the same
+   bits after every step, losses within 1e-5 relative and weights within
+   2e-4·max(1, max|w|) of the run of one rank (phase 11's rule for trained
+   weights), served rows the bits of one rank's (each frame is computed
+   alone), each rank's launches exactly its batches and steps, and a
+   ``fit`` resumed from its step-5 checkpoint (written by rank 0 alone)
+   repeats steps 6-10 bit for bit; (c) ``forces --devices 2`` and ``train
+   --devices 2 --loss eigenfunction`` (clamped to the cards there are,
+   the ranks printed), and ``serve_torch`` on phase 14's ``.dcd`` through
+   the fused gradient artifact with one and with two batches in flight
+   (in turns: 1, 2, 2, 1), each bit-identical to phase 14's outputs,
+   frames/s and the split printed. The ``kernels`` line gains
+   ``mesh_launches`` on K1-K8: their launches over (a) and (b), every
+   rank's.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -244,6 +271,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1273,7 +1301,7 @@ def edge_phase(dev, card):
         # cold: no copy of x in L2, so the HBM bound of x, out and D is a
         # floor; warm: x may sit in the 50 MB L2, so only out, D and the
         # operations bound it, and the reading must agree with CUDA events
-        # over 20 bare launches on the same x
+        # over 20 bare launches on the same x, queued ahead of the card
         if r["cold_ms"] < r["bound_ms"]:
             fail(f"edge_mm {v}: {r['cold_ms']} ms alone on a cold x, under "
                  f"its bound {r['bound_ms']}: a time the profiler cut short")
@@ -2928,6 +2956,250 @@ def engine_phase(dev, card, tmp):
                 "artifact_max_abs_err": max_err[k]} for k in tally}
 
 
+MESH_TIMEOUT_S = 600
+# the launches of each case of probes/mesh_probe.py, on every rank: a
+# batch of 65,536 frames, 32,768 a rank on two
+MESH_LAUNCHES = {
+    "ala_fused": {"train": 10}, "ala_fit": {"forward": 10, "backward": 10},
+    "ala_resume": {"forward": 5, "backward": 5},
+    "ala_serve": {"cv_forces": 16}, "ala_values": {"forward": 16},
+    "pep_fused": {"blocked_train": 5},
+    "pep_fit": {"blocked_forward": 5, "blocked_backward": 5},
+    "pep_serve": {"blocked_cv_forces": 2}}
+MESH_TRAINERS = ("ala_fused", "ala_fit", "pep_fused", "pep_fit")
+MESH_SERVERS = {"ala_serve": ("cvs", "grads"), "ala_values": ("cvs",),
+                "pep_serve": ("cvs", "grads")}
+
+
+def mesh_inputs(d, dev):
+    """The probe's inputs: per system its model, frames and a teacher
+    model's outputs on them (through K1/K6 on the card)."""
+    from molann_tpu_torch.io import save_model
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.systems import alanine_model, peptide_model
+
+    systems = (("ala", alanine_model, {}, SERVE_FRAMES, 60),
+               ("pep", peptide_model, {"n_residues": 60},
+                PEPTIDE_SERVE_FRAMES, 61))
+    for name, make, kw, n_frames, seed in systems:
+        model, u = make(**kw, generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+        teacher, _ = make(**kw, device=dev,
+                          generator=torch.Generator().manual_seed(seed + 1))
+        save_model(os.path.join(d, f"{name}.npz"),
+                   copy.deepcopy(model).to("cpu"))
+        n = u.atoms.n_atoms
+        frames = np.lib.format.open_memmap(
+            os.path.join(d, f"{name}.npy"), mode="w+", dtype=np.float32,
+            shape=(n_frames, n, 3))
+        ys = []
+        rng = np.random.default_rng(seed)
+        for s in range(0, n_frames, BATCH):
+            xb = (u.atoms.positions[None] + 0.05 * rng.normal(
+                size=(BATCH, n, 3))).astype(np.float32)
+            frames[s:s + BATCH] = xb
+            with torch.no_grad():
+                ys.append(F.fused_model_forward(
+                    teacher, torch.as_tensor(xb, device=dev)).cpu().numpy())
+        frames.flush()
+        del frames
+        np.save(os.path.join(d, f"{name}_y.npy"), np.concatenate(ys))
+
+
+def mesh_ranks(argvs, what):
+    """Run ``python -m molann_tpu_torch.probes.mesh_probe`` once per argv,
+    all at once, under one timeout; fail with their output where one
+    fails. Returns the seconds taken."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "molann_tpu_torch.probes.mesh_probe", *argv],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for argv in argvs]
+    outs = []
+    try:
+        for proc in procs:
+            left = max(1.0, MESH_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(proc.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        outs.append(f"timed out after {MESH_TIMEOUT_S} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if len(outs) < len(procs) or any(p.returncode for p in procs):
+        fail(f"phase 15, {what}: exit codes "
+             f"{[p.returncode for p in procs]}: "
+             + " | ".join(o[-3000:] for o in outs))
+    return time.perf_counter() - t0
+
+
+def mesh_phase(dev, card, tmp):
+    """Phase 15: data parallelism and multi-device serving on the card.
+    Returns ``{kernel: launches}`` over (a) and (b), every rank's."""
+    from molann_tpu_torch.cli._common import _mesh_size
+    from molann_tpu_torch.parallel.multihost import free_port
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "mesh")
+    os.makedirs(d)
+    mesh_inputs(d, dev)
+    with open(os.path.join(d, "sizes.json"), "w") as f:
+        json.dump({"batch": BATCH, "ala_steps": 10, "pep_steps": 5,
+                   "ckpt_every": 5}, f)
+    t_ref = mesh_ranks([["ref", d]], "(a) NCCL, a world of one")
+    port = str(free_port())
+    t_two = mesh_ranks([["two", str(r), port, d] for r in (0, 1)],
+                       "(b) two ranks over gloo on one card")
+
+    def load(mode, rank):
+        base = os.path.join(d, f"{mode}.rank{rank}")
+        with open(base + ".json") as f, np.load(base + ".npz") as z:
+            return json.load(f), dict(z)
+
+    (jref, aref), (j0, a0), (j1, a1) = (load("ref", 0), load("two", 0),
+                                        load("two", 1))
+    if (jref["backend"], j0["backend"], j1["backend"]) != ("nccl", "gloo",
+                                                           "gloo"):
+        fail(f"phase 15: backends {jref['backend']}, {j0['backend']}")
+    launched = dict.fromkeys(("forward", "cv_forces", "backward", "train",
+                              "blocked_forward", "blocked_cv_forces",
+                              "blocked_backward", "blocked_train"), 0)
+    for who, js in (("ref", jref), ("rank 0", j0), ("rank 1", j1)):
+        for case, want in MESH_LAUNCHES.items():
+            if who == "ref" and case == "ala_resume":
+                continue
+            if js[case]["launches"] != want:
+                fail(f"phase 15, {who}, {case}: launches "
+                     f"{js[case]['launches']}, expected {want}")
+            for k, v in want.items():
+                launched[k] += v
+    for case in (*MESH_TRAINERS, *MESH_SERVERS):
+        if not jref[case]["same_bits_as_plain"]:
+            fail(f"phase 15 (a), {case}: NCCL's world of one differs from "
+                 "the call without a mesh")
+    # (b): the ranks agree bit for bit after every step, and with one rank
+    if sorted(a0) != sorted(a1):
+        fail("phase 15 (b): the ranks wrote different cases")
+    for k in a0:
+        if not k.endswith(":step_seconds"):
+            same_bits(a1[k], a0[k], f"phase 15 (b), rank 1 vs rank 0, {k}")
+    worst = {}
+    for case in MESH_TRAINERS:
+        got, want = a0[f"{case}:losses"], aref[f"{case}:losses"]
+        el = float(np.max(np.abs(got - want) / np.abs(want)))
+        if not el <= LOSS_RTOL:
+            fail(f"phase 15 (b), {case}: losses {got} vs one rank {want}")
+        p, q = a0[f"{case}:params"], aref[f"{case}:params"]
+        ew = float(np.abs(p - q).max())
+        if not ew <= GRAD_RTOL * max(1.0, float(np.abs(q).max())):
+            fail(f"phase 15 (b), {case}: weights {ew} from one rank's")
+        worst[case] = (el, ew)
+    same_bits(a0["ala_resume:losses"], a0["ala_fit:losses"][5:],
+              "phase 15 (b), fit resumed from step 5, losses")
+    same_bits(a0["ala_resume:params"], a0["ala_fit:params"][5:],
+              "phase 15 (b), fit resumed from step 5, weights")
+    want_ckpts = [f"ckpt_{s:010d}.{k}.npz" for s in (5, 10)
+                  for k in ("model", "opt")]
+    if j0["ckpts"] != want_ckpts:
+        fail(f"phase 15 (b): checkpoints {j0['ckpts']}")
+    for case, keys in MESH_SERVERS.items():
+        for k in keys:
+            ref = np.load(os.path.join(d, f"ref_{case}_{k}.npy"))
+            got = np.load(os.path.join(d, f"two_{case}_{k}.npy"))
+            if case == "ala_serve" and k == "grads":
+                ref = np.negative(ref)  # written as forces, in flight
+            same_bits(got, ref, f"phase 15 (b), {case} {k}: two ranks vs "
+                                "one")
+    rates = []
+    for case in MESH_TRAINERS:  # steady steps: the first carries set-up
+        one = float(np.median(aref[f"{case}:step_seconds"][1:]))
+        two = float(np.median(np.maximum(a0[f"{case}:step_seconds"],
+                                         a1[f"{case}:step_seconds"])[1:]))
+        rates.append(f"{case} {one * 1e3:.4g} / {two * 1e3:.4g} ms a step "
+                     f"(first {aref[f'{case}:step_seconds'][0]:.3g} / "
+                     f"{a0[f'{case}:step_seconds'][0]:.3g} s)")
+    for case in MESH_SERVERS:
+        one, two = jref[case]["seconds"], max(j0[case]["seconds"],
+                                              j1[case]["seconds"])
+        rates.append(f"{case} {one:.4g} / {two:.4g} s")
+
+    # (c) the commands at the card's count, and the container
+    cards = torch.cuda.device_count()
+    ala = os.path.join(d, "ala.npz")
+    frames = os.path.join(d, "ala.npy")
+    ranks = _mesh_size(types.SimpleNamespace(devices=2, device="cuda"))
+    out, _, t_forces = run_cli(
+        ["forces", ala, frames, "--out", os.path.join(d, "y.npy"),
+         "--forces-out", os.path.join(d, "f.npy"), "--batch-size",
+         str(BATCH), "--devices", "2"],
+        counts(cv_forces=SERVE_FRAMES // BATCH) if ranks == 1 else counts())
+    if ranks == 1 and "(1 devices)" not in out:  # ranks > 1 print apart
+        fail(f"phase 15: the forces command printed {out!r}")
+    same_bits(np.load(os.path.join(d, "f.npy")).reshape(SERVE_FRAMES, -1, 3),
+              np.negative(np.load(os.path.join(d, "ref_ala_serve_grads.npy"))),
+              "phase 15: forces --devices 2 vs evaluate_trajectory")
+    out, _, t_train = run_cli(
+        ["train", ala, frames, "--loss", "eigenfunction", "--steps", "20",
+         "--batch-size", "4096", "--log-every", "0", "--devices", "2",
+         "--out", os.path.join(d, "trained.npz")], counts())
+    if ranks == 1 and "trained 20 steps" not in out:
+        fail(f"phase 15: the train command printed {out!r}")
+    served = mesh_serve_torch(tmp)
+    print("data parallelism (phase 15, "
+          f"{time.perf_counter() - t_phase:.1f} s): (a) NCCL, a world of "
+          f"one: every case the bits of its call without a mesh ({t_ref:.1f}"
+          f" s with its process); (b) two ranks on the card over gloo with "
+          f"CUDA tensors ({t_two:.1f} s): the ranks bit-identical after every"
+          " step; losses / weights from one rank's: "
+          + ", ".join(f"{c} {e[0]:.3g} / {e[1]:.3g}" for c, e in worst.items())
+          + "; served rows and forces bit-identical to one rank's; fit "
+          "resumed from step 5 bit-identical; launches every rank exact "
+          f"({json.dumps(MESH_LAUNCHES)}); host time one rank / two ranks "
+          "(a step: the median after the first): " + ", ".join(rates)
+          + f"; (c) {cards} card(s): forces and "
+          f"train --devices 2 ran {ranks} rank(s) ({t_forces:.2f} s, "
+          f"{t_train:.2f} s); serve_torch on {SERVE_FRAMES} alanine frames "
+          "from .dcd, fused gradient artifact, bit-identical to phase 14: "
+          + "; ".join(f"{k} in flight {np.mean([r for r, _ in v]):.6g} "
+                      f"frames/s ({', '.join(f'{r:.6g}' for r, _ in v)}; "
+                      f"{v[0][1]})" for k, v in sorted(served.items()))
+          + f"; card: {card}")
+    return launched
+
+
+def mesh_serve_torch(tmp):
+    """``serve_torch`` on phase 14's ``.dcd`` through its fused gradient
+    artifact with 1 and 2 batches in flight, in turns (1, 2, 2, 1), each
+    bit-identical to phase 14's outputs. Returns per count its runs'
+    ``(frames/s, timing line)``."""
+    from molann_tpu_torch.ops import _build
+
+    serve_bin, ops_lib = _build.build_serve_torch(), _build.load_op_library()
+    served = {}
+    for k in ("1", "2", "2", "1"):
+        res = os.path.join(tmp, f"mesh_out_{k}.npy")
+        proc = subprocess.run(
+            [serve_bin, os.path.join(tmp, "ala_forces.pt"),
+             os.path.join(tmp, "ala.dcd"), res, "--ops", ops_lib,
+             "--in-flight", k, "--verbose"], capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"serve_torch --in-flight {k} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        same_bits(np.load(res), np.load(os.path.join(tmp, "out.npy")),
+                  f"serve_torch --in-flight {k} vs phase 14, values")
+        same_bits(np.load(res[:-4] + ".grad.npy"),
+                  np.load(os.path.join(tmp, "out.grad.npy")),
+                  f"serve_torch --in-flight {k} vs phase 14, gradients")
+        line = serve_line(proc.stderr, "served")
+        rate = float(re.search(r"\(([0-9.e+]+) frames/s", line).group(1))
+        served.setdefault(k, []).append(
+            (rate, serve_line(proc.stderr, "timing:")))
+    return served
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3319,9 +3591,11 @@ def main():
     # 13. the enhanced-sampling loop through the commands
     with tempfile.TemporaryDirectory() as tmp:
         sample_launches = sampling_phase(dev, card, tmp)
-    # 14. the engine artifact: K1/K4/K6/K8 as torch custom ops
     with tempfile.TemporaryDirectory() as tmp:
+        # 14. the engine artifact: K1/K4/K6/K8 as torch custom ops
         engine = engine_phase(dev, card, tmp)
+        # 15. data parallelism and multi-device serving
+        mesh_launches = mesh_phase(dev, card, tmp)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -3337,6 +3611,7 @@ def main():
          "replaces": "molann_tpu/ops/fused.py:1116",
          "launches": launches["cv_forces"],
          "cli_launches": cli_launches["cv_forces"],
+         "mesh_launches": mesh_launches["cv_forces"],
          "max_abs_err": max_err["cv_forces"], "ms": ms_k4,
          "plain_ms": ms_p4, "alone_ms": split["cv_forces"][0],
          **alanine_bound("cv_forces"), **engine["cv_forces"]},
@@ -3345,6 +3620,7 @@ def main():
          "launches": launches["forward"],
          "cli_launches": cli_launches["forward"],
          "sample_launches": sample_launches["forward"],
+         "mesh_launches": mesh_launches["forward"],
          "max_abs_err": max_err["forward"], "ms": ms_k1,
          "plain_ms": ms_p1, "alone_ms": split["forward"][0],
          **alanine_bound("forward"), **engine["forward"]},
@@ -3352,12 +3628,14 @@ def main():
          "replaces": "molann_tpu/ops/fused.py:586",
          "launches": fit_launches["backward"],
          "sample_launches": sample_launches["backward"],
+         "mesh_launches": mesh_launches["backward"],
          "max_abs_err": max_err["backward"], "ms": ms_k2,
          "plain_ms": ms_p2, "alone_ms": split["backward"][0],
          **alanine_bound("backward")},
         {"name": "train", "route": "cuda", "source": src_train,
          "replaces": "molann_tpu/ops/fused.py:900",
          "launches": fused_launches["train"],
+         "mesh_launches": mesh_launches["train"],
          "max_abs_err": max_err["train"], "ms": ms_k3,
          "plain_ms": ms_p3, "alone_ms": split["train"][0],
          **alanine_bound("train")},
@@ -3365,6 +3643,8 @@ def main():
                    if k["name"] in cli_launches else {}),
            **({"sample_launches": sample_launches[k["name"]]}
               if k["name"] in sample_launches else {}),
+           **({"mesh_launches": mesh_launches[k["name"]]}
+              if k["name"] in mesh_launches else {}),
            **engine.get(k["name"], {})}
           for k in blocked_kernels),
         edge_kernel,

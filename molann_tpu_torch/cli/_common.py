@@ -1,15 +1,14 @@
 """Shared plumbing of the CLI command modules (the port of
 ``molann_tpu/cli/_common.py``): model and trajectory loading and checks,
-the per-extension trajectory writers, the grid grammar, ``--cull``, and
-the port's own ``--device``."""
+the per-extension trajectory writers, the grid grammar, ``--cull``, the
+port's own ``--device``, and the ranks of ``--devices N``."""
 
 from __future__ import annotations
 
-import numpy as np
+import os
+import sys
 
-DEVICES_TODO = ("--devices N > 1 (serving or training over several "
-                "devices) is not ported to molann_tpu_torch yet (ROADMAP.md, "
-                "queue 2, item 5)")
+import numpy as np
 
 
 def _load_model(path, device):
@@ -27,12 +26,93 @@ def add_device_arg(sp, what="run"):
 
 def _device(args):
     """``--device`` resolved by the port's rule (``RuntimeError`` where the
-    card is asked for and there is none), after ``--devices`` is checked."""
+    card is asked for and there is none)."""
     from .._device import resolve_device
 
-    if getattr(args, "devices", 0) > 1:
-        raise NotImplementedError(DEVICES_TODO)
     return resolve_device(args.device)
+
+
+def _mesh_size(args):
+    """``--devices N`` clamped to the devices of ``--device``'s kind (the
+    cards, or the host's cores for ``--device cpu``), as the JAX command
+    clamps to ``len(jax.devices())``; 0 where it is not given."""
+    n = getattr(args, "devices", 0) or 0
+    if n < 1:
+        return 0
+    if _device(args).type == "cuda":
+        import torch
+
+        return min(n, torch.cuda.device_count())
+    return min(n, os.cpu_count() or 1)
+
+
+def _rank_main(rank, n, port, body, args):
+    """One rank of :func:`run_ranks`: join the group, run ``body``."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import data_mesh, initialize_multihost
+
+    if rank:  # rank 0 prints
+        sys.stdout = open(os.devnull, "w")
+    cpu = _device(args).type == "cpu"
+    if cpu:  # the host's cores, shared: N ranks of all of them thrash
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    initialize_multihost(f"localhost:{port}", n, rank,
+                         backend="gloo" if cpu else "nccl")
+    try:
+        rc = body(args, data_mesh(devices="cpu" if cpu else None))
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        sys.exit(rc)
+
+
+def run_ranks(args, body):
+    """``body(args, mesh) -> exit code`` on the ranks of ``--devices``:
+    without it, once with ``mesh=None``; on one device, once on a mesh of
+    one; on N devices, in N processes of one rank each (NCCL on the cards,
+    gloo on the host), started with ``spawn`` on a free localhost port,
+    after the kernels are built here once. Returns rank 0's exit code, or
+    the first failing rank's."""
+    n = _mesh_size(args)
+    if not n:
+        return body(args, None)
+    if n == 1:
+        from ..parallel import data_mesh
+
+        return body(args, data_mesh(1, devices=_device(args)))
+    import torch.multiprocessing as mp
+
+    from ..parallel.multihost import free_port
+
+    if _device(args).type == "cuda":
+        from ..ops import fused
+
+        fused._library()
+    ctx = mp.start_processes(_rank_main, args=(n, free_port(), body, args),
+                             nprocs=n, join=False, start_method="spawn")
+    try:
+        while not ctx.join():
+            pass
+    except mp.ProcessExitedException as e:
+        return e.exit_code
+    return 0
+
+
+def _shared_memmap(path, shape, mesh):
+    """A float32 ``.npy`` memmap every rank of ``mesh`` writes its rows
+    of: rank 0 creates it, the others open it after a barrier."""
+    from ..parallel.data_parallel import barrier
+
+    if mesh is None or mesh.rank == 0:
+        out = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                        shape=shape)
+    if mesh is not None:
+        barrier(mesh)
+        if mesh.rank:
+            out = np.load(path, mmap_mode="r+")
+    return out
 
 
 def _parse_grid(gridspec, d, *, subject=None):

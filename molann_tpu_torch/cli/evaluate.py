@@ -10,17 +10,25 @@ kernel (K4, or K8). A blocked model whose CVs read few atoms takes K8's
 compact gradients, and only the active atoms' rows are written into the
 zero-filled forces file. ``committee`` runs its members eagerly, one after
 another. Outputs stream to ``.npy`` memmaps.
+
+``--devices N`` runs the commands on N ranks, one device each (the cards;
+host processes with ``--device cpu``): ``evaluate`` and ``forces`` stream
+through :func:`~molann_tpu_torch.serve.evaluate_trajectory` on the data
+mesh, as the JAX commands do, and ``committee`` splits each batch; every
+rank writes its rows straight into the memmaps, and rank 0 prints.
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
 import numpy as np
 
 from ._common import (_apply_cull, _check_traj, _device, _load_model,
-                      _model_dims, add_cull_args, add_device_arg)
+                      _model_dims, _shared_memmap, add_cull_args,
+                      add_device_arg, run_ranks)
 
 
 def feature_table(feature_list):
@@ -106,6 +114,41 @@ class _Split:
               f"frames/s end to end; " + ", ".join(parts), file=sys.stderr)
 
 
+def _evaluate_on_mesh(args, mesh, want_forces):
+    """``evaluate``/``forces`` on the data mesh (``--devices``): the
+    serving path of :func:`~molann_tpu_torch.serve.evaluate_trajectory`,
+    each rank's rows written straight into the memmaps."""
+    from ..parallel.data_parallel import barrier
+    from ..serve import evaluate_trajectory
+
+    model = _load_model(args.model, mesh.device)
+    n_atoms, d_out = _model_dims(model)
+    n_frames = _check_traj(args.traj, n_atoms)
+    model, c_mat, _ = _apply_cull(args, model, mesh.device)
+    quantum = 8 * mesh.size
+    bs = min(args.batch_size, -(-n_frames // quantum) * quantum)
+    y_out = _shared_memmap(args.out, (n_frames, d_out), mesh)
+    g_out = None
+    if want_forces:
+        g_out = _shared_memmap(args.forces_out, (n_frames, 3 * n_atoms),
+                               mesh)
+    evaluate_trajectory(
+        model, args.traj, mesh=mesh, forces=want_forces, batch_size=bs,
+        tile=args.tile, interpret=args.interpret, backend=args.backend,
+        component=getattr(args, "component", None), cvs_out=y_out,
+        grads_out=None if g_out is None else g_out.reshape(-1, n_atoms, 3),
+        grads_transform=np.negative,  # the force convention, in flight
+        c_mat=c_mat)
+    y_out.flush()
+    if want_forces:
+        g_out.flush()
+    barrier(mesh)
+    print(f"wrote {args.out}: {y_out.shape} ({mesh.size} devices)")
+    if want_forces:
+        print(f"wrote {args.forces_out}: {g_out.shape}")
+    return 0
+
+
 def _evaluate(args, want_forces):
     import torch
 
@@ -119,6 +162,9 @@ def _evaluate(args, want_forces):
     from ..train.data import packed_batch_iterator
 
     check_tile_args(args.tile, args.interpret)  # before any file is written
+    if args.devices:
+        return run_ranks(args, functools.partial(_evaluate_on_mesh,
+                                                 want_forces=want_forces))
     device = _device(args)
     model = _load_model(args.model, device)
     n_atoms, d_out = _model_dims(model)
@@ -214,8 +260,13 @@ def cmd_committee(args):
     ``--calibrate REF_TRAJ`` the members are gauge-fixed (standardized and
     sign-aligned) on the reference frames first, as CVs defined only up to
     sign and scale need (autoencoder / VAMP / eigenfunction objectives).
-    The members run eagerly on ``--device``, one after another.
+    The members run eagerly on ``--device``, one after another; with
+    ``--devices N`` each of N ranks takes its share of every batch.
     """
+    return run_ranks(args, _committee)
+
+
+def _committee(args, mesh):
     import torch
 
     from ..io.reader import open_frame_reader
@@ -227,7 +278,7 @@ def cmd_committee(args):
     )
     from ..train.data import packed_batch_iterator
 
-    device = _device(args)
+    device = _device(args) if mesh is None else mesh.device
     models = [_load_model(p, device) for p in args.models]
     if len(models) < 2:
         print("error: a committee needs at least 2 member models",
@@ -272,22 +323,30 @@ def cmd_committee(args):
         def fn(x):
             return committee(stacked, x)
 
-    mean_out = np.lib.format.open_memmap(
-        args.out, mode="w+", dtype=np.float32, shape=(n_frames, d_out))
-    std_out = np.lib.format.open_memmap(
-        args.std_out, mode="w+", dtype=np.float32, shape=(n_frames, d_out))
+    mean_out = _shared_memmap(args.out, (n_frames, d_out), mesh)
+    std_out = _shared_memmap(args.std_out, (n_frames, d_out), mesh)
+    rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     n_done = 0
     with torch.no_grad():
         for xb in packed_batch_iterator(
                 args.traj, args.batch_size, shuffle=False, epochs=1,
                 drop_remainder=False, backend=args.backend):
-            x = torch.from_numpy(xb).to(device).reshape(xb.shape[0], -1, 3)
-            m, s = fn(x)
-            mean_out[n_done:n_done + xb.shape[0]] = m.cpu().numpy()
-            std_out[n_done:n_done + xb.shape[0]] = s.cpu().numpy()
+            per = -(-xb.shape[0] // size)  # this rank's rows of the batch
+            lo, hi = n_done + rank * per, min(n_done + (rank + 1) * per,
+                                              n_done + xb.shape[0])
+            if hi > lo:
+                x = torch.from_numpy(xb[lo - n_done:hi - n_done]).to(
+                    device).reshape(hi - lo, -1, 3)
+                m, s = fn(x)
+                mean_out[lo:hi] = m.cpu().numpy()
+                std_out[lo:hi] = s.cpu().numpy()
             n_done += xb.shape[0]
     mean_out.flush()
     std_out.flush()
+    if mesh is not None:
+        from ..parallel.data_parallel import barrier
+
+        barrier(mesh)
     mx = float(std_out.max()) if n_frames else 0.0
     print(f"wrote {args.out} (committee mean) and {args.std_out} "
           f"(disagreement): {mean_out.shape}, {len(models)} members"
@@ -315,8 +374,9 @@ def register(sub):
                         help="accepted for the JAX command's flags; changes "
                              "nothing (--device cpu runs the plain versions)")
         sp.add_argument("--devices", type=int, default=0,
-                        help="shard batches over N devices (N > 1 is not "
-                             "ported yet)")
+                        help="shard batches over N devices, one rank each "
+                             "(the cards; host processes with --device "
+                             "cpu)")
         sp.add_argument("--verbose", action="store_true",
                         help="progress, then the time split (read, copy in, "
                              "kernel, copy out, store) on stderr")
@@ -360,5 +420,8 @@ def register(sub):
     pcm.add_argument("--batch-size", type=int, default=1 << 16)
     pcm.add_argument("--backend", default="auto",
                      choices=["auto", "native", "numpy"])
+    pcm.add_argument("--devices", type=int, default=0,
+                     help="split each batch over N devices, one rank each "
+                          "(the cards; host processes with --device cpu)")
     add_device_arg(pcm)
     pcm.set_defaults(fn=cmd_committee)

@@ -3,7 +3,11 @@
 Trains a saved model on a trajectory with any of the JAX command's
 objectives, on the CUDA card by default (``--device cpu`` for the host),
 and prints the same diagnostics. Its flags, messages and exit codes are
-the JAX command's; ``--device`` is the port's own.
+the JAX command's; ``--device`` is the port's own. ``--devices N`` trains
+data parallel on N ranks, one device each (the cards; host processes with
+``--device cpu``): batches are a multiple of N, each rank takes its rows of
+every batch (``fit(mesh=)``, ``fit_ensemble(mesh=)``), and rank 0 writes
+the outputs and prints.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import sys
 
 import numpy as np
 
-from ._common import _device, _load_model, add_device_arg
+from ._common import _device, _load_model, add_device_arg, run_ranks
 
 
 def _make_optimizer(args):
@@ -59,6 +63,10 @@ def cmd_train(args):
     autoencoder losses (the saved model's MLP is the encoder; a fresh
     decoder is trained with it and saved with ``--decoder-out``). The
     weighted objectives take per-frame importance weights."""
+    return run_ranks(args, _train)
+
+
+def _train(args, mesh):
     import torch
 
     from ..io import save_model
@@ -70,7 +78,9 @@ def cmd_train(args):
         mse_loss,
     )
 
-    device = _device(args)
+    device = _device(args) if mesh is None else mesh.device
+    multiple = 1 if mesh is None else mesh.size
+    lead = mesh is None or mesh.rank == 0  # writes the outputs
     if args.bagging and not args.ensemble:
         print("error: --bagging requires --ensemble K", file=sys.stderr)
         return 1
@@ -181,11 +191,11 @@ def cmd_train(args):
 
             for pair in lagged_pair_iterator(
                     ds, args.batch_size, args.lag, seed=args.seed,
-                    weights=weights):
+                    multiple_of=multiple, weights=weights):
                 yield tuple(dev(a) for a in pair)
             return
         it = batch_iterator(ds, args.batch_size, seed=args.seed,
-                            return_indices=True)
+                            multiple_of=multiple, return_indices=True)
         for x, idx in it:
             x = dev(x)
             if targets is not None:
@@ -228,8 +238,10 @@ def cmd_train(args):
             return 1
         res = fit_ensemble(
             members, loss_fn, batches(), optimizer=_make_optimizer(args),
-            num_steps=args.steps, log_every=args.log_every,
+            mesh=mesh, num_steps=args.steps, log_every=args.log_every,
             bagging=args.bagging, seed=args.seed)
+        if not lead:
+            return 0
         out = Path(args.out)
         for i, m in enumerate(res.models):
             if args.loss in ("autoencoder", "tae"):
@@ -246,9 +258,11 @@ def cmd_train(args):
         return 0
 
     res = fit(model, loss_fn, batches(), optimizer=_make_optimizer(args),
-              num_steps=args.steps, log_every=args.log_every,
+              mesh=mesh, num_steps=args.steps, log_every=args.log_every,
               checkpoint_dir=args.checkpoint_dir,
               checkpoint_every=args.checkpoint_every)
+    if not lead:
+        return 0
     trained = res.model
     if args.loss in ("autoencoder", "tae"):
         trained, decoder = trained
@@ -383,8 +397,9 @@ def register(sub):
                          "members beyond their init)")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--devices", type=int, default=0,
-                    help="shard batches over N devices (data-parallel; "
-                         "N > 1 is not ported yet)")
+                    help="shard batches over N devices (data-parallel, one "
+                         "rank each: the cards; host processes with "
+                         "--device cpu)")
     add_device_arg(pt, "train")
     pt.add_argument("--checkpoint-dir", default=None)
     pt.add_argument("--checkpoint-every", type=int, default=0)

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..parallel.data_parallel import ShardedModel
 from ..spec import CompiledFeatures
 from .alignment import kabsch_covariance, rotation_qcp
 from .features import (
@@ -925,7 +926,16 @@ def fused_model_forward(model, x, *, tile=None, bwd_tile=None,
     ``c_mat`` may carry the pair operand of :func:`model_chunk_matrix`. On
     a CUDA tensor the blocked forward kernel (K6) runs, and autograd then
     runs the blocked backward kernel (K7) in the same way
-    (:func:`.fused_blocked.blocked_apply`)."""
+    (:func:`.fused_blocked.blocked_apply`).
+
+    A :class:`~molann_tpu_torch.parallel.data_parallel.ShardedModel` (the
+    model a data-parallel training step hands its loss) runs this rank's
+    rows of ``x`` (frames on the leading dimension) and returns every
+    rank's rows."""
+    if isinstance(model, ShardedModel):
+        return model.map_rows(fused_model_forward, x, tile=tile,
+                              bwd_tile=bwd_tile, interpret=interpret,
+                              mode=mode, precision=precision, c_mat=c_mat)
     resolve_precision(precision, training=False)
     spec, align_idx, ref_x, params, activation = _extract_model(model)
     if _resolve_mode(spec, params, mode, c_mat) == "blocked":

@@ -377,7 +377,14 @@ def bare_ms(prep, x, variant, launches=PROFILED_CALLS):
     """CUDA-event ms a launch of body ``variant`` on ``x``, over ``launches``
     back-to-back bare launches (no wrapper, one preallocated out, counted
     nowhere), after one warm-up: the event cross-check of a warm profiler
-    reading on the same x."""
+    reading on the same x.
+
+    A launch through ctypes costs the host tens of microseconds, as long
+    as the kernel itself, so the launches are queued behind a spin of the
+    card (``torch.cuda._sleep``) and the events time the card alone, not
+    the host's launch rate. If the start event has already run once every
+    launch is queued, the spin was too short: it is made longer and the
+    launches are timed again."""
     lib = _library()
     m, k = prep.D.shape
     _check_fits(variant, prep, m, k)
@@ -385,12 +392,21 @@ def bare_ms(prep, x, variant, launches=PROFILED_CALLS):
     _launch(lib, prep, x, variant, out)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        _launch(lib, prep, x, variant, out)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches
+    cycles = 1 << 22  # about 2 ms of the card's clock
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(launches):
+            _launch(lib, prep, x, variant, out)
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / launches
+        cycles *= 4
+    raise RuntimeError(f"edge_mm {variant}: the host did not queue "
+                       f"{launches} launches within a spin of {cycles // 4} "
+                       f"cycles of the card")
 
 
 # the dense operations of each body, and the peak rate of their unit

@@ -2,8 +2,9 @@
 lagged-pair iterator, the losses (MSE, autoencoder, eigenfunction,
 committor, VAMP-2), TICA, HLDA, committees, the loop and checkpoints, the
 coordinate-gradient oracle (:mod:`.forces`), and optax's update rules in
-``torch.optim`` form (:mod:`.optim`). Data-parallel training is still to be
-ported (ROADMAP.md, queue 2, item 5). ``loss_registry`` is the objectives'
+``torch.optim`` form (:mod:`.optim`). The trainers take ``mesh=`` (a
+:func:`~molann_tpu_torch.parallel.data_mesh`) for data-parallel training
+over ``torch.distributed`` ranks. ``loss_registry`` is the objectives'
 registry under the JAX package's name; ``registry`` is the same dict."""
 
 from .checkpoint import (  # noqa: F401

@@ -27,10 +27,21 @@ from typing import Any
 import torch
 
 from ..io.serialize import _to_dict
-from ..models.ann import MolANN, SequentialNN, create_sequential_nn
+from ..models.ann import (
+    MolANN,
+    SequentialNN,
+    create_sequential_nn,
+    named_tensors,
+)
+from ..parallel.data_parallel import all_reduce_tensors, broadcast_tensors
+from ..parallel.mesh import batch_sharding
 from .loop import (
     _check_mesh,
+    _collective,
     _model_device,
+    _reduce_grads,
+    _to_device,
+    _zero_grad,
     make_train_step,
     masked_optimizer,
     trainable_mask,
@@ -175,6 +186,25 @@ def _batch_length(batch):
     return (batch[0] if isinstance(batch, (tuple, list)) else batch).shape[0]
 
 
+def _pmean_step(loss_fn, mesh):
+    """A member's step on this rank's shard of the batch: its loss and
+    gradients averaged over the mesh before the optimizer step (JAX's
+    per-shard ``pmean``, not the full-batch loss of ``make_train_step``)."""
+
+    def step(model, opt, batch):
+        batch = _to_device(batch, _model_device(model))
+        _zero_grad(model)
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        _reduce_grads(opt, mesh, mean=True)
+        (loss,) = all_reduce_tensors([loss.detach()], mesh, mean=True)
+        opt.step()
+        return model, opt, loss
+
+    return step
+
+
 def make_ensemble_train_step(loss_fn, mesh=None, *, batch_mode="shared"):
     """``step(models, opts, batch) -> (models, opts, losses [K])`` updating
     every member, one after another (with ``batch_mode="bagging"``,
@@ -187,15 +217,28 @@ def make_ensemble_train_step(loss_fn, mesh=None, *, batch_mode="shared"):
       - ``"bagging"``: each member trains on a bootstrap resample (with
         replacement) of the shared batch, its indices drawn from
         ``generator`` (a ``torch.Generator`` on the batch's device).
+
+    With ``mesh``, every rank passes the same global batch and takes its
+    frames of it (axis 1 with ``"member"``, else axis 0); each member's
+    loss and gradients on the rank's shard are averaged over the ranks
+    before its update, JAX's per-shard ``pmean``. Bagging resamples within
+    each rank's shard: the same generator state on every rank draws the
+    same local indices, a stratified bootstrap.
     """
     _check_mesh(mesh)
     if batch_mode not in ("shared", "member", "bagging"):
         raise ValueError(f"unknown batch_mode {batch_mode!r}")
-    member_step = make_train_step(loss_fn)
+    sharded = _collective(mesh)
+    member_step = (_pmean_step(loss_fn, mesh) if sharded
+                   else make_train_step(loss_fn))
+    frame_dim = 1 if batch_mode == "member" else 0
 
     def step(models, opts, batch, generator=None):
         if batch_mode == "bagging" and generator is None:
             raise ValueError("batch_mode='bagging' needs a generator")
+        if sharded:
+            shard = batch_sharding(mesh)
+            batch = _map_batch(lambda a: shard(a, frame_dim), batch)
         models, opts, losses = list(models), list(opts), []
         for i, (model, opt) in enumerate(zip(models, opts)):
             if batch_mode == "member":
@@ -236,9 +279,14 @@ def fit_ensemble(models, loss_fn, data_iter, *, optimizer=None, mesh=None,
     trains on its own bootstrap resample of every batch, drawn from one
     ``torch.Generator`` seeded with ``seed`` on the batch's device. Returns
     :class:`EnsembleResult` (the members and the per-member loss trace).
+    With ``mesh`` (see :func:`make_ensemble_train_step`), rank 0's members
+    are broadcast to every rank first.
     """
     _check_mesh(mesh)
     stacked = stack_models(models)
+    if _collective(mesh):
+        broadcast_tensors([t for m in stacked for _, t in named_tensors(m)],
+                          mesh)
     if optimizer is None:
         optimizer = functools.partial(torch.optim.Adam, lr=1e-3)
     if mask is None:
@@ -246,7 +294,7 @@ def fit_ensemble(models, loss_fn, data_iter, *, optimizer=None, mesh=None,
     build = masked_optimizer(optimizer, mask)
     opts = [build(m) for m in stacked]
     step = make_ensemble_train_step(
-        loss_fn, batch_mode="bagging" if bagging else "shared")
+        loss_fn, mesh, batch_mode="bagging" if bagging else "shared")
     generator = None
     if bagging:
         generator = torch.Generator(device=_model_device(stacked[0]))

@@ -16,8 +16,19 @@ as it is in the reference (molann/ann.py:137). A step updates the model in
 place. A model may be a tuple of modules, such as the ``(model, decoder)``
 pair the autoencoder losses train, as JAX's ``fit`` trains a pytree: its
 tensors are named by :func:`~molann_tpu_torch.models.ann.named_tensors`.
-A batch is a tuple of arrays or one array. ``mesh=`` (data parallelism) is
-not ported yet.
+A batch is a tuple of arrays or one array.
+
+``mesh=`` (a :func:`~molann_tpu_torch.parallel.data_mesh`) trains data
+parallel: every rank runs the step on the same global batch and its own
+rows of it, parameters replicated. :func:`make_train_step` computes the
+full-batch loss, exactly, as JAX's GSPMD step does: the loss is handed a
+:class:`~molann_tpu_torch.parallel.data_parallel.ShardedModel`, whose calls
+run this rank's rows and gather every rank's outputs, so the batch moments
+of the eigenfunction, committor, VAMP-2 and autoencoder losses are global;
+each parameter's gradient is then this rank's part of it, and one
+``all_reduce(SUM)`` makes it whole. :func:`make_fused_train_step` follows
+JAX's explicit SPMD: the train kernel on this rank's frames, then the loss
+and the gradients averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +41,15 @@ import torch
 
 from ..models.ann import named_tensors
 from ..ops.fused import fused_train_grads
+from ..parallel.data_parallel import (
+    all_reduce_tensors,
+    barrier,
+    broadcast_tensors,
+    psum_mean_grads,
+    sharded_model,
+)
+from ..parallel.mesh import batch_sharding
+from ..parallel.mesh import check_mesh as _check_mesh
 from .checkpoint import (
     latest_checkpoint,
     load_training_state,
@@ -45,13 +65,20 @@ __all__ = [
     "TrainResult",
 ]
 
-_MESH_TODO = ("mesh= (data-parallel training) is not ported to "
-              "molann_tpu_torch yet (ROADMAP.md, queue 2, item 5)")
+
+def _collective(mesh):
+    """True where the step runs collectives over ``mesh``."""
+    return mesh is not None and mesh.group is not None
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+def _reduce_grads(opt, mesh, *, mean):
+    """Sum (or average) over ``mesh`` the gradients the optimizer's
+    tensors hold, by one all-reduce, in the optimizer's order."""
+    held = [p for g in opt.param_groups for p in g["params"]
+            if p.grad is not None]
+    for p, g in zip(held, all_reduce_tensors([p.grad for p in held], mesh,
+                                             mean=mean)):
+        p.grad = g
 
 
 def _model_device(model):
@@ -109,15 +136,25 @@ def masked_optimizer(optimizer, mask):
 def make_train_step(loss_fn, mesh=None):
     """``step(model, opt, batch) -> (model, opt, loss)``: autograd of
     ``loss_fn(model, batch)``, then ``opt.step()``. The batch's arrays
-    move to the model's device; ``loss`` is a detached 0-d tensor."""
+    move to the model's device; ``loss`` is a detached 0-d tensor.
+
+    With ``mesh``, every rank passes the same global batch and gets the
+    full-batch loss (see the module's docstring): ``loss_fn`` must reach
+    the parameters through calls of the model, or of its modules, on
+    tensors whose leading dimension is the batch's (a multiple of the mesh
+    size)."""
     _check_mesh(mesh)
+    sharded = _collective(mesh)
 
     def step(model, opt, batch):
         batch = _to_device(batch, _model_device(model))
         _zero_grad(model)
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
+        loss = loss_fn(sharded_model(model, mesh) if sharded else model,
+                       batch)
         loss.backward()
+        if sharded:
+            _reduce_grads(opt, mesh, mean=False)
         opt.step()
         return model, opt, loss.detach()
 
@@ -136,15 +173,30 @@ def make_fused_train_step(mesh=None, *, tile=None, transposed_input=False,
     gradients). Batch = ``(x, y)``; with ``transposed_input``, ``x [3n, l]``
     and ``y [d, l]``. A blocked system's pair operand is built from the
     model and cached. ``precision`` is resolved for training and otherwise
-    ignored: the kernels compute in f32."""
+    ignored: the kernels compute in f32.
+
+    With ``mesh``, every rank passes the same global batch and runs the
+    train kernel on its frames (the last dimension with
+    ``transposed_input``), and the loss and the gradients are averaged
+    over the ranks before the replicated optimizer step, as JAX's
+    ``shard_map`` step does."""
     _check_mesh(mesh)
+    sharded = _collective(mesh)
+    frame_dim = -1 if transposed_input else 0
 
     def step(model, opt, batch):
-        x, y = _to_device(batch, _model_device(model))
+        x, y = batch
+        if sharded:
+            shard = batch_sharding(mesh)
+            x, y = shard(x, frame_dim), shard(y, frame_dim)
+        x, y = _to_device((x, y), _model_device(model))
         loss, grads = fused_train_grads(
             model, x, y, tile=tile, interpret=interpret,
             transposed_input=transposed_input, mode=mode,
             precision=precision, train_ref=train_ref)
+        if sharded:
+            (loss,) = all_reduce_tensors([loss], mesh, mean=True)
+            grads = psum_mean_grads(grads, mesh)
         names = {id(t): name for name, t in named_tensors(model)}
         for group in opt.param_groups:
             for p in group["params"]:
@@ -176,6 +228,12 @@ def fit(model, loss_fn, data_iter, *, optimizer=None, mesh=None,
     fast-forwarded past the batches already seen. Returns
     :class:`TrainResult` with the trained model (the checkpoint's model
     after a resume) and the loss trace.
+
+    With ``mesh``, every rank runs ``fit`` on the same global batches and
+    takes its rows of each (:func:`make_train_step`); rank 0's tensors are
+    broadcast to every rank first, rank 0 alone writes the checkpoints
+    (the ranks wait for it), and a resume loads the same checkpoint on
+    every rank.
     """
     _check_mesh(mesh)
     if optimizer is None:
@@ -192,8 +250,10 @@ def fit(model, loss_fn, data_iter, *, optimizer=None, mesh=None,
                 latest, build, device=_model_device(model))
     if opt is None:
         opt = build(model)
+    if _collective(mesh):
+        broadcast_tensors([t for _, t in named_tensors(model)], mesh)
 
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, mesh)
     it = iter(data_iter)
     # the iterator is deterministic in its seed: skipping start_step
     # batches lands where the interrupted run stopped
@@ -214,5 +274,8 @@ def fit(model, loss_fn, data_iter, *, optimizer=None, mesh=None,
             print(f"step {i}: loss={float(loss):.6g}")
         if (checkpoint_dir is not None and checkpoint_every
                 and i % checkpoint_every == 0):
-            save_training_state(checkpoint_dir, model, opt, i)
+            if mesh is None or mesh.rank == 0:
+                save_training_state(checkpoint_dir, model, opt, i)
+            if _collective(mesh):
+                barrier(mesh)
     return TrainResult(model=model, losses=[float(v) for v in losses])

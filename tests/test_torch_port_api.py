@@ -47,8 +47,12 @@ TABLES = ("artifact_tables: the tables an engine artifact carries for the "
           "fused kernels, as tensors and ints")
 PYTREE = ("utils.pytree: JAX pytree registration, removed, not ported "
           "(ROADMAP.md queue 2, 'Removed')")
-SERVING_FN = ("make_serving_fn: serving over several devices is not ported "
-              "yet (ROADMAP.md queue 2, item 5)")
+BACKEND = ("backend=: the torch.distributed backend, NCCL across cards and "
+           "gloo on the host or for several ranks sharing one card (JAX forms "
+           "its own runtime)")
+MESH_ARG = ("axis= -> mesh=: JAX names the mesh axis inside shard_map; the "
+            "port's collectives run over the mesh's process group, so the "
+            "mesh is passed")
 PLAIN = ("the port's additions: each kernel's plain PyTorch version, the "
          "launch counts and helpers the CPU tests and chip_smoke.py use")
 
@@ -59,7 +63,6 @@ MISSING = {
        for n in ("export_bundle", "export_stablehlo", "load_stablehlo",
                  "read_bundle")},
     ("molann_tpu_torch.ops.fused_blocked", "auto_tile"): AUTO_TILE,
-    ("molann_tpu_torch.serve", "make_serving_fn"): SERVING_FN,
     ("molann_tpu_torch.utils", "PytreeNode"): PYTREE,
     ("molann_tpu_torch.utils", "register_model"): PYTREE,
 }
@@ -117,6 +120,8 @@ SIGNATURE = {
     "molann_tpu_torch.train.ensemble.make_ensemble_train_step": (
         f"{OPTIMIZER}; {DONATE}"),
     "molann_tpu_torch.train.checkpoint.save_training_state": OPTIMIZER,
+    "molann_tpu_torch.parallel.multihost.initialize_multihost": BACKEND,
+    "molann_tpu_torch.parallel.data_parallel.psum_mean_grads": MESH_ARG,
     "molann_tpu_torch.train.checkpoint.load_training_state": DEVICE,
     **{f"molann_tpu_torch.sampling.{name}": GENERATOR for name in (
         "langevin.overdamped_langevin", "langevin.baoab_langevin",
@@ -124,6 +129,28 @@ SIGNATURE = {
         "opes.opes_langevin", "mbar.umbrella_sampling",
         "remd.replica_exchange_langevin",
         "committor.empirical_committor")},
+}
+
+# public callables whose signature is the reference's and whose meaning
+# differs by design: one process per device over torch.distributed, where
+# JAX has one controller over every device
+MEANING = {
+    "molann_tpu_torch.parallel.mesh.data_mesh": (
+        "a DataMesh of this rank's place on the ranks of the process group, "
+        "where JAX builds a Mesh of devices; devices= is this rank's device "
+        "(or a list indexed by rank), where JAX takes the devices to span"),
+    "molann_tpu_torch.parallel.mesh.batch_sharding": (
+        "a function giving this rank's contiguous rows on its device, where "
+        "JAX returns a NamedSharding of the leading dimension"),
+    "molann_tpu_torch.parallel.mesh.replicated_sharding": (
+        "the mesh's device, where the replicated parameters live, where JAX "
+        "returns a replicated NamedSharding"),
+    "molann_tpu_torch.parallel.multihost.global_batch": (
+        "the rank's rows moved to its device: the global batch is the ranks' "
+        "rows together, where JAX assembles one global array"),
+    "molann_tpu_torch.serve.make_serving_fn": (
+        "the returned function gives this rank's rows' outputs, what JAX's "
+        "sharded output holds on the local devices"),
 }
 
 # the sampling modules the port has, all of the reference's
@@ -215,8 +242,20 @@ def test_modules_without_a_counterpart_are_listed(differences):
     assert differences[3] == set(OWN_MODULES)
 
 
+def test_changed_meanings_are_listed(differences):
+    """Each name of ``MEANING`` is exported by the port and the reference
+    with one signature: the difference is in what it returns."""
+    _, _, sigs, _ = differences
+    for q in MEANING:
+        mod, name = q.rsplit(".", 1)
+        pm = importlib.import_module(mod)
+        rm = importlib.import_module("molann_tpu" + mod[len("molann_tpu_torch"):])
+        assert name in pm.__all__ and name in rm.__all__, q
+        assert q not in sigs, q
+
+
 def test_reasons_are_written():
-    for table in (MISSING, EXTRA, SIGNATURE, OWN_MODULES):
+    for table in (MISSING, EXTRA, SIGNATURE, OWN_MODULES, MEANING):
         assert all(isinstance(r, str) and len(r) > 10
                    for r in table.values())
 

@@ -239,9 +239,9 @@ def test_train_error_paths(workdir, capsys):
                  "--loss", "autoencoder", *dev])
         assert rc == 1
         assert "needs a MolANN" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        main(["train", str(d / "model.npz"), str(d / "traj.npy"),
-              "--devices", "2", "--device", "cpu"])
+    # on two ranks (gloo processes) the ranks' error is the exit code
+    assert main(["train", str(d / "model.npz"), str(d / "traj.npy"),
+                 "--devices", "2", "--device", "cpu"]) == 1
     # the three artifact commands are ported; export refuses the two
     # StableHLO framings with exit 2
     for flag in (["--raw-mlir"], ["--batch-sizes", "4,2"]):

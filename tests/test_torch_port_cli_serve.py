@@ -321,9 +321,9 @@ def test_error_paths_match_jax(workdir, capsys):
         with pytest.raises(SystemExit, match="zero/degenerate"):
             fn(["unwrap", str(d / "traj.xtc"), str(d / "system.pdb"),
                 str(d / "x.npy"), "--mode", "nojump", *dev])
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        main(["forces", str(d / "model.npz"), str(d / "traj.npy"),
-              "--devices", "2", *CPU])
+    # on two ranks (gloo processes) the ranks' error is the exit code
+    assert main(["forces", str(d / "model.npz"), str(d / "short.npy"),
+                 "--devices", "2", *CPU]) == 1
     with pytest.raises(ValueError, match="tile must be"):
         main(["evaluate", str(d / "model.npz"), str(d / "traj.npy"),
               "--tile", "0", "--out", str(d / "x.npy"), *CPU])

@@ -483,3 +483,24 @@ def test_serve_torch_refusals(serve_bin, served):
     proc = _serve(serve_bin, eager, d / "missing.npy", out, "--device",
                   "cpu")
     assert proc.returncode == 1 and "open trajectory" in proc.stderr
+
+
+def test_serve_torch_in_flight_flag(serve_bin, served):
+    """``--in-flight K`` sets the batches in flight on each card; it must
+    be positive, and the host's serial path gives the same bits whatever
+    it is."""
+    d, model, _ = served
+    art = d / "eager_in_flight.pt"
+    export_artifact(model, 22, art)
+    outs = []
+    for k in ("1", "3"):
+        out = d / f"in_flight_{k}.npy"
+        proc = _serve(serve_bin, art, d / "traj.npy", out, 64, "--device",
+                      "cpu", "--in-flight", k)
+        assert proc.returncode == 0, proc.stderr
+        assert "batch 64 on cpu" in proc.stderr
+        outs.append(np.load(out))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    proc = _serve(serve_bin, art, d / "traj.npy", d / "x.npy", "--device",
+                  "cpu", "--in-flight", "0")
+    assert proc.returncode == 1 and "--in-flight" in proc.stderr

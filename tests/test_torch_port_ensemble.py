@@ -217,8 +217,20 @@ def test_reinitialized_members(setup):
 
 
 def test_mesh_is_not_ported(setup):
+    """``mesh=`` takes a data mesh (two ranks: test_torch_port_mesh_train.py);
+    anything else is refused, and a mesh of one rank without collectives
+    trains as ``mesh=None`` does, bit for bit."""
+    from molann_tpu_torch.parallel import data_mesh
+
     _, paths, x, y = setup
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+    with pytest.raises(TypeError, match="data_mesh"):
         fit_ensemble(_members(paths), mse_loss, _batches(x, y), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+    with pytest.raises(TypeError, match="data_mesh"):
         make_ensemble_train_step(mse_loss, mesh=object())
+    runs = [fit_ensemble(_members(paths), mse_loss, _batches(x, y),
+                         num_steps=3, bagging=True, mesh=mesh)
+            for mesh in (None, data_mesh(devices="cpu"))]
+    assert runs[0].losses == runs[1].losses
+    for a, b in zip(*(r.models for r in runs)):
+        for p, q in zip(a.parameters(), b.parameters()):
+            assert torch.equal(p, q)

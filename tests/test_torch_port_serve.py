@@ -114,9 +114,9 @@ def test_reader_formats(setup, tmp_path):
 def test_backend_and_mesh_keywords(setup, backend):
     """``backend=`` and ``mesh=`` are the reference's keywords: "auto",
     "numpy" and "native" (the native loader) read the ``.npy`` to the
-    reference's values; a mesh (serving over several devices) is not
-    ported and raises, naming its ROADMAP item; an unknown backend is the
-    reference's ValueError."""
+    reference's values; a mesh of one device serves as ``mesh=None`` does
+    (several ranks: test_torch_port_mesh_serve.py), and what is not a data
+    mesh is refused; an unknown backend is the reference's ValueError."""
     jm, tm, frames, path, _ = setup
     cvs_ref = jevaluate(jm, path, batch_size=64, backend="numpy")
     cvs = evaluate_trajectory(tm, path, device="cpu", batch_size=64,
@@ -128,7 +128,12 @@ def test_backend_and_mesh_keywords(setup, backend):
     np.testing.assert_array_equal(
         evaluate_trajectory(tm, path, device="cpu", batch_size=64,
                             backend="native"), cvs)
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+    from molann_tpu_torch.parallel import data_mesh
+
+    np.testing.assert_array_equal(
+        evaluate_trajectory(tm, path, batch_size=64, backend=backend,
+                            mesh=data_mesh(devices="cpu")), cvs)
+    with pytest.raises(TypeError, match="data_mesh"):
         evaluate_trajectory(tm, path, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="auto/native/numpy"):
         open_frame_reader(path, backend="mmap")

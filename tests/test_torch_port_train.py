@@ -199,5 +199,5 @@ def test_errors():
     for make in (lambda: make_train_step(None, mesh=object()),
                  lambda: make_fused_train_step(mesh=object()),
                  lambda: fit(model, None, [], mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+        with pytest.raises(TypeError, match="data_mesh"):
             make()
