@@ -219,6 +219,32 @@ Runs the port's serving path on the card and checks it, phase by phase:
    frames/s and the split printed. The ``kernels`` line gains
    ``mesh_launches`` on K1-K8: their launches over (a) and (b), every
    rank's.
+16. the ten workflow examples (``molann_tpu_torch/examples/``) on the card,
+   within a budget of 150 s: ``serve_biased_md`` at full size (4,096
+   frames from ``.dcd``; K4 launched ``ceil(4096/1024)`` times and nothing
+   else, its first batch against K4's plain version at the values and
+   gradients tolerances below, outputs on the card),
+   ``train_autoencoder_cv`` at full size (the loss falls tenfold; its
+   engine artifact, loaded, gives the model's CVs and the forces of
+   ``force_fn`` summed over the two CVs), ``condensed_phase_cv`` quick
+   (``mode="blocked"``, K6 launched once, its parity under 1e-4, the
+   shells' loss of neighbours, the held-out frames classified better than
+   0.8), ``committor_cv`` and ``committee_uncertainty`` quick (their JAX
+   tests' assertions), and the five long sampling examples at a cut depth
+   (``EXAMPLE_STEPS``, printed): ``biased_dynamics`` and
+   ``adaptive_cv_loop`` through ``main``, whose library calls are cut to
+   that depth, ``train_eigenfunction_cv``, ``train_timelagged_cv`` and
+   ``path_kinetics`` through their stage functions, called at that depth
+   (the MSM of ``path_kinetics`` is host numpy and a cut run gives it too
+   few transitions). The phase fails past its budget. Every dynamics
+   stage's outputs stay on the card, finite,
+   with one deposit a walker a period; the first stage of each kind is run
+   again alone for its kernels a step and the card's busy share
+   (``torch.profiler``) and for its host waits in one period and in two,
+   which must be equal. One JSON line per example: wall seconds, each
+   stage's seconds, steps and steps/s, kernels a step, busy share, K4/K6
+   launches and the example's scalars. The ``kernels`` line gains
+   ``examples_launches`` on K4 and K6.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -264,6 +290,7 @@ import copy
 import functools
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -3200,6 +3227,369 @@ def mesh_serve_torch(tmp):
     return served
 
 
+# the examples of phase 16 (molann_tpu_torch/examples/): the five long
+# sampling examples run at a cut depth, every dynamics stage at most
+# EXAMPLE_STEPS[name] steps (whole periods) and every training stage at most
+# EXAMPLE_TRAIN steps; path_kinetics' string at EXAMPLE_STRING iterations.
+# Those run through main are cut by ExampleStages, the others are called at
+# that depth.
+# The other five run as the CPU tests run them (serve_biased_md and
+# train_autoencoder_cv at full size, the rest quick). The science of the
+# long five is held on the CPU at quick size (tests/test_torch_port_
+# examples_*.py): their host-bound loops cannot reach it in the budget.
+EXAMPLE_STEPS = {"biased_dynamics": 100, "train_eigenfunction_cv": 100,
+                 "train_timelagged_cv": 600, "adaptive_cv_loop": 100,
+                 "path_kinetics": 200}
+EXAMPLE_TRAIN = 20
+EXAMPLE_STRING = 500
+EXAMPLE_PROFILE_STEPS = 20   # the profiled run of each kind of stage
+EXAMPLE_BUDGET_S = 150.0     # the phase fails past it
+DYNAMICS = ("overdamped_langevin", "metadynamics_langevin",
+            "steered_langevin", "empirical_committor")
+TRAINING = ("fit", "fit_ensemble", "string_method")
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class ExampleStages:
+    """The library calls of an example's modules, wrapped where the modules
+    name them. Each call is timed between two synchronisations. A dynamics
+    stage is cut to ``steps`` (whole periods) if given, for the examples
+    that run through ``main``, and its outputs are checked:
+    on the example's device, finite, one deposit a walker a period. The
+    first stage of each kind is run again, alone, for its host waits in one
+    period, and, if there are any, in two, which must be as many (no wait
+    inside a period), and, for the kinds in ``profiled`` (every kind when
+    None), its kernels a step and the card's busy share
+    (``torch.profiler``). A training stage is cut to ``train`` steps if
+    given."""
+
+    def __init__(self, dev, steps=None, train=None, profiled=None):
+        self.dev, self.steps, self.train = dev, steps, train
+        self.profiled = profiled
+        self.records, self._seen, self.profile_s = [], set(), 0.0
+
+    def __call__(self, *modules):
+        import contextlib
+
+        @contextlib.contextmanager
+        def patched():
+            saved = []
+            for mod in dict.fromkeys(modules):  # each module wrapped once
+                for name in DYNAMICS + TRAINING:
+                    fn = getattr(mod, name, None)
+                    if fn is not None:
+                        saved.append((mod, name, fn))
+                        setattr(mod, name, self._wrap(name, fn))
+            try:
+                yield self
+            finally:
+                for mod, name, fn in saved:
+                    setattr(mod, name, fn)
+
+        return patched()
+
+    def _timed(self, fn, *args, **kw):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync(self.dev)
+        return out, time.perf_counter() - t0
+
+    def _wrap(self, name, fn):
+        def stage(*args, **kw):
+            if name in DYNAMICS:
+                return self._dynamics(name, fn, args, kw)
+            cut = {"fit": ("num_steps", self.train),
+                   "fit_ensemble": ("num_steps", self.train),
+                   "string_method": ("n_iterations", None)}[name]
+            if cut[1] and kw.get(cut[0]):
+                kw[cut[0]] = min(kw[cut[0]], cut[1])
+            out, sec = self._timed(fn, *args, **kw)
+            steps = kw.get(cut[0]) or (len(out.losses) if hasattr(
+                out, "losses") else None)
+            self.records.append({"stage": name, "s": sec, "steps": steps})
+            return out
+
+        return stage
+
+    def _dynamics(self, name, fn, args, kw):
+        period = kw.get("stride") or kw.get("thin") or 1
+        if self.steps:
+            kw["n_steps"] = max(period, min(kw["n_steps"], self.steps)
+                                // period * period)
+        n = kw["n_steps"]
+        out, sec = self._timed(fn, *args, **kw)
+        x0 = args[2] if name in ("metadynamics_langevin",
+                                 "steered_langevin") else args[1]
+        walkers = x0.shape[0] * kw.get("n_replicas", 1)
+        # the committor estimate is NaN where no replica resolved
+        checked = out[1:2] if name == "empirical_committor" else out[:2]
+        for t in checked:
+            if t.device.type != self.dev.type or not bool(
+                    torch.isfinite(t).all()):
+                fail(f"phase 16, {name}: an output off {self.dev} or not "
+                     "finite")
+        if name == "metadynamics_langevin":
+            bias = out[2]
+            if (bias.centers.shape[0] != n // period * walkers
+                    or bias.centers.device.type != self.dev.type
+                    or not bool((bias.weights > 0).all())):
+                fail(f"phase 16, metadynamics: {bias.centers.shape[0]} "
+                     f"deposits for {n // period} periods of {walkers} "
+                     "walkers")
+        rec = {"stage": name, "s": sec, "steps": n, "walkers": walkers,
+               "steps_per_s": n / sec}
+        if name not in self._seen and self.dev.type == "cuda":
+            self._seen.add(name)
+            t0 = time.perf_counter()
+            rec.update(self._rerun(name, fn, args, kw, period))
+            self.profile_s += time.perf_counter() - t0
+        self.records.append(rec)
+        return out
+
+    def _rerun(self, name, fn, args, kw, period):
+        def run(periods):
+            k = dict(kw, n_steps=periods * period,
+                     generator=torch.Generator(self.dev).manual_seed(7))
+            return fn(*args, **k)
+
+        one = host_syncs(lambda: run(1))
+        two = host_syncs(lambda: run(2)) if one else 0
+        if one != two:
+            fail(f"phase 16: {fn.__name__} waits for the card inside a "
+                 f"period ({one} host waits in one period, {two} in two)")
+        if self.profiled is not None and name not in self.profiled:
+            return {"host_waits_a_call": one}
+        periods = max(1, EXAMPLE_PROFILE_STEPS // period)
+        t0 = time.perf_counter()
+        busy, kernels, _ = device_ms(lambda: run(periods))
+        wall = 1e3 * (time.perf_counter() - t0)
+        return {"kernels_per_step": kernels / (periods * period),
+                "busy": busy / wall, "host_waits_a_call": one}
+
+
+def example_line(name, depth, wall, stages, launched, out):
+    """One JSON line of phase 16: the example's wall seconds (its stages'
+    profiled reruns apart), its stages, the kernels K4 and K6 launched,
+    and the scalars it returned."""
+    line = {"phase": 16, "example": name, "depth": depth,
+            "wall_s": wall - stages.profile_s,
+            "profiling_s": stages.profile_s, "stages": stages.records,
+            "k4_launches": launched["cv_forces"],
+            "k6_launches": launched["blocked_forward"],
+            "result": {k: v for k, v in out.items()
+                       if isinstance(v, (bool, int, float, str))}}
+    print(json.dumps(line))
+    return line
+
+
+def examples_phase(dev, card):
+    """Phase 16: the ten port examples on ``dev``. Returns ``{kernel:
+    launches}`` of K4 and K6 over the phase."""
+    import importlib
+
+    from molann_tpu_torch.io import load_artifact, load_model
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.sampling import ToyPeptidePotential
+    from molann_tpu_torch.systems import alanine_universe
+    from molann_tpu_torch.train import force_fn, packed_batch_iterator
+
+    def ex(name):
+        return importlib.import_module(f"molann_tpu_torch.examples.{name}")
+
+    import gc
+
+    gc.collect()  # the earlier phases' garbage, out of the loops' way
+    t_phase = time.perf_counter()
+    launched = {"cv_forces": 0, "blocked_forward": 0}
+    lines = []
+    on_card = dev.type == "cuda"
+
+    def run(name, depth, fn, stages, *modules):
+        reset_counts()
+        with stages(ex(name), *modules):
+            out, wall = stages._timed(fn)
+        got = {k: F.KERNEL_LAUNCHES[k] for k in launched}
+        for k in launched:
+            launched[k] += got[k]
+        lines.append(example_line(name, depth, wall, stages, got, out))
+        return out, got
+
+    # (a) serving from a .dcd through K4: one launch a batch of 1024
+    mod = ex("serve_biased_md")
+    out, got = run("serve_biased_md", "full", lambda: mod.main(device=dev),
+                   ExampleStages(dev))
+    n_batches = math.ceil(mod.N_FRAMES / mod.BATCH)
+    if dict(F.KERNEL_LAUNCHES) != counts(
+            cv_forces=n_batches if on_card else 0):
+        fail(f"phase 16, serve_biased_md: launches {dict(F.KERNEL_LAUNCHES)}"
+             f", expected {n_batches} of K4")
+    if out["n_done"] != mod.N_FRAMES or out["launches"] != got["cv_forces"]:
+        fail(f"phase 16, serve_biased_md: served {out['n_done']}")
+    if out["cvs"].device.type != dev.type or out["forces"].device.type != \
+            dev.type:
+        fail("phase 16, serve_biased_md: outputs off the card")
+    model = load_model(out["model_path"], device=dev)
+    xb = next(iter(packed_batch_iterator(out["traj"], mod.BATCH,
+                                         shuffle=False, epochs=1)))
+    parts = F._extract_model(model)
+    x3 = torch.as_tensor(xb, device=dev).reshape(mod.BATCH, -1, 3)
+    y_ref, g_ref = F.cv_forces_plain(*parts, x3, component=0)
+    ev = float((out["cvs"] - y_ref).abs().max())
+    eg = float((-out["forces"].reshape(g_ref.shape) - g_ref).abs().max())
+    if not (ev <= VAL_TOL and eg <= grad_tol(g_ref)):
+        fail(f"phase 16, serve_biased_md: the first batch against K4's "
+             f"plain version: values {ev}, gradients {eg}")
+    serve_err = max(ev, eg)
+
+    # (b) the autoencoder CV, its artifact and forces
+    mod = ex("train_autoencoder_cv")
+    out, _ = run("train_autoencoder_cv", "full", lambda: mod.main(device=dev),
+                 ExampleStages(dev))
+    if not out["losses"][-1] < 0.1 * out["losses"][0]:
+        fail(f"phase 16, train_autoencoder_cv: losses {out['losses'][0]} "
+             f"-> {out['losses'][-1]}")
+    cv_model, x = out["cv_model"], out["x"]
+    y, g = load_artifact(out["artifact"], device=dev)(x)
+    with torch.no_grad():
+        ev = float((y - cv_model(x)).abs().max())
+    f = force_fn(cv_model, 0)(x) + force_fn(cv_model, 1)(x)
+    eg = float((-g - f).abs().max())
+    if not (ev <= VAL_TOL and eg <= grad_tol(f)) or g.device.type != \
+            dev.type:
+        fail(f"phase 16, train_autoencoder_cv: the artifact against the "
+             f"model: values {ev}, gradients {eg} (force_fn summed)")
+
+    # (c) the condensed phase through K6
+    mod = ex("condensed_phase_cv")
+    res, got = run("condensed_phase_cv", "quick",
+                   lambda: mod.main(quick=True, device=dev),
+                   ExampleStages(dev))
+    if dict(F.KERNEL_LAUNCHES) != counts(
+            blocked_forward=1 if on_card else 0):
+        fail(f"phase 16, condensed_phase_cv: launches "
+             f"{dict(F.KERNEL_LAUNCHES)}, expected one of K6")
+    # (the JAX test's cv_gap > 3 cv_spread is not held but the held-out
+    # accuracy in its place: see tests/test_torch_port_examples_serving.py::
+    # test_condensed_phase_cv_outcome; the line above carries all three)
+    if not (res["fused_mode"] == "blocked" and res["fused_rel_err"] < 1e-4
+            and res["shell1_fluid"] < res["shell1_solid"] - 1.0
+            and res["cv_accuracy"] > 0.8):
+        fail(f"phase 16, condensed_phase_cv: {res}")
+
+    # (d) the committor test and the committee, at quick size
+    mod = ex("committor_cv")
+    res, _ = run("committor_cv", "quick",
+                 lambda: mod.main(quick=True, device=dev), ExampleStages(dev))
+    if not (res["loss1"] < 0.1 * res["loss0"] and res["pred_q_a"] < 0.1
+            and res["pred_q_b"] > 0.9 and abs(res["pred_q_mid"] - 0.5) < 0.05
+            and res["resolved_mid"] > 0.6 and res["emp_q_a"] < 0.15
+            and res["emp_q_b"] > 0.85 and 0.3 < res["emp_q_mid"] < 0.75):
+        fail(f"phase 16, committor_cv: {res}")
+    mod = ex("committee_uncertainty")
+    res, _ = run("committee_uncertainty", "quick",
+                 lambda: mod.main(quick=True, device=dev), ExampleStages(dev))
+    if not (res["ratio"] > 3.0 and np.asarray(res["losses"])[-1].mean()
+            < 0.2):
+        fail(f"phase 16, committee_uncertainty: ratio {res['ratio']}")
+
+    # (e) the five long sampling examples at their cut depth
+    def cut(name, through_main=False):
+        # the profiler's window on the stage each example is about, its
+        # metadynamics where it has one (a window costs seconds of the
+        # budget); an example run through main has its library calls cut
+        main = ("overdamped_langevin" if name == "train_timelagged_cv"
+                else "metadynamics_langevin")
+        if not through_main:
+            return ExampleStages(dev, profiled=(main,))
+        return ExampleStages(dev, steps=EXAMPLE_STEPS[name],
+                             train=EXAMPLE_TRAIN, profiled=(main,))
+
+    def depth(name):
+        return (f"cut: dynamics <= {EXAMPLE_STEPS[name]} steps, training "
+                f"{EXAMPLE_TRAIN} steps"
+                + (f", string {EXAMPLE_STRING} iterations"
+                   if name == "path_kinetics" else ""))
+
+    biased = ex("biased_dynamics")
+    for name in ("biased_dynamics", "adaptive_cv_loop"):
+        mod = ex(name)
+        res, _ = run(name, depth(name),
+                     lambda: mod.main(quick=True, device=dev),
+                     cut(name, through_main=True), biased)
+        if not all(np.isfinite(v) for v in res.values()
+                   if isinstance(v, float) and v != float("inf")):
+            fail(f"phase 16, {name}: {res}")
+
+    mod = ex("train_eigenfunction_cv")
+
+    def eigenfunctions():
+        u = alanine_universe()
+        pot = ToyPeptidePotential(u, barrier=mod.BARRIER)
+        staged = mod.sample_both_basins(
+            u, pot, n_steps=EXAMPLE_STEPS["train_eigenfunction_cv"],
+            generator=torch.Generator(dev).manual_seed(0))
+        return mod.learn_eigenfunctions(u, *staged, num_steps=EXAMPLE_TRAIN)
+
+    name = "train_eigenfunction_cv"
+    res, _ = run(name, depth(name), eigenfunctions, cut(name), biased)
+    if not np.isfinite(res["eigenvalues"]).all():
+        fail(f"phase 16, {name}: {res}")
+
+    mod = ex("train_timelagged_cv")
+
+    def timelagged():
+        u = alanine_universe()
+        pot = ToyPeptidePotential(u, barrier=mod.BARRIER)
+        traj, cos_phi, hops = mod.sample_hopping(
+            u, pot, n_steps=EXAMPLE_STEPS["train_timelagged_cv"],
+            generator=torch.Generator(dev).manual_seed(0))
+        return {"hops": hops, **mod.learn_cv(
+            u, traj, cos_phi, num_steps=EXAMPLE_TRAIN, device=dev)}
+
+    name = "train_timelagged_cv"
+    res, _ = run(name, depth(name), timelagged, cut(name))
+    if not np.isfinite([res["tica_ac"], res["vamp_ac"], res["vamp2"]]).all():
+        fail(f"phase 16, {name}: {res}")
+
+    # path_kinetics' stages on the card; its MSM, TPT and first passages
+    # are host numpy, which a cut run gives too few transitions
+    mod = ex("path_kinetics")
+
+    def path_stages():
+        from molann_tpu_torch.sampling import PathCV
+
+        imgs, e = mod.find_path(n_iterations=EXAMPLE_STRING, device=dev)
+        path = PathCV(imgs)
+        steps = EXAMPLE_STEPS["path_kinetics"]
+        x_u, x_b = mod.cold_runs(path, n_steps=steps, device=dev)
+        s = mod.warm_run(path, n_steps=steps, device=dev)
+        return {"barrier": float(e.max()), "s_frames": len(s),
+                "cold_unbiased_max_x": float(x_u.max()),
+                "cold_biased_max_x": float(x_b.max())}
+
+    name = "path_kinetics"
+    res, _ = run(name, depth(name), path_stages, cut(name))
+    if not (abs(res["barrier"] - 1.0) < 0.01 and np.isfinite(
+            [res["cold_unbiased_max_x"], res["cold_biased_max_x"]]).all()):
+        fail(f"phase 16, {name}: {res}")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"examples (phase 16, {seconds:.1f} s of a {EXAMPLE_BUDGET_S:.0f} s "
+          f"budget): ten examples on {dev}; K4 launches {launched['cv_forces']}"
+          f", K6 launches {launched['blocked_forward']}; serve_biased_md's "
+          f"first batch against K4's plain version {serve_err:.3g}; "
+          f"card: {card}")
+    if on_card and seconds > EXAMPLE_BUDGET_S:
+        fail(f"phase 16 took {seconds:.1f} s, past its budget of "
+             f"{EXAMPLE_BUDGET_S:.0f} s")
+    return launched, lines
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3596,6 +3986,8 @@ def main():
         engine = engine_phase(dev, card, tmp)
         # 15. data parallelism and multi-device serving
         mesh_launches = mesh_phase(dev, card, tmp)
+    # 16. the ten workflow examples
+    example_launches, _ = examples_phase(dev, card)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -3612,6 +4004,7 @@ def main():
          "launches": launches["cv_forces"],
          "cli_launches": cli_launches["cv_forces"],
          "mesh_launches": mesh_launches["cv_forces"],
+         "examples_launches": example_launches["cv_forces"],
          "max_abs_err": max_err["cv_forces"], "ms": ms_k4,
          "plain_ms": ms_p4, "alone_ms": split["cv_forces"][0],
          **alanine_bound("cv_forces"), **engine["cv_forces"]},
@@ -3645,6 +4038,8 @@ def main():
               if k["name"] in sample_launches else {}),
            **({"mesh_launches": mesh_launches[k["name"]]}
               if k["name"] in mesh_launches else {}),
+           **({"examples_launches": example_launches[k["name"]]}
+              if k["name"] in example_launches else {}),
            **engine.get(k["name"], {})}
           for k in blocked_kernels),
         edge_kernel,

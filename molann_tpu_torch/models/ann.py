@@ -22,8 +22,9 @@ from torch import nn
 
 from ..ops.alignment import ROTATION_METHODS, align_frames
 from ..ops.features import (
+    _apply_compiled,
+    _spec_tables,
     angle_features,
-    apply_compiled_features,
     bond_features,
     coordination_features,
     dihedral_features,
@@ -137,6 +138,18 @@ def create_sequential_nn(layer_dims, activation="tanh", *, generator=None,
     Weights and biases are drawn from U(-1/√fan_in, 1/√fan_in) with
     ``generator`` (``torch.nn.Linear``'s default scheme; a fresh generator
     seeded with 0 when omitted), so a model is reproducible from a seed.
+
+    Example (executed by tests/test_torch_port_doctests.py):
+
+    >>> import torch
+    >>> g = torch.Generator().manual_seed(0)
+    >>> nn = create_sequential_nn([2, 5, 3], generator=g, device="cpu")
+    >>> len(nn)                      # two Linear layers
+    2
+    >>> nn.output_dimension()
+    3
+    >>> nn(torch.ones((4, 2))).shape   # [batch, d_out]
+    torch.Size([4, 3])
     """
     if len(layer_dims) < 2:
         raise AssertionError(
@@ -173,6 +186,21 @@ class AlignmentLayer(nn.Module):
     ``ref_x`` (the align-group positions centred once at construction) is
     a buffer: it moves with ``.to(device)`` and is not trained. Forward
     maps ``[l, n_inp, 3] → [l, n_inp, 3]``.
+
+    Example (reference molann/ann.py:88-112):
+
+    >>> import torch
+    >>> from molann_tpu_torch.systems import alanine_universe
+    >>> u = alanine_universe()
+    >>> align = AlignmentLayer(u.select_atoms("bynum 1 2 5"), u.atoms,
+    ...                        device="cpu")
+    >>> x = torch.as_tensor(u.atoms.positions[None])   # [1, 22, 3]
+    >>> aligned = align(x)
+    >>> aligned.shape
+    torch.Size([1, 22, 3])
+    >>> # self-alignment maps the align atoms onto the centered reference
+    >>> bool(torch.allclose(aligned[0, [0, 1, 4]], align.ref_x, atol=1e-5))
+    True
     """
 
     def __init__(self, align_atom_group, input_atom_group, method="qcp", *,
@@ -205,7 +233,23 @@ class AlignmentLayer(nn.Module):
 
 class FeatureMap(nn.Module):
     """Map coordinates to ONE feature's value(s)
-    (reference molann/ann.py:201-356)."""
+    (reference molann/ann.py:201-356).
+
+    Example (golden value from BASELINE.md; reference
+    molann/ann.py:219-241):
+
+    >>> import numpy as np, torch
+    >>> from molann_tpu_torch.feature import Feature
+    >>> from molann_tpu_torch.systems import alanine_universe
+    >>> u = alanine_universe()
+    >>> fmap = FeatureMap(
+    ...     Feature("b1", "bond", u.select_atoms("bynum 2 5")), u.atoms)
+    >>> fmap.dim()
+    1
+    >>> x = torch.as_tensor(u.atoms.positions[None])
+    >>> print(np.round(fmap(x).numpy(), 4))
+    [[1.5297]]
+    """
 
     def __init__(self, feature, input_atom_group, use_angle_value=False):
         super().__init__()
@@ -251,7 +295,27 @@ class FeatureMap(nn.Module):
 class FeatureLayer(nn.Module):
     """Map coordinates to ALL features of a feature list, columns in
     feature-list order (reference molann/ann.py:358-474), computed
-    type-grouped through the compiled spec."""
+    type-grouped through the compiled spec.
+
+    Example (reference molann/ann.py:379-415; golden values BASELINE.md):
+
+    >>> import numpy as np, torch
+    >>> from molann_tpu_torch.feature import Feature
+    >>> from molann_tpu_torch.systems import alanine_universe
+    >>> u = alanine_universe()
+    >>> feats = [Feature("b1", "bond", u.select_atoms("bynum 2 5")),
+    ...          Feature("a1", "angle", u.select_atoms("bynum 20")
+    ...                  + u.select_atoms("bynum 19")
+    ...                  + u.select_atoms("bynum 21"))]
+    >>> layer = FeatureLayer(feats, u.atoms)
+    >>> layer.output_dimension()
+    2
+    >>> layer.get_feature(0).get_name()
+    'b1'
+    >>> x = torch.as_tensor(u.atoms.positions[None])
+    >>> print(np.round(layer(x).numpy(), 4))   # columns in list order
+    [[ 1.5297 -0.3328]]
+    """
 
     def __init__(self, feature_list, input_atom_group, use_angle_value=False):
         super().__init__()
@@ -286,12 +350,34 @@ class FeatureLayer(nn.Module):
 
     def forward(self, x):
         _check_input(x, self.input_atom_num)
-        return apply_compiled_features(self._spec, x)
+        # the spec's index tables, put on each device once: a copy at every
+        # call would make the host wait for the card
+        on = self.__dict__.setdefault("_device_tables", {})
+        if x.device not in on:
+            on[x.device] = _spec_tables(self._spec, x.device)
+        return _apply_compiled(self._spec, x, on[x.device])
 
 
 class PreprocessingANN(nn.Module):
     """Optional alignment followed by the feature layer
-    (reference molann/ann.py:476-565); ``None`` alignment → Identity."""
+    (reference molann/ann.py:476-565); ``None`` alignment → Identity.
+
+    Example (reference molann/ann.py:483-529):
+
+    >>> import torch
+    >>> from molann_tpu_torch.feature import Feature
+    >>> from molann_tpu_torch.systems import alanine_universe
+    >>> u = alanine_universe()
+    >>> flayer = FeatureLayer(
+    ...     [Feature("b1", "bond", u.select_atoms("bynum 2 5"))], u.atoms)
+    >>> pp = PreprocessingANN(None, flayer)   # None -> Identity alignment
+    >>> type(pp.align_layer).__name__
+    'Identity'
+    >>> pp.output_dimension()
+    1
+    >>> pp(torch.as_tensor(u.atoms.positions[None])).shape
+    torch.Size([1, 1])
+    """
 
     def __init__(self, align_layer, feature_layer):
         super().__init__()
@@ -307,7 +393,27 @@ class PreprocessingANN(nn.Module):
 
 class MolANN(nn.Module):
     """Full model: preprocessing + trainable network
-    (reference molann/ann.py:567-625)."""
+    (reference molann/ann.py:567-625).
+
+    Example (reference molann/ann.py:576-599); the model is a
+    ``torch.nn.Module``, so autograd gives its coordinate gradients:
+
+    >>> import torch
+    >>> from molann_tpu_torch.feature import Feature
+    >>> from molann_tpu_torch.systems import alanine_universe
+    >>> u = alanine_universe()
+    >>> pp = PreprocessingANN(None, FeatureLayer(
+    ...     [Feature("b1", "bond", u.select_atoms("bynum 2 5"))], u.atoms))
+    >>> model = MolANN(pp, create_sequential_nn([pp.output_dimension(), 5, 2]))
+    >>> x = torch.as_tensor(u.atoms.positions[None]).requires_grad_(True)
+    >>> model(x).shape
+    torch.Size([1, 2])
+    >>> (g,) = torch.autograd.grad(model(x).sum(), x)   # coordinate gradients
+    >>> bool((torch.linalg.norm(g[0, [1, 4]], dim=-1) > 0).all())
+    True
+    >>> bool(g[0, 0].abs().max() == 0)   # non-feature atom: zero grad
+    True
+    """
 
     def __init__(self, preprocessing_layer, ann_layers):
         super().__init__()

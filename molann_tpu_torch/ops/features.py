@@ -14,7 +14,11 @@ Same formulas and quirks as the JAX package (reference molann/ann.py:288-356):
 - coordination (type 4): PLUMED rational switching sums (an extension).
 
 Every function takes the whole batch ``x [l, n, 3]`` and a static index
-table and runs one vectorised gather + math chain per feature type.
+table and runs one vectorised gather + math chain per feature type. An
+index table may be given as a long tensor on ``x``'s device
+(:func:`_spec_tables`), which is then used as it is: a table given as a
+tuple is copied to the device at every call, and on the card such a copy
+makes the host wait.
 """
 
 from __future__ import annotations
@@ -161,7 +165,8 @@ def coordination_features(x, coord_pairs, coord_slices, coord_params,
     counts, one column per coordination feature (minimum image where a
     feature carries a box, exact truncation where it carries ``d_max``)."""
     outs = []
-    pairs = [tuple(p) for p in coord_pairs]
+    pairs = torch.as_tensor(coord_pairs, dtype=torch.long,
+                            device=x.device).reshape(-1, 2)
     if coord_boxes is None:
         coord_boxes = (None,) * len(coord_slices)
     if coord_dmax is None:
@@ -180,30 +185,50 @@ def coordination_features(x, coord_pairs, coord_slices, coord_params,
     return torch.stack(outs, dim=1)
 
 
+_TABLES = ("angle_idx", "bond_idx", "dihedral_idx", "position_idx",
+           "coord_pairs", "perm")
+
+
+def _spec_tables(spec: CompiledFeatures, device):
+    """A compiled spec's index tables as long tensors on ``device``, keyed
+    by field name (those the spec has), for :func:`_apply_compiled` to
+    gather with and no copy."""
+    return {name: torch.as_tensor(getattr(spec, name), dtype=torch.long,
+                                  device=device)
+            for name in _TABLES if getattr(spec, name)}
+
+
 def apply_compiled_features(spec: CompiledFeatures, x):
     """Evaluate all features of a compiled spec: ``[l, n, 3] → [l, d]``
     (type-grouped blocks, then the static column permutation)."""
+    return _apply_compiled(spec, x, {name: getattr(spec, name)
+                                     for name in _TABLES})
+
+
+def _apply_compiled(spec: CompiledFeatures, x, t):
+    """:func:`apply_compiled_features` with the index tables ``t`` by field
+    name: the spec's tuples, or :func:`_spec_tables` on ``x``'s device."""
     l = x.shape[0]
     parts = []
     if spec.n_angles:
-        parts.append(angle_features(x, spec.angle_idx, spec.use_angle_value))
+        parts.append(angle_features(x, t["angle_idx"], spec.use_angle_value))
     if spec.n_bonds:
-        parts.append(bond_features(x, spec.bond_idx))
+        parts.append(bond_features(x, t["bond_idx"]))
     if spec.n_dihedrals:
-        d = dihedral_features(x, spec.dihedral_idx, spec.use_angle_value)
+        d = dihedral_features(x, t["dihedral_idx"], spec.use_angle_value)
         if not spec.use_angle_value:
             d = d.reshape(l, 2 * spec.n_dihedrals)
         parts.append(d)
     if spec.n_coordinations:
         parts.append(coordination_features(
-            x, spec.coord_pairs, spec.coord_slices, spec.coord_params,
+            x, t["coord_pairs"], spec.coord_slices, spec.coord_params,
             spec.coord_boxes or None, spec.coord_dmax or None))
     if spec.n_position_atoms:
-        parts.append(position_features(x, spec.position_idx))
+        parts.append(position_features(x, t["position_idx"]))
     if not parts:
         return x.new_zeros((l, 0))
     feats = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if spec.perm is not None:
-        feats = feats[:, torch.as_tensor(spec.perm, dtype=torch.long,
+        feats = feats[:, torch.as_tensor(t["perm"], dtype=torch.long,
                                          device=x.device)]
     return feats

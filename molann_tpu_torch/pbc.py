@@ -107,6 +107,7 @@ def minimum_image(dx, box, *, device=None):
     ``dx``.
 
     Example:
+        >>> import torch
         >>> box = torch.diag(torch.tensor([10.0, 10.0, 10.0]))
         >>> minimum_image(torch.tensor([9.0, 0.2, -9.5]), box).tolist()
         [-1.0, 0.20000000298023224, 0.5]
@@ -134,6 +135,7 @@ def wrap(x, box, *, device=None):
     and no matrix product.
 
     Example:
+        >>> import torch
         >>> box = torch.diag(torch.tensor([4.0, 5.0, 6.0]))
         >>> wrap(torch.tensor([-1.0, 5.5, 17.0]), box).tolist()
         [3.0, 0.5, 5.0]

@@ -255,7 +255,20 @@ def committor_loss(model, x, labels, *, beta=1.0, alpha=100.0,
 
 def make_committor_loss(**kwargs):
     """``(model, batch) -> scalar`` for :func:`~molann_tpu_torch.train.fit`;
-    ``batch`` is ``(x, labels)`` or ``(x, labels, weights)``."""
+    ``batch`` is ``(x, labels)`` or ``(x, labels, weights)``.
+
+    Example:
+        >>> import torch
+        >>> from molann_tpu_torch.models.ann import create_sequential_nn
+        >>> mlp = create_sequential_nn([6, 8, 1])
+        >>> model = lambda x: mlp(x.reshape(x.shape[0], -1))
+        >>> x = torch.randn(16, 2, 3, generator=torch.Generator().manual_seed(1))
+        >>> lab = torch.tensor([1] * 6 + [0] * 4 + [2] * 6)
+        >>> loss_fn = make_committor_loss(alpha=10.0)
+        >>> loss_fn(model, (x, lab)).item() == loss_fn(
+        ...     model, (x, lab, torch.ones(16))).item()
+        True
+    """
 
     def loss_fn(model, batch):
         if len(batch) == 3:
@@ -269,7 +282,19 @@ def make_committor_loss(**kwargs):
 
 def make_eigenfunction_loss(**kwargs):
     """``(model, batch) -> scalar`` for :func:`~molann_tpu_torch.train.fit`;
-    ``batch`` is ``x`` or ``(x, weights)``."""
+    ``batch`` is ``x`` or ``(x, weights)``.
+
+    Example:
+        >>> import torch
+        >>> from molann_tpu_torch.models.ann import create_sequential_nn
+        >>> mlp = create_sequential_nn([6, 8, 2])
+        >>> model = lambda x: mlp(x.reshape(x.shape[0], -1))
+        >>> x = torch.randn(32, 2, 3, generator=torch.Generator().manual_seed(1))
+        >>> loss_fn = make_eigenfunction_loss(alpha=5.0)
+        >>> loss_fn(model, x).item() == loss_fn(model,
+        ...                                     (x, torch.ones(32))).item()
+        True
+    """
 
     def loss_fn(model, batch):
         if isinstance(batch, (tuple, list)):

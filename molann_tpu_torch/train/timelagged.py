@@ -181,7 +181,19 @@ def vamp2_loss(model, x_t, x_tau, *, weights=None, eps=1e-6,
 
 def make_vamp_loss(**kwargs):
     """``(model, batch) -> scalar`` for :func:`~molann_tpu_torch.train.fit`;
-    ``batch`` is ``(x_t, x_tau)`` or ``(x_t, x_tau, weights)``."""
+    ``batch`` is ``(x_t, x_tau)`` or ``(x_t, x_tau, weights)``.
+
+    Example:
+        >>> import torch
+        >>> from molann_tpu_torch.models.ann import create_sequential_nn
+        >>> mlp = create_sequential_nn([6, 8, 2])
+        >>> model = lambda x: mlp(x.reshape(x.shape[0], -1))
+        >>> x = torch.randn(32, 2, 3, generator=torch.Generator().manual_seed(1))
+        >>> loss_fn = make_vamp_loss()
+        >>> loss_fn(model, (x[:-1], x[1:])).item() == loss_fn(
+        ...     model, (x[:-1], x[1:], torch.ones(31))).item()
+        True
+    """
 
     def loss_fn(model, batch):
         if len(batch) == 3:

@@ -162,6 +162,13 @@ OWN_MODULES = {
     "molann_tpu_torch._device": "the port's device rule",
     "molann_tpu_torch.ops._build": "the nvcc build of the CUDA kernels",
     "molann_tpu_torch.train.optim": "optax's rules as torch.optim classes",
+    **{f"molann_tpu_torch.examples{sub}": (
+        "the JAX package's examples/*.py, which sit outside that package, "
+        "as modules of the port") for sub in (
+            "", ".serve_biased_md", ".train_autoencoder_cv",
+            ".condensed_phase_cv", ".committor_cv", ".committee_uncertainty",
+            ".biased_dynamics", ".train_eigenfunction_cv",
+            ".train_timelagged_cv", ".adaptive_cv_loop", ".path_kinetics")},
 }
 
 
