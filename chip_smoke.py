@@ -92,7 +92,12 @@ Runs the port's serving path on the card and checks it, phase by phase:
    operations: ``edge_mm_probe.body_bound``) or more than 25% under the
    CUDA-event time of 20 bare launches of the body on the same x, queued
    behind a spin of the card so that the events time the card and not the
-   host's launch rate.
+   host's launch rate. Every profiler reading closes its trace with a spin
+   timed by CUDA events too, and a trace whose spin is missing or more than
+   10% off its events (the profiler's conversion of the card's timestamps
+   is now and then off by one factor for a whole trace) or that dropped
+   more than half of a kernel's launches is taken again
+   (``edge_mm_probe.device_ms``; the retakes printed).
 10. coordination features in the unrolled kernels: a 22-atom model with two
    coordination features (one under a box with ``d_max``), a bond and an
    aligned position through the forward, cv+forces, backward and train
@@ -211,7 +216,14 @@ Runs the port's serving path on the card and checks it, phase by phase:
    weights), served rows the bits of one rank's (each frame is computed
    alone), each rank's launches exactly its batches and steps, and a
    ``fit`` resumed from its step-5 checkpoint (written by rank 0 alone)
-   repeats steps 6-10 bit for bit; (c) ``forces --devices 2`` and ``train
+   repeats steps 6-10 bit for bit; a loss with a weight decay over the
+   ``parameters()`` of the model it receives (``fit``, 10 steps, K1/K2)
+   keeps those rules, one step of it counts the decay's gradient once on
+   the two ranks (its share of the all-reduced gradient, within 1e-3) and
+   gives the bits of the step without a mesh in the world of one, and a
+   loss that reads the decay from the unwrapped model raises a
+   ``RuntimeError`` naming ``ann_layers.layers.0.weight`` on both ranks
+   and runs in the world of one; (c) ``forces --devices 2`` and ``train
    --devices 2 --loss eigenfunction`` (clamped to the cards there are,
    the ranks printed), and ``serve_torch`` on phase 14's ``.dcd`` through
    the fused gradient artifact with one and with two batches in flight
@@ -245,6 +257,19 @@ Runs the port's serving path on the card and checks it, phase by phase:
    stage's seconds, steps and steps/s, kernels a step, busy share, K4/K6
    launches and the example's scalars. The ``kernels`` line gains
    ``examples_launches`` on K4 and K6.
+
+17. the walkthrough: every ```python block of
+   ``molann_tpu_torch/docs/quickstart.md``, verbatim, in one namespace in a
+   temporary directory, on the card (the blocks name ``device =
+   torch.device("cuda")`` once), within a budget of 60 s (its 4,000 steps
+   of two-walker metadynamics along an eager dihedral CV are most of it, a
+   host-bound loop of a few hundred small kernels a step): each block
+   must run, the fit lower its loss, ``model.npz`` and the artifact
+   ``model.pt`` be written, the model, the forces, the trajectory, the
+   wrapped frames and the string stay on the card and be finite, and no
+   fused kernel be launched (the blocks call the eager modules, as the JAX
+   walkthrough reaches no Pallas kernel). The ``kernels`` line gains
+   ``walkthrough_launches`` on every kernel.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -283,7 +308,12 @@ versions and the eager artifacts against the eager model at the values
 and gradients tolerances above (the fluid's with its jump slack).
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
-Imports no JAX. Usage: ``python3 chip_smoke.py``.
+Imports no JAX. Usage: ``python3 chip_smoke.py`` runs every phase once.
+``--phase 9`` or ``--phase 17`` runs the build and that phase alone, and
+``--repeat N`` runs phase 9 (or the phase named) N times, one JSON line a
+run, stopping at the first failure. ``--k9-readings ROUNDS OUT`` runs
+phases 1-8, then ``edge_mm_probe.readings(ROUNDS)`` written to OUT, then
+phase 9 (``--repeat`` times), and stops.
 """
 
 import copy
@@ -1352,7 +1382,9 @@ def edge_phase(dev, card):
     print(f"  torch.matmul float32 {res['library']['ms']:.4f}; plain split3 "
           f"{ms_plain:.4f}; worst distance of a body from its plain version "
           f"{worst_plain / top:.3g}; launches edge_mm {launches['edge_mm']}; "
-          f"card: {card}")
+          f"profiler traces taken again since the process began (clock off, "
+          f"launches dropped): {json.dumps(EP.RETAKES)}, their spins' traced "
+          f"over timed: {json.dumps(EP.CLOCK_RATIOS)}; card: {card}")
     return {"name": "edge_mm", "route": "cuda",
             "source": "molann_tpu_torch/csrc/edge_mm.cu",
             "replaces": "scripts/int8_mm_probe.py:70",
@@ -1374,7 +1406,20 @@ def edge_phase(dev, card):
                                   for v in EP.VARIANTS},
             "bodies_library_cold_ms": {v: res[v]["library_cold_ms"]
                                        for v in EP.VARIANTS},
-            "prepare_ms": res["prepare_ms"]}
+            "prepare_ms": res["prepare_ms"],
+            "trace_retakes": dict(EP.RETAKES)}
+
+
+def k9_readings(rounds, path, card):
+    """``edge_mm_probe.readings(rounds)`` in this process, after phases
+    1-8, written to ``path``; its summary printed."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    res = EP.readings(rounds=rounds)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    print(json.dumps({"k9_readings": res["summary"], "card": card}))
 
 
 def profiled_ms(fn, pattern, calls=20):
@@ -2992,8 +3037,10 @@ MESH_LAUNCHES = {
     "ala_serve": {"cv_forces": 16}, "ala_values": {"forward": 16},
     "pep_fused": {"blocked_train": 5},
     "pep_fit": {"blocked_forward": 5, "blocked_backward": 5},
-    "pep_serve": {"blocked_cv_forces": 2}}
-MESH_TRAINERS = ("ala_fused", "ala_fit", "pep_fused", "pep_fit")
+    "pep_serve": {"blocked_cv_forces": 2},
+    "ala_decay": {"forward": 10, "backward": 10},
+    "ala_penalty": {"forward": 2, "backward": 2}}
+MESH_TRAINERS = ("ala_fused", "ala_fit", "pep_fused", "pep_fit", "ala_decay")
 MESH_SERVERS = {"ala_serve": ("cvs", "grads"), "ala_values": ("cvs",),
                 "pep_serve": ("cvs", "grads")}
 
@@ -3123,6 +3170,23 @@ def mesh_phase(dev, card, tmp):
         if not ew <= GRAD_RTOL * max(1.0, float(np.abs(q).max())):
             fail(f"phase 15 (b), {case}: weights {ew} from one rank's")
         worst[case] = (el, ew)
+    # the decay read outside a model call: exact on the ranks, untouched in
+    # a world of one, and a read past the wrapper raises on two ranks only
+    same_bits(aref["ala_penalty:ranks"], aref["ala_penalty:plain"],
+              "phase 15 (a), the decayed step in a world of one")
+    extra = a0["ala_penalty:ranks"].astype(np.float64) - a0[
+        "ala_penalty:plain"]
+    decay = a0["ala_penalty:decay"].astype(np.float64)
+    counted = 1.0 + float(extra @ decay / (decay @ decay))
+    if not abs(counted - 1.0) < 1e-3:
+        fail(f"phase 15 (b): the decay's gradient counted {counted} times")
+    if jref["ala_penalty"]["bypass"]:
+        fail(f"phase 15 (a): a world of one refused a read past the wrapper: "
+             f"{jref['ala_penalty']['bypass']}")
+    for who, js in (("rank 0", j0), ("rank 1", j1)):
+        if "'ann_layers.layers.0.weight'" not in js["ala_penalty"]["bypass"]:
+            fail(f"phase 15 (b), {who}: a read past the wrapper gave "
+                 f"{js['ala_penalty']['bypass']!r}")
     same_bits(a0["ala_resume:losses"], a0["ala_fit:losses"][5:],
               "phase 15 (b), fit resumed from step 5, losses")
     same_bits(a0["ala_resume:params"], a0["ala_fit:params"][5:],
@@ -3182,7 +3246,10 @@ def mesh_phase(dev, card, tmp):
           " step; losses / weights from one rank's: "
           + ", ".join(f"{c} {e[0]:.3g} / {e[1]:.3g}" for c, e in worst.items())
           + "; served rows and forces bit-identical to one rank's; fit "
-          "resumed from step 5 bit-identical; launches every rank exact "
+          f"resumed from step 5 bit-identical; the decay read outside a "
+          f"call counted {counted:.6f} times on two ranks (once in JAX's "
+          f"step), a read past the wrapper refused by both; launches every "
+          f"rank exact "
           f"({json.dumps(MESH_LAUNCHES)}); host time one rank / two ranks "
           "(a step: the median after the first): " + ", ".join(rates)
           + f"; (c) {cards} card(s): forces and "
@@ -3385,6 +3452,77 @@ def example_line(name, depth, wall, stages, launched, out):
                        if isinstance(v, (bool, int, float, str))}}
     print(json.dumps(line))
     return line
+
+
+WALKTHROUGH = os.path.join("molann_tpu_torch", "docs", "quickstart.md")
+WALKTHROUGH_BUDGET_S = 60.0
+# the one line that names the walkthrough's device
+DEVICE_LINE = 'device = torch.device("cuda")'
+
+
+def walkthrough_phase(dev, card):
+    """Phase 17: every ```python block of the port's walkthrough, verbatim,
+    in one namespace in a temporary directory, on the card. Returns
+    ``{kernel: launches}`` over the blocks."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, WALKTHROUGH)) as f:
+        blocks = re.findall(r"```python\n(.*?)```", f.read(), flags=re.DOTALL)
+    if sum(b.count(DEVICE_LINE) for b in blocks) != 1:
+        fail(f"phase 17: {WALKTHROUGH} must name its device once, as "
+             f"{DEVICE_LINE!r}")
+    from molann_tpu_torch.ops import fused as F
+
+    ns, seconds = {"__name__": "walkthrough"}, []
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, block in enumerate(blocks):
+                tb = time.perf_counter()
+                try:
+                    exec(compile(block, f"{WALKTHROUGH}[block {i}]", "exec"),
+                         ns)
+                    torch.cuda.synchronize()
+                except Exception as e:  # noqa: BLE001 - named in the failure
+                    fail(f"phase 17: block {i} of {WALKTHROUGH} raised "
+                         f"{type(e).__name__}: {e}")
+                seconds.append(time.perf_counter() - tb)
+            wall = time.perf_counter() - t0
+            launched = dict(F.KERNEL_LAUNCHES)
+            written = sorted(os.listdir(tmp))
+        finally:
+            os.chdir(here)
+    losses = ns["result"].losses
+    if not losses[-1] < losses[0]:
+        fail(f"phase 17: the walkthrough's fit did not learn: {losses}")
+    if not {"model.npz", "model.pt"} <= set(written):
+        fail(f"phase 17: the walkthrough wrote {written}")
+    on_card = {k: ns[k].device.type for k in ("xs", "forces", "traj",
+                                                "wrapped", "imgs")}
+    on_card["model"] = next(ns["model"].parameters()).device.type
+    if set(on_card.values()) != {"cuda"}:
+        fail(f"phase 17: outputs off the card: {on_card}")
+    if not all(bool(torch.isfinite(ns[k]).all()) for k in ("forces", "traj",
+                                                          "imgs")):
+        fail("phase 17: the walkthrough's forces, trajectory or string are "
+             "not finite")
+    # the walkthrough's blocks call the eager modules and no fused op (its
+    # CV is an eager PreprocessingANN; section 5 is prose)
+    if launched != counts():
+        fail(f"phase 17: the walkthrough launched {launched}, none expected")
+    if wall > WALKTHROUGH_BUDGET_S:
+        fail(f"phase 17: the walkthrough took {wall:.1f} s, past its budget "
+             f"of {WALKTHROUGH_BUDGET_S} s")
+    print(f"walkthrough (phase 17, {WALKTHROUGH}): {len(blocks)} blocks "
+          f"in {wall:.2f} s of a {WALKTHROUGH_BUDGET_S:.0f} s budget, each "
+          f"block's s: {', '.join(f'{t:.2f}' for t in seconds)}; fit loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}; metadynamics max cos(phi) "
+          f"{ns['escaped']:.4f}; wrote {', '.join(written)}; every output on "
+          f"the card; launches {json.dumps(launched)}; card: {card}")
+    return launched
 
 
 def examples_phase(dev, card):
@@ -3590,7 +3728,28 @@ def examples_phase(dev, card):
     return launched, lines
 
 
+def options(argv):
+    """``{"phase": None or 9 or 17, "repeat": n, "k9_readings": None or
+    (rounds, path)}`` from the command line (see the module's docstring's
+    end)."""
+    opts = {"phase": None, "repeat": 1, "k9_readings": None}
+    args = list(argv)
+    while args:
+        a = args.pop(0)
+        if a == "--phase" and args and args[0] in ("9", "17"):
+            opts["phase"] = int(args.pop(0))
+        elif a == "--repeat" and args and args[0].isdigit():
+            opts["repeat"] = int(args.pop(0))
+        elif a == "--k9-readings" and len(args) >= 2 and args[0].isdigit():
+            opts["k9_readings"] = (int(args.pop(0)), args.pop(0))
+        else:
+            fail(f"unknown arguments {argv}: use no argument, --phase 9|17 "
+                 f"[--repeat N] or --k9-readings ROUNDS OUT")
+    return opts
+
+
 def main():
+    opts = options(sys.argv[1:])
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -3621,6 +3780,16 @@ def main():
           f"{_build.BUILD_INFO['seconds']:.1f} s) -> "
           f"{os.path.basename(_build.BUILD_INFO['path'])}; "
           f"{kernel_resources(_build.BUILD_INFO['log'])}")
+
+    if opts["phase"] is not None:
+        phase = {9: edge_phase, 17: walkthrough_phase}[opts["phase"]]
+        for run in range(1, opts["repeat"] + 1):
+            t0 = time.perf_counter()
+            phase(dev, card)
+            print(json.dumps({"phase": opts["phase"], "run": run,
+                              "passed": True,
+                              "s": time.perf_counter() - t0, "card": card}))
+        return
 
     # 3. goldens through the forward kernel
     u = alanine_universe()
@@ -3969,8 +4138,17 @@ def main():
         # 8. the blocked training path
         blocked_kernels += blocked_train_phase(dev, card, model, x,
                                                blocked_models, tmp)
+    if opts["k9_readings"] is not None:
+        k9_readings(*opts["k9_readings"], card)
     # 9. the edge-product probe
-    edge_kernel = edge_phase(dev, card)
+    for run in range(1, opts["repeat"] + 1):
+        t0 = time.perf_counter()
+        edge_kernel = edge_phase(dev, card)
+        if opts["repeat"] > 1:
+            print(json.dumps({"phase": 9, "run": run, "passed": True,
+                              "s": time.perf_counter() - t0, "card": card}))
+    if opts["k9_readings"] is not None:
+        return
     # 10. coordination features in the unrolled kernels
     coordination_phase(dev)
     # 11. the CV-learning objectives through the train command
@@ -3988,6 +4166,8 @@ def main():
         mesh_launches = mesh_phase(dev, card, tmp)
     # 16. the ten workflow examples
     example_launches, _ = examples_phase(dev, card)
+    # 17. the walkthrough
+    walkthrough_launches = walkthrough_phase(dev, card)
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -3998,7 +4178,7 @@ def main():
 
     src = "molann_tpu_torch/csrc/fused_unrolled.cu"
     src_train = "molann_tpu_torch/csrc/fused_train.cu"
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "cv_forces", "route": "cuda", "source": src,
          "replaces": "molann_tpu/ops/fused.py:1116",
          "launches": launches["cv_forces"],
@@ -4043,7 +4223,10 @@ def main():
            **engine.get(k["name"], {})}
           for k in blocked_kernels),
         edge_kernel,
-    ]}))
+    ]
+    for k in kernels:  # phase 17: what the walkthrough's blocks launched
+        k["walkthrough_launches"] = walkthrough_launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,8 +21,13 @@ rests on them.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.distributed as dist
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_leaves
 
 from .mesh import DATA_AXIS, DataMesh, _check_axis, batch_sharding
 
@@ -201,37 +206,152 @@ def make_data_parallel_fn(per_shard_fn, mesh: DataMesh, *,
     return fn
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """The identity forward; the incoming gradient times ``scale``
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+# how deep this thread is in sharded calls: the guard of
+# :func:`guard_direct_reads` lets their operations through
+_INSIDE = threading.local()
+
+
+@contextlib.contextmanager
+def _inside():
+    _INSIDE.depth = getattr(_INSIDE, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _INSIDE.depth -= 1
+
+
 class ShardedModel:
     """A model (or one of its modules) whose calls run on this rank's rows
     and return every rank's rows: ``model(x)`` with ``x [l_global, ...]``
     is ``gather_rows(model(scatter_rows(x)))``. Attributes that are modules
-    come back wrapped, so a loss that calls ``model.preprocessing_layer``
-    and ``model.ann_layers`` apart shards each call; other attributes come
-    back as they are. :meth:`map_rows` applies a function of the model to
-    this rank's rows, as the fused ops do with a sharded model."""
+    come back wrapped, and so do the items of a wrapped ``ModuleList`` or
+    ``Sequential`` (indexing, iteration, ``len``), so a loss that calls
+    ``model.preprocessing_layer`` and ``model.ann_layers`` apart shards
+    each call. :meth:`map_rows` applies a function of the model to this
+    rank's rows, as the fused ops do with a sharded model.
+
+    A tensor read outside a call (:meth:`parameters`,
+    :meth:`named_parameters`, a parameter or buffer attribute such as
+    ``model.ann_layers.layers[0].weight``) enters every rank's loss whole,
+    so on a mesh of ``size > 1`` it comes back through the identity whose
+    gradient is scaled by ``1/size``: after the gradients' ``all_reduce``
+    its term counts once, as in JAX's full-batch step. Other attributes
+    come back as they are; a mesh of one returns every tensor as it is."""
 
     def __init__(self, module, mesh: DataMesh):
         self.module = module
         self.mesh = mesh
 
+    def _read(self, t):
+        if (self.mesh.size > 1 and isinstance(t, torch.Tensor)
+                and t.requires_grad):
+            return _ScaleGrad.apply(t, 1.0 / self.mesh.size)
+        return t
+
+    def _wrap(self, item):
+        if isinstance(item, torch.nn.Module):
+            return ShardedModel(item, self.mesh)
+        return self._read(item)
+
     def map_rows(self, fn, x, *args, **kwargs):
-        y = fn(self.module, scatter_rows(x, self.mesh), *args, **kwargs)
-        return _tree_map(lambda v: gather_rows(v, self.mesh), y)
+        with _inside():
+            y = fn(self.module, scatter_rows(x, self.mesh), *args, **kwargs)
+            return _tree_map(lambda v: gather_rows(v, self.mesh), y)
 
     def __call__(self, x, *args, **kwargs):
         return self.map_rows(lambda m, xs, *a, **k: m(xs, *a, **k), x,
                              *args, **kwargs)
 
+    def named_parameters(self, *args, **kwargs):
+        """The module's ``named_parameters``, each read as above."""
+        for name, p in self.module.named_parameters(*args, **kwargs):
+            yield name, self._read(p)
+
+    def parameters(self, *args, **kwargs):
+        """The module's ``parameters``, each read as above."""
+        for _, p in self.named_parameters(*args, **kwargs):
+            yield p
+
     def __getattr__(self, name):
-        attr = getattr(self.module, name)
-        if isinstance(attr, torch.nn.Module):
-            return ShardedModel(attr, self.mesh)
-        return attr
+        return self._wrap(getattr(self.module, name))
+
+    def __getitem__(self, index):
+        return self._wrap(self.module[index])
+
+    def __iter__(self):
+        return (self._wrap(item) for item in self.module)
+
+    def __len__(self):
+        return len(self.module)
+
+    def __bool__(self):
+        return True
 
 
 def sharded_model(model, mesh: DataMesh):
     """``model`` with every call sharded (:class:`ShardedModel`); a tuple
-    of models (``(model, decoder)``) element by element."""
+    of models (``(model, decoder)``) element by element. A tensor read
+    through the wrapper outside a call counts once after the gradients'
+    ``all_reduce`` (:class:`ShardedModel`); one read past it, from the
+    unwrapped model, raises under :func:`guard_direct_reads`."""
     if isinstance(model, (tuple, list)):
         return tuple(sharded_model(m, mesh) for m in model)
     return ShardedModel(model, mesh)
+
+
+class _DirectReadGuard(TorchFunctionMode):
+    """Raises where an operation outside every sharded call takes one of
+    ``names``' tensors as an operand and gives a result that requires
+    grad: the gradient of that read would be summed over the ranks."""
+
+    def __init__(self, names, size):
+        super().__init__()
+        self.names, self.size = names, size
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if (getattr(_INSIDE, "depth", 0) == 0 and torch.is_grad_enabled()
+                and any(isinstance(t, torch.Tensor) and t.requires_grad
+                        for t in tree_leaves(out))):
+            for t in tree_leaves((args, kwargs)):
+                name = self.names.get(id(t))
+                if name is not None:
+                    raise RuntimeError(
+                        f"the loss used the model's tensor {name!r} "
+                        f"outside the ShardedModel it was given (in "
+                        f"{getattr(func, '__name__', func)}): under mesh= "
+                        f"its gradient would be summed over the "
+                        f"{self.size} ranks. Read it through the model the "
+                        f"loss receives (its parameters(), "
+                        f"named_parameters(), attributes or layers), where "
+                        f"it counts once.")
+        return out
+
+
+@contextlib.contextmanager
+def guard_direct_reads(named_tensors, mesh: DataMesh):
+    """Around a loss of a ``mesh`` step: a tensor of ``named_tensors``
+    (``(name, tensor)`` pairs, those that require grad) used outside the
+    :class:`ShardedModel` calls and reads raises a ``RuntimeError`` that
+    names it. Nothing is watched on a mesh of one."""
+    names = {id(t): name for name, t in named_tensors if t.requires_grad}
+    if mesh.size == 1 or not names:
+        yield
+        return
+    with _DirectReadGuard(names, mesh.size):
+        yield

@@ -5,6 +5,7 @@
     python -m molann_tpu_torch.probes.edge_mm_probe knockouts [T]
     python -m molann_tpu_torch.probes.edge_mm_probe alternatives [T]
     python -m molann_tpu_torch.probes.edge_mm_probe mma_rate
+    python -m molann_tpu_torch.probes.edge_mm_probe readings [ROUNDS] [OUT]
 
 The blocked TPU kernels compute every feature's edge vectors as a product
 with a 0/±1 matrix, ``D [552, 304] @ x [304, T]`` per tile for
@@ -43,7 +44,10 @@ rotated copies: parent, change, change, parent. ``knockouts``
 times each tensor-core body built again with one of its steps taken out,
 ``alternatives`` every body built with what was tried in place of the
 tree's choices; ``mma_rate`` the cycles an ``mma.sync`` takes with nothing
-else to do.
+else to do. ``readings`` takes every body's warm reading ``ROUNDS`` times
+in the order of a probe run and keeps each trace's kernel events one by
+one, with a spin timed by CUDA events at each end of the trace (written
+to ``OUT``, a JSON file).
 """
 
 import ctypes
@@ -341,36 +345,77 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, calls=PROFILED_CALLS, pattern=None):
+# a spin of the card that closes every trace of :func:`device_ms`: about a
+# millisecond, timed by CUDA events too
+SPIN_CYCLES = 1 << 21
+# how far a trace's spin may differ from its events before the trace's
+# clock is taken to be off: in the traces ``readings`` kept, a right clock
+# kept the spin within 5% of its events, and a trace that was off read all
+# its kernels at 0.45 to 1.35 of their time; 10% stays well inside phase
+# 9's 25% margin
+CLOCK_SLACK = 0.10
+# traces :func:`device_ms` took again, by reason, since the process began,
+# and the spin's traced time over its events' in each taken again for its
+# clock (None: the trace lost its spin)
+RETAKES = {"clock": 0, "dropped": 0}
+CLOCK_RATIOS = []
+
+
+def device_ms(fn, calls=PROFILED_CALLS, pattern=None, attempts=5):
     """Device ms of one call of fn by ``torch.profiler``: the mean time of
     each kernel whose name has ``pattern`` in it (every kernel without
-    one), times its launches a call, summed; after one warm-up call. Each
-    kernel's mean is over the launches the trace caught: the profiler
-    drops some now and then, so a trace that caught fewer than half of a
-    kernel's launches is taken again, twice at most, then raises."""
+    one), over its launches the trace caught one by one
+    (:func:`kernel_events`), times its launches a call, summed; after one
+    warm-up call.
+
+    In a process that has taken many traces, a whole trace's device times
+    are now and then off by one factor (0.45 to 1.35 in the traces
+    ``readings`` kept after ``chip_smoke.py``'s phases 1-8): the kernels'
+    durations and the spacing of their starts alike, while CUDA events
+    and the other traces agree, so a kernel reads at about half its time.
+    The card's timestamps are put on the trace's clock by a conversion, and
+    that conversion is what is off. Each trace therefore closes with a
+    spin of :data:`SPIN_CYCLES` cycles, timed by CUDA events as well (at
+    the close: a trace that loses launches loses its first ones): a trace
+    whose spin is missing or more than :data:`CLOCK_SLACK` off its events,
+    or that caught fewer than half of a kernel's launches, is taken again
+    (counted in :data:`RETAKES`), ``attempts`` traces at most, then it
+    raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
+            start.record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            end.record()
             torch.cuda.synchronize()
-        per_call, complete = 0.0, True
-        for event in prof.key_averages():
-            if pattern is not None and pattern not in event.key:
-                continue
-            t = getattr(event, "device_time_total", None)
-            t = event.cuda_time_total if t is None else t
-            if t <= 0 or event.count <= 0:
-                continue  # a host-side entry
-            per_call += t / event.count * max(1, round(event.count / calls))
-            complete &= event.count >= calls / 2
-        if per_call > 0 and complete:
-            return per_call / 1e3
-    raise RuntimeError(f"torch.profiler caught too few kernels matching "
-                       f"{pattern!r}")
+        launches = kernel_events(prof)
+        spins = [d for name, _, d in launches if "spin_kernel" in name]
+        spin_us = start.elapsed_time(end) * 1e3
+        ratio = spins[0] / spin_us if len(spins) == 1 else None
+        if ratio is None or abs(ratio - 1) > CLOCK_SLACK:
+            RETAKES["clock"] += 1
+            CLOCK_RATIOS.append(ratio)
+            continue
+        by_name = {}
+        for name, _, d in launches:
+            if "spin_kernel" not in name and (pattern is None
+                                              or pattern in name):
+                by_name.setdefault(name, []).append(d)
+        if not by_name or any(len(d) < calls / 2 for d in by_name.values()):
+            RETAKES["dropped"] += 1
+            continue
+        return sum(statistics.fmean(d) * max(1, round(len(d) / calls))
+                   for d in by_name.values()) / 1e3
+    raise RuntimeError(f"torch.profiler gave no trace with its clock right "
+                       f"and the kernels matching {pattern!r} caught in "
+                       f"{attempts} attempts ({RETAKES})")
 
 
 def bare_ms(prep, x, variant, launches=PROFILED_CALLS):
@@ -978,6 +1023,120 @@ def mma_rate():
     return out
 
 
+def kernel_events(prof, pattern=None):
+    """``[(name, start_us, duration_us)]``: every device kernel of the trace
+    whose name has ``pattern`` in it, one entry a launch, in start order."""
+    from torch.autograd import DeviceType
+
+    out = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+           for e in prof.events()
+           if e.device_type == DeviceType.CUDA
+           and (pattern is None or pattern in e.name)]
+    return sorted(out, key=lambda t: t[1])
+
+
+def _keys_ms(prof, calls, pattern):
+    """The reading of ``key_averages()`` as :func:`device_ms` took it before
+    the per-launch reading: each kernel's mean over the launches caught,
+    times its launches a call."""
+    per_call = 0.0
+    for event in prof.key_averages():
+        if pattern is not None and pattern not in event.key:
+            continue
+        t = getattr(event, "device_time_total", None)
+        t = event.cuda_time_total if t is None else t
+        if t <= 0 or event.count <= 0:
+            continue
+        per_call += t / event.count * max(1, round(event.count / calls))
+    return per_call / 1e3
+
+
+def readings(T=512, rounds=24):
+    """Every body's warm reading, ``rounds`` times, in the order
+    :func:`run_probe` takes them (the wrapper by CUDA events, the profiler,
+    the bare launches, the cold profiler reading): per round and body the
+    reading of ``key_averages()`` (``keys_ms``, and ``cold_keys_ms`` on the
+    rotated x: :func:`device_ms`'s reading before it read the trace's
+    clock), the kernel's events one by one (``launches``: start and
+    duration, us), a spin before and a spin after the traced calls over
+    their CUDA-event times (``open_spin_ratio``, ``spin_ratio``: 1 where the
+    trace's clock is right, None where the trace lost the spin), and
+    :func:`bare_ms`. Returns ``{"rounds": [...], "summary": {...}}``;
+    ``summary`` counts the readings under 0.75 of the bare launches', the
+    traces whose closing spin is missing or more than :data:`CLOCK_SLACK`
+    off, and the low readings among those."""
+    from torch.profiler import ProfilerActivity, profile
+
+    D_host, x_host = probe_inputs(T)
+    D = torch.from_numpy(D_host).cuda()
+    x = torch.from_numpy(x_host).cuda()
+    prep = prepare_edge_matrix(D)
+    cold = rotation(x)
+    rows = []
+    for r in range(rounds):
+        for variant in VARIANTS:
+            def call(xv=None, variant=variant):
+                return edge_mm(prep, x if xv is None else xv, variant)
+
+            cuda_ms(call, 8)
+            call()
+            torch.cuda.synchronize()
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(4)]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                marks[0].record()
+                torch.cuda._sleep(SPIN_CYCLES)
+                marks[1].record()
+                for _ in range(PROFILED_CALLS):
+                    call()
+                marks[2].record()
+                torch.cuda._sleep(SPIN_CYCLES)
+                marks[3].record()
+                torch.cuda.synchronize()
+            launches = kernel_events(prof, "edge_mm")
+            spins = kernel_events(prof, "spin_kernel")
+            first = spins[0][1] < launches[0][1] if spins and launches \
+                else False
+            timed = [marks[0].elapsed_time(marks[1]) * 1e3,
+                     marks[2].elapsed_time(marks[3]) * 1e3]
+            ratios = [None, None]
+            if len(spins) == 2:
+                ratios = [spins[0][2] / timed[0], spins[1][2] / timed[1]]
+            elif len(spins) == 1:  # which end it is, by its start
+                ratios[0 if first else 1] = spins[0][2] / timed[0 if first
+                                                                 else 1]
+            row = {"round": r, "variant": variant,
+                   "spin_ratio": ratios[1], "open_spin_ratio": ratios[0],
+                   "keys_ms": _keys_ms(prof, PROFILED_CALLS, "edge_mm"),
+                   "launches": [(round(s, 3), round(d, 3))
+                                for _, s, d in launches],
+                   "names": sorted({n for n, _, _ in launches})}
+            row["bare_ms"] = bare_ms(prep, x, variant)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILED_CALLS):
+                    call(cold())
+                torch.cuda.synchronize()
+            row["cold_keys_ms"] = _keys_ms(prof, PROFILED_CALLS, "edge_mm")
+            rows.append(row)
+    summary = {}
+    for variant in VARIANTS:
+        mine = [w for w in rows if w["variant"] == variant]
+        low = [w for w in mine if w["keys_ms"] < 0.75 * w["bare_ms"]]
+        summary[variant] = {
+            "readings": len(mine), "under_0.75_bare": len(low),
+            "keys_ms_median": statistics.median(w["keys_ms"] for w in mine),
+            "bare_ms_median": statistics.median(w["bare_ms"] for w in mine),
+            "launches_caught": sorted({len(w["launches"]) for w in mine}),
+            "clock_off": sum(w["spin_ratio"] is None
+                             or abs(w["spin_ratio"] - 1) > CLOCK_SLACK
+                             for w in mine),
+            "under_0.75_bare_with_clock_off": sum(
+                w["spin_ratio"] is not None
+                and abs(w["spin_ratio"] - 1) > CLOCK_SLACK for w in low)}
+    return {"card": card(), "torch": torch.__version__, "rounds": rows,
+            "summary": summary}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("edge_mm_probe: no CUDA card")
@@ -987,6 +1146,13 @@ def main(argv):
     if argv and argv[0] in ("knockouts", "alternatives"):
         fn = knockouts if argv[0] == "knockouts" else alternatives
         print(json.dumps(fn(int(argv[1]) if len(argv) > 1 else 512)))
+        return
+    if argv and argv[0] == "readings":
+        res = readings(rounds=int(argv[1]) if len(argv) > 1 else 24)
+        if len(argv) > 2:
+            Path(argv[2]).parent.mkdir(parents=True, exist_ok=True)
+            Path(argv[2]).write_text(json.dumps(res))
+        print(json.dumps({"card": res["card"], "summary": res["summary"]}))
         return
     if argv and argv[0] == "turns":
         if len(argv) < 2:

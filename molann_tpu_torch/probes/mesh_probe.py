@@ -23,7 +23,15 @@ inputs ``chip_smoke.py`` writes into DIR (the sizes in ``sizes.json``):
 - ``pep_fused`` and ``pep_fit``: the same two trainers on
   ``peptide_model(60)``, 5 steps of 65,536 frames (K5; K6 and K7);
 - ``pep_serve``: ``evaluate_trajectory(mesh=, forces=True)`` of 131,072
-  peptide frames (K8).
+  peptide frames (K8);
+- ``ala_decay``: ``fit`` of ``fused_mse_loss`` plus a weight decay of
+  ``1e-2 * sum(|p|^2)`` over the ``parameters()`` of the model the loss
+  receives, 10 steps (K1 and K2);
+- ``ala_penalty``: one step of that loss with ``SGD(lr=0)`` on the first
+  batch, on the mesh and without it, the decay's own gradient beside, and
+  a loss that reads the decay from the unwrapped model (past the
+  ``ShardedModel``): ``two`` records the error it raises, ``ref`` that it
+  ran.
 
 The inputs: per system (``ala``, ``pep``) the model ``<sys>.npz``, the
 frames ``<sys>.npy`` and the training targets ``<sys>_y.npy``. Each process
@@ -127,7 +135,15 @@ def _fused(d, mesh, name, transposed):
             "step_seconds": np.diff(ends)}
 
 
-def _fit(d, mesh, name, ckpt=None):
+PENALTY = 1e-2
+
+
+def _decay(model):
+    """The weight decay over ``model.parameters()``."""
+    return PENALTY * sum((p * p).sum() for p in model.parameters())
+
+
+def _fit(d, mesh, name, ckpt=None, decay=False):
     from molann_tpu_torch.io import load_model
     from molann_tpu_torch.train import fit, fused_mse_loss
 
@@ -138,7 +154,7 @@ def _fit(d, mesh, name, ckpt=None):
     def loss_fn(m, batch):  # the parameters each step starts from
         params.append(_params(getattr(m, "module", m)))
         starts.append(time.perf_counter())
-        return fused_mse_loss(m, batch)
+        return fused_mse_loss(m, batch) + (_decay(m) if decay else 0.0)
 
     sz = _sizes(d)
     res = fit(model, loss_fn, _batches(d, name), mesh=mesh,
@@ -149,6 +165,45 @@ def _fit(d, mesh, name, ckpt=None):
     starts.append(time.perf_counter())
     return {"losses": np.array(res.losses), "params": np.stack(params),
             "step_seconds": np.diff(starts)}
+
+
+def _penalty(d, mesh):
+    """``(arrays, error)``: the gradients of one ``SGD(lr=0)`` step of
+    ``fused_mse_loss`` plus the decay on the first alanine batch, on
+    ``mesh`` (``ranks``) and without a mesh (``plain``), the decay's own
+    gradient (``decay``), all flat on the host; and the error a loss that
+    reads the decay from the unwrapped model raises on ``mesh`` ("" where
+    it runs)."""
+    from molann_tpu_torch.io import load_model
+    from molann_tpu_torch.train import (fused_mse_loss, make_train_step,
+                                        masked_optimizer, trainable_mask)
+
+    batch = next(_batches(d, "ala"))
+
+    def flat(tensors):
+        return torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+
+    def fresh():
+        model = load_model(str(d / "ala.npz"), device=mesh.device)
+        sgd = functools.partial(torch.optim.SGD, lr=0.0)
+        return model, masked_optimizer(sgd, trainable_mask(model))(model)
+
+    out = {}
+    for tag, m in (("ranks", mesh), ("plain", None)):
+        model, opt = fresh()
+        make_train_step(lambda mm, b: fused_mse_loss(mm, b) + _decay(mm),
+                        m)(model, opt, batch)
+        out[tag] = flat(p.grad for p in model.parameters())
+    out["decay"] = flat(torch.autograd.grad(_decay(model),
+                                            list(model.parameters())))
+    model, opt = fresh()
+    try:
+        make_train_step(lambda mm, b: _decay(model) + _decay(mm),
+                        mesh)(model, opt, batch)
+        error = ""
+    except RuntimeError as e:
+        error = str(e)
+    return out, error
 
 
 def _serve(d, mesh, name, forces, **kw):
@@ -185,7 +240,8 @@ def run_ref(d):
         trainers = (("ala_fused", lambda m: _fused(d, m, "ala", True)),
                     ("ala_fit", lambda m: _fit(d, m, "ala")),
                     ("pep_fused", lambda m: _fused(d, m, "pep", False)),
-                    ("pep_fit", lambda m: _fit(d, m, "pep")))
+                    ("pep_fit", lambda m: _fit(d, m, "pep")),
+                    ("ala_decay", lambda m: _fit(d, m, "ala", decay=True)))
         for name, run in trainers:
             plain = run(None)
             with _Case(out, name):
@@ -193,6 +249,10 @@ def run_ref(d):
             out["json"][name]["same_bits_as_plain"] = all(
                 _same(got[k], plain[k]) for k in ("losses", "params"))
             out["npz"].update({f"{name}:{k}": v for k, v in got.items()})
+        with _Case(out, "ala_penalty"):
+            got, error = _penalty(d, mesh)
+        out["json"]["ala_penalty"]["bypass"] = error
+        out["npz"].update({f"ala_penalty:{k}": v for k, v in got.items()})
         servers = (("ala_serve", "ala", True), ("ala_values", "ala", False),
                    ("pep_serve", "pep", True))
         for name, data, forces in servers:
@@ -226,7 +286,8 @@ def run_two(d, rank, port):
         cases = (("ala_fused", lambda: _fused(d, mesh, "ala", True)),
                  ("ala_fit", lambda: _fit(d, mesh, "ala", ckpt)),
                  ("pep_fused", lambda: _fused(d, mesh, "pep", False)),
-                 ("pep_fit", lambda: _fit(d, mesh, "pep")))
+                 ("pep_fit", lambda: _fit(d, mesh, "pep")),
+                 ("ala_decay", lambda: _fit(d, mesh, "ala", decay=True)))
         for name, run in cases:
             with _Case(out, name):
                 got = run()
@@ -242,6 +303,10 @@ def run_two(d, rank, port):
                     got = _fit(d, mesh, "ala", again)
                 out["npz"].update({f"ala_resume:{k}": v
                                    for k, v in got.items()})
+        with _Case(out, "ala_penalty"):
+            got, error = _penalty(d, mesh)
+        out["json"]["ala_penalty"]["bypass"] = error
+        out["npz"].update({f"ala_penalty:{k}": v for k, v in got.items()})
         # served rows straight into memmaps of one file per output
         for name, data, forces, transform in (
                 ("ala_serve", "ala", True, np.negative),

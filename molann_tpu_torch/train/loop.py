@@ -26,7 +26,13 @@ full-batch loss, exactly, as JAX's GSPMD step does: the loss is handed a
 run this rank's rows and gather every rank's outputs, so the batch moments
 of the eigenfunction, committor, VAMP-2 and autoencoder losses are global;
 each parameter's gradient is then this rank's part of it, and one
-``all_reduce(SUM)`` makes it whole. :func:`make_fused_train_step` follows
+``all_reduce(SUM)`` makes it whole. A term that reads a parameter outside
+a call (a weight decay over ``model.parameters()``, a penalty on
+``model.ann_layers.layers[0].weight``) is computed whole on every rank;
+the wrapper scales its gradient by ``1/size``, so it too counts once. A
+tensor of the model used past the wrapper (a loss that closes over the
+model it trains) raises a ``RuntimeError`` naming it.
+:func:`make_fused_train_step` follows
 JAX's explicit SPMD: the train kernel on this rank's frames, then the loss
 and the gradients averaged over the ranks.
 """
@@ -45,6 +51,7 @@ from ..parallel.data_parallel import (
     all_reduce_tensors,
     barrier,
     broadcast_tensors,
+    guard_direct_reads,
     psum_mean_grads,
     sharded_model,
 )
@@ -139,10 +146,17 @@ def make_train_step(loss_fn, mesh=None):
     move to the model's device; ``loss`` is a detached 0-d tensor.
 
     With ``mesh``, every rank passes the same global batch and gets the
-    full-batch loss (see the module's docstring): ``loss_fn`` must reach
-    the parameters through calls of the model, or of its modules, on
-    tensors whose leading dimension is the batch's (a multiple of the mesh
-    size)."""
+    full-batch loss (see the module's docstring). ``loss_fn`` receives a
+    :class:`~molann_tpu_torch.parallel.data_parallel.ShardedModel` and is
+    exact where it reaches the parameters through it: calls of the model
+    or of its modules, on tensors whose leading dimension is the batch's
+    (a multiple of the mesh size), and reads outside a call
+    (``parameters()``, ``named_parameters()``, attributes, the items of a
+    ``ModuleList``). On a mesh of more than one rank, a tensor of the model
+    that takes part in the loss without passing through the wrapper (a loss
+    that closes over the unwrapped model) raises a ``RuntimeError`` that
+    names it; a ``TorchFunctionMode`` watches for that around the loss call
+    only, and not at all on a mesh of one."""
     _check_mesh(mesh)
     sharded = _collective(mesh)
 
@@ -150,8 +164,11 @@ def make_train_step(loss_fn, mesh=None):
         batch = _to_device(batch, _model_device(model))
         _zero_grad(model)
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(sharded_model(model, mesh) if sharded else model,
-                       batch)
+        if sharded:
+            with guard_direct_reads(named_tensors(model), mesh):
+                loss = loss_fn(sharded_model(model, mesh), batch)
+        else:
+            loss = loss_fn(model, batch)
         loss.backward()
         if sharded:
             _reduce_grads(opt, mesh, mean=False)
@@ -233,7 +250,8 @@ def fit(model, loss_fn, data_iter, *, optimizer=None, mesh=None,
     takes its rows of each (:func:`make_train_step`); rank 0's tensors are
     broadcast to every rank first, rank 0 alone writes the checkpoints
     (the ranks wait for it), and a resume loads the same checkpoint on
-    every rank.
+    every rank. ``loss_fn`` is exact where :func:`make_train_step` says
+    so, and raises where it says so.
     """
     _check_mesh(mesh)
     if optimizer is None:

@@ -162,6 +162,9 @@ OWN_MODULES = {
     "molann_tpu_torch._device": "the port's device rule",
     "molann_tpu_torch.ops._build": "the nvcc build of the CUDA kernels",
     "molann_tpu_torch.train.optim": "optax's rules as torch.optim classes",
+    "molann_tpu_torch.utils.gen_docs": (
+        "the JAX package's scripts/gen_docs.py, which sits outside that "
+        "package, as a module of the port"),
     **{f"molann_tpu_torch.examples{sub}": (
         "the JAX package's examples/*.py, which sit outside that package, "
         "as modules of the port") for sub in (

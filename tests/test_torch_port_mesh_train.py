@@ -2,7 +2,9 @@
 
 Two gloo ranks on the CPU (``tests/torch_mesh_worker.py``, started once for
 the file) run ``make_train_step(mesh)`` for every loss of the registry and
-the autoencoder and TAE pairs, ``make_fused_train_step(mesh)`` on ``[l, n,
+the autoencoder and TAE pairs, the same with a penalty read outside a model
+call (weight decay over ``model.parameters()``, on one weight, on the
+decoder), ``make_fused_train_step(mesh)`` on ``[l, n,
 3]`` and ``[3n, l]``, unrolled and ``mode="blocked"`` (the plain versions on
 the CPU), the committee step in its three batch modes, and ``fit(mesh)``
 with a checkpoint and a resume: alanine with a ``[38, 8, 2]`` head, weights
@@ -46,7 +48,7 @@ from molann_tpu_torch.models.ann import named_tensors
 from molann_tpu_torch.train import (make_ensemble_train_step,
                                     masked_optimizer, mse_loss,
                                     trainable_mask)
-from torch_mesh_worker import STEPS, Ranks, load
+from torch_mesh_worker import PENALTY, STEPS, Ranks, load
 
 N = 22
 L = 64
@@ -58,12 +60,17 @@ REF = "t:preprocessing_layer.align_layer.ref_x"
 # gradient is rounding noise on both sides, which Adam scales to the
 # learning rate, so that weight is held by its gradient alone
 BIAS_FREE = {"eigenfunction", "vamp"}
-LOSSES = ("mse", "eigenfunction", "committor", "vamp", "autoencoder", "tae")
+LOSSES = ("mse", "eigenfunction", "committor", "vamp", "autoencoder", "tae",
+          # a penalty read outside a model call: over ``model.parameters()``,
+          # on ``model.ann_layers.layers[0].weight``, over the decoder's
+          # ``named_parameters()``
+          "mse_decay", "mse_first_weight", "autoencoder_decoder_decay")
+PAIRS = ("autoencoder", "tae", "autoencoder_decoder_decay")
 CASES = ([f"step_{k}" for k in LOSSES]
          + [f"fused_{a}_{m}" for a in ("lna", "t")
             for m in ("auto", "blocked")]
          + [f"ensemble_{m}" for m in ("shared", "member", "bagging")]
-         + ["fit"])
+         + ["fit", "penalty_share", "bypass"])
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +110,22 @@ def _out(s, case, rank=0):
     return load(s["d"], case, rank)
 
 
+def _penalty(params):
+    return PENALTY * sum(jnp.sum(w * w) + jnp.sum(b * b) for w, b in params)
+
+
 def _jax_loss(name):
+    if name == "mse_decay":
+        return lambda m, batch: (jmse_loss(m, batch)
+                                 + _penalty(m.ann_layers.params))
+    if name == "mse_first_weight":
+        def loss(m, batch):
+            w = m.ann_layers.params[0][0]
+            return jmse_loss(m, batch) + PENALTY * jnp.sum(w * w)
+        return loss
+    if name == "autoencoder_decoder_decay":
+        ae = _jax_loss("autoencoder")
+        return lambda pair, x: ae(pair, x) + _penalty(pair[1].params)
     if name == "autoencoder":
         def loss(pair, x):
             m, dec = pair
@@ -121,7 +143,9 @@ def _jax_loss(name):
 def _batch(s, name):
     names = {"mse": ("x", "y"), "eigenfunction": ("x", "w"),
              "committor": ("x", "labels"), "vamp": ("x_t", "x_tau", "w_t"),
-             "autoencoder": "x", "tae": ("x_t", "x_tau")}[name]
+             "autoencoder": "x", "tae": ("x_t", "x_tau"),
+             "mse_decay": ("x", "y"), "mse_first_weight": ("x", "y"),
+             "autoencoder_decoder_decay": "x"}[name]
     if isinstance(names, str):
         return jnp.asarray(s[names])
     return tuple(jnp.asarray(s[n]) for n in names)
@@ -203,9 +227,11 @@ def test_train_step_matches_jax(setup, name, reference):
     """``make_train_step(loss, mesh)`` on two ranks computes the full-batch
     loss, exactly as JAX's GSPMD step does, for the batch-statistic losses
     too: its losses, gradients and weights are JAX's one-device and
-    ``data_mesh(2)`` steps'."""
+    ``data_mesh(2)`` steps'. A penalty that reads the parameters outside
+    a model call counts once: every rank computes it whole, and the
+    wrapper scales its gradient by ``1/size`` before the all-reduce."""
     s = setup
-    pair = name in ("autoencoder", "tae")
+    pair = name in PAIRS
     jmodel = (s["jm"], s["jdec"]) if pair else s["jm"]
     mesh = jdata_mesh(2) if reference == "data_mesh2" else None
     jmodel, jlosses, jgrads = _jax_steps(_jax_loss(name), jmodel,
@@ -215,6 +241,35 @@ def test_train_step_matches_jax(setup, name, reference):
     np.testing.assert_array_equal(
         got["0" + REF],
         np.asarray(s["jm"].preprocessing_layer.align_layer.ref_x))
+
+
+def test_a_penalty_outside_a_call_counts_once(setup):
+    """One step of ``mse + 1e-2 * sum(|p|^2 for p in model.parameters())``
+    on two ranks: the all-reduced gradient less the gradient without a
+    mesh holds no share of the penalty's own gradient (JAX's GSPMD step
+    counts the term once)."""
+    got = _out(setup, "penalty_share")
+    extra = got["ranks"].astype(np.float64) - got["plain"]
+    pen = got["penalty"].astype(np.float64)
+    counted = 1.0 + float(extra @ pen / (pen @ pen))
+    assert abs(counted - 1.0) < 1e-4, f"the penalty counted {counted} times"
+    _close(got["ranks"], got["plain"], _grad_tol(got["plain"]))
+
+
+def test_a_read_past_the_wrapper_raises_naming_the_parameter(setup):
+    """A loss that closes over the model it trains reads a parameter past
+    the ``ShardedModel``: on two ranks ``make_train_step(loss, mesh)`` and
+    ``fit(..., mesh=)`` raise a ``RuntimeError`` that names it, and a world
+    of one (``data_mesh(1)``, no collectives) runs the loss with the bits of
+    the step without a mesh."""
+    got = _out(setup, "bypass")
+    for how in ("step", "fit"):
+        msg = str(got[f"error_{how}"])
+        assert "ann_layers.layers.0.weight" in msg, (how, msg)
+    mine = [k for k in got if k.startswith("none:")]
+    assert {"none:losses", "none:g:ann_layers.layers.0.weight"} <= set(mine)
+    for k in mine:
+        np.testing.assert_array_equal(got["one:" + k[5:]], got[k], err_msg=k)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -225,3 +225,52 @@ def test_initialize_multihost_forms_a_world_of_one(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
         assert proc.stdout.split() == ["gloo", "1", "1", "0", "cpu", "True"]
+
+
+READS = {
+    "parameters": lambda m: list(m.parameters()),
+    "named_parameters": lambda m: [p for _, p in m.named_parameters()],
+    "attribute": lambda m: [m.ann_layers.layers[0].weight],
+    "iteration": lambda m: [lin.bias for lin in m.ann_layers.layers],
+}
+
+
+@pytest.mark.parametrize("read", sorted(READS))
+def test_sharded_model_reads_count_once_and_bypasses_raise(setup, read):
+    """On a mesh of two (no collective is needed for a read outside a
+    call), every way a loss reads the ``ShardedModel``'s tensors gives them
+    back with their gradient halved: the ``all_reduce(SUM)`` over two ranks
+    then counts the term once. The same read from the unwrapped model
+    raises under ``guard_direct_reads``, naming the tensor; a mesh of one
+    gives the tensors back as they are and watches nothing."""
+    from molann_tpu_torch.io import load_model
+    from molann_tpu_torch.models.ann import named_tensors
+    from molann_tpu_torch.parallel.data_parallel import (guard_direct_reads,
+                                                         sharded_model)
+    from molann_tpu_torch.parallel.mesh import DataMesh
+
+    def penalty(tensors):
+        return sum((t * t).sum() for t in tensors)
+
+    model = load_model(str(setup["d"] / "model.npz"), device="cpu")
+    two = DataMesh(None, 0, 2, torch.device("cpu"))
+    want = torch.autograd.grad(penalty(READS[read](model)),
+                               list(model.parameters()), allow_unused=True)
+    with guard_direct_reads(named_tensors(model), two):
+        got = torch.autograd.grad(
+            penalty(READS[read](sharded_model(model, two))),
+            list(model.parameters()), allow_unused=True)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            torch.testing.assert_close(g, 0.5 * w, rtol=0, atol=0)
+    first = {id(p): k for k, p in model.named_parameters()}[
+        id(READS[read](model)[0])]
+    with pytest.raises(RuntimeError, match=f"tensor '{first}' outside"):
+        with guard_direct_reads(named_tensors(model), two):
+            penalty(READS[read](model))
+    one = DataMesh(None, 0, 1, torch.device("cpu"))
+    with guard_direct_reads(named_tensors(model), one):
+        assert all(a is b for a, b in zip(
+            READS[read](sharded_model(model, one)), READS[read](model)))
+        penalty(READS[read](model))

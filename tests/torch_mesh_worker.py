@@ -166,13 +166,29 @@ def _loss_cases():
         return timelagged_autoencoder_loss(m.ann_layers, dec,
                                            m.preprocessing_layer, *batch)
 
+    def penalty(params):
+        return PENALTY * sum((p * p).sum() for p in params)
+
+    def mse_decay(m, batch):
+        return registry["mse"](m, batch) + penalty(m.parameters())
+
+    def mse_first_weight(m, batch):
+        return (registry["mse"](m, batch)
+                + penalty([m.ann_layers.layers[0].weight]))
+
+    def ae_decoder_decay(pair, x):
+        return ae(pair, x) + penalty(p for _, p in pair[1].named_parameters())
+
     return {"mse": (registry["mse"], "model", ("x", "y")),
             "eigenfunction": (registry["eigenfunction"], "model",
                               ("x", "w")),
             "committor": (registry["committor"], "model", ("x", "labels")),
             "vamp": (registry["vamp"], "model", ("x_t", "x_tau", "w_t")),
             "autoencoder": (ae, "pair", "x"),
-            "tae": (tae, "pair", ("x_t", "x_tau"))}
+            "tae": (tae, "pair", ("x_t", "x_tau")),
+            "mse_decay": (mse_decay, "model", ("x", "y")),
+            "mse_first_weight": (mse_first_weight, "model", ("x", "y")),
+            "autoencoder_decoder_decay": (ae_decoder_decay, "pair", "x")}
 
 
 def _inputs(d, names):
@@ -182,6 +198,8 @@ def _inputs(d, names):
 
 
 STEPS = 2
+# the weight of the penalty terms that read parameters outside a model call
+PENALTY = 1e-2
 
 
 def suite_train(mesh, d):
@@ -193,6 +211,25 @@ def suite_train(mesh, d):
                                         make_train_step, masked_optimizer,
                                         mse_loss, stack_models,
                                         trainable_mask)
+
+    # one step's gradient of mse + the penalty over model.parameters() on
+    # the ranks and without a mesh, and the penalty's own gradient: the
+    # share of it the ranks' all-reduced gradient holds
+    mse_decay = _loss_cases()["mse_decay"][0]
+    x, y = np.load(d / "x.npy"), np.load(d / "y.npy")
+    share = {}
+    for tag, m in (("ranks", mesh), ("plain", None)):
+        model = load_model(str(d / "model.npz"), device="cpu")
+        opt = masked_optimizer(functools.partial(torch.optim.SGD, lr=0.0),
+                               trainable_mask(model))(model)
+        make_train_step(mse_decay, m)(model, opt, (x, y))
+        share[tag] = np.concatenate([p.grad.numpy().ravel()
+                                     for p in model.parameters()])
+    share["penalty"] = np.concatenate([g.numpy().ravel() for g in (
+        torch.autograd.grad(PENALTY * sum((p * p).sum()
+                                          for p in model.parameters()),
+                            list(model.parameters())))])
+    _save(d, mesh, "penalty_share", **share)
 
     for name, (loss_fn, which, names) in _loss_cases().items():
         model = load_model(str(d / f"{which}.npz"), device="cpu")
@@ -264,6 +301,42 @@ def suite_train(mesh, d):
           resumed=np.array(resumed.losses), **_tensors(full.model),
           **{f"r{k}": v for k, v in _tensors(resumed.model).items()},
           ckpts=np.array(sorted(p.name for p in ckpt.iterdir())))
+
+    # a loss that closes over the model it trains, past the wrapper: it
+    # raises under the collective step and fit, and a world of one runs it
+    from molann_tpu_torch.parallel import data_mesh
+
+    def bypassing(model):
+        def loss(m, batch):
+            w = model.ann_layers.layers[0].weight
+            return mse_loss(m, batch) + PENALTY * (w * w).sum()
+        return loss
+
+    errors = {}
+    for how in ("step", "fit"):
+        model = load_model(str(d / "model.npz"), device="cpu")
+        try:
+            if how == "step":
+                opt = masked_optimizer(_adam(), trainable_mask(model))(model)
+                make_train_step(bypassing(model), mesh)(model, opt, (x, y))
+            else:
+                fit(model, bypassing(model), iter([(x, y)]), mesh=mesh,
+                    num_steps=1)
+            errors[how] = ""
+        except RuntimeError as e:
+            errors[how] = str(e)
+    out = {f"error_{k}": np.array(v) for k, v in errors.items()}
+    for tag, m in (("none", None), ("one", data_mesh(1, devices="cpu"))):
+        model = load_model(str(d / "model.npz"), device="cpu")
+        opt = masked_optimizer(_adam(), trainable_mask(model))(model)
+        step = make_train_step(bypassing(model), m)
+        losses = []
+        for _ in range(STEPS):
+            model, opt, loss = step(model, opt, (x, y))
+            losses.append(loss.item())
+        out[f"{tag}:losses"] = np.array(losses)
+        out.update({f"{tag}:{k}": v for k, v in _tensors(model).items()})
+    _save(d, mesh, "bypass", **out)
 
 
 def suite_serve(mesh, d):
