@@ -232,10 +232,13 @@ Runs the port's serving path on the card and checks it, phase by phase:
    ``mesh_launches`` on K1-K8: their launches over (a) and (b), every
    rank's.
 16. the ten workflow examples (``molann_tpu_torch/examples/``) on the card,
-   within a budget of 150 s: ``serve_biased_md`` at full size (4,096
-   frames from ``.dcd``; K4 launched ``ceil(4096/1024)`` times and nothing
-   else, its first batch against K4's plain version at the values and
-   gradients tolerances below, outputs on the card),
+   in a process of their own (``--phase 16``, after a warm-up of
+   TorchScript and of a training step: the earlier phases' profiler
+   traces slow a process's later launches), within a budget of 150 s:
+   ``serve_biased_md`` at full size (4,096 frames from ``.dcd``; K4
+   launched ``ceil(4096/1024)`` times and nothing else, its first batch
+   against K4's plain version at the values and gradients tolerances
+   below, outputs on the card),
    ``train_autoencoder_cv`` at full size (the loss falls tenfold; its
    engine artifact, loaded, gives the model's CVs and the forces of
    ``force_fn`` summed over the two CVs), ``condensed_phase_cv`` quick
@@ -270,6 +273,33 @@ Runs the port's serving path on the card and checks it, phase by phase:
    fused kernel be launched (the blocks call the eager modules, as the JAX
    walkthrough reaches no Pallas kernel). The ``kernels`` line gains
    ``walkthrough_launches`` on every kernel.
+18. K1-K4 at the edge of the unrolled envelope, in a process of its own
+   (``--phase 18``), within a budget of 60 s:
+   ``chignolin_model()`` (``scripts/tpu_validation.py``'s config 5: 50
+   atoms, 85 columns, ``[85, 32, 2]``) and ``envelope_corner_model()`` (60
+   atoms, 92 columns, 91 coordination pairs, ``[92, 64, 64, 64, 2]``),
+   both routed to the unrolled kernels by ``mode="auto"``. K4 on config 5's
+   2,048 frames, 8,191 frames (a ragged tile) and a 65,536-frame batch in
+   ``[l, n, 3]`` and ``[3n, l]``, components None and 0; K1; K2 under
+   autograd (gx, every weight, ``ref_x``); K3 in both layouts with and
+   without ``ref_x``, then ``make_fused_train_step`` for 10 Adam steps (a
+   lower loss), with the launch counts of that drive; each against its
+   float64 plain version, then repeated to the same bits. One JSON line a
+   model: each kernel's CUDA-event time on the batch beside its plain
+   version's, its time alone (``torch.profiler``), its bound, the warps a
+   block and blocks an SM of K1 and K4 and the frames a block of K2 and K3.
+   The ``kernels`` line gains ``edge_models`` on K1-K4.
+
+Every ``torch.profiler`` reading outside phase 9 (phases 5b, 6e, 11, 13,
+16, 18) comes from a trace that opens with 16 short spins and closes with
+a spin timed by CUDA events too, taken again where the closing spin is
+missing or more than 10% off its events (``edge_mm_probe.clocked_trace``).
+A trace that lost every opening spin lost its first launches: a kernel's
+time alone (5b, 6e, 18) is then taken again (the last trace kept if none
+caught its start), and is each kernel's mean over the launches caught
+times its launches a call; a busy share and kernels a step (11, 13, 16)
+keep the trace, as a lower bound. The retakes and kept traces are
+printed before the ``kernels`` line.
 
 Each kernel's bound is the larger of its bytes (every input coordinate
 the model reads once, every output written once; for the unrolled kernels
@@ -309,7 +339,8 @@ and gradients tolerances above (the fluid's with its jump slack).
 Prints one JSON line describing the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 Imports no JAX. Usage: ``python3 chip_smoke.py`` runs every phase once.
-``--phase 9`` or ``--phase 17`` runs the build and that phase alone, and
+``--phase 9``, ``--phase 16``, ``--phase 17`` or ``--phase 18`` runs the
+build and that phase alone, and
 ``--repeat N`` runs phase 9 (or the phase named) N times, one JSON line a
 run, stopping at the first failure. ``--k9-readings ROUNDS OUT`` runs
 phases 1-8, then ``edge_mm_probe.readings(ROUNDS)`` written to OUT, then
@@ -1422,26 +1453,28 @@ def k9_readings(rounds, path, card):
     print(json.dumps({"k9_readings": res["summary"], "card": card}))
 
 
+# the retakes of every profiler reading outside phase 9 (whose own are
+# edge_mm_probe.RETAKES): traces whose clock was off, and traces that lost
+# their first launches (taken again by profiled_ms, kept by device_ms);
+# and the off spins' traced over timed ratios
+TRACE_RETAKES = {"clock": 0, "start_lost": 0}
+TRACE_RATIOS = []
+
+
 def profiled_ms(fn, pattern, calls=20):
     """``(alone, device)``: ms a call of the kernels whose name matches
-    ``pattern``, and of all the call's device work, by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    ``pattern``, and of all the call's device work, by ``torch.profiler``
+    (``edge_mm_probe.clocked_trace``: a trace taken again where its clock
+    is off or it lost its first launches), after one warm-up call."""
+    from molann_tpu_torch.probes.edge_mm_probe import (
+        clocked_trace,
+        per_call_ms,
+    )
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    alone = total = 0.0
-    for event in prof.key_averages():
-        t = getattr(event, "device_time_total", None)
-        if t is None:
-            t = event.cuda_time_total
-        total += t
-        if re.search(pattern, event.key):
-            alone += t
-    return alone / calls / 1e3, total / calls / 1e3
+    launches = clocked_trace(fn, calls, retakes=TRACE_RETAKES,
+                             ratios=TRACE_RATIOS, retake_start=True)
+    return per_call_ms(launches, calls, pattern), per_call_ms(launches, calls)
 
 
 def unrolled_split(calls):
@@ -2402,23 +2435,16 @@ FUSED_KERNELS = r"fused_unrolled_kernel|fused_grads_kernel|blocked|reduce_partia
 
 def device_ms(fn):
     """``(device ms, kernels, ms of the fused kernels)`` of one call of fn
-    by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    by ``torch.profiler`` (``edge_mm_probe.clocked_trace``: a trace taken
+    again where its clock is off; one that lost its first launches is kept
+    and counted, as a long call's trace loses them however often it is
+    taken, and its busy share is then a lower bound)."""
+    from molann_tpu_torch.probes.edge_mm_probe import clocked_trace
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy = kernels = fused = 0.0
-    for event in prof.key_averages():
-        t = getattr(event, "device_time_total", None)
-        t = event.cuda_time_total if t is None else t
-        if t > 0:
-            busy += t
-            kernels += event.count
-            if re.search(FUSED_KERNELS, event.key):
-                fused += t
-    return busy / 1e3, kernels, fused / 1e3
+    launches = clocked_trace(fn, retakes=TRACE_RETAKES, ratios=TRACE_RATIOS)
+    fused = sum(d for name, _, d in launches
+                if re.search(FUSED_KERNELS, name))
+    return sum(d for *_, d in launches) / 1e3, len(launches), fused / 1e3
 
 
 def cos_phi(path):
@@ -3525,6 +3551,299 @@ def walkthrough_phase(dev, card):
     return launched
 
 
+EDGE_VALIDATION_FRAMES = 2048  # scripts/tpu_validation.py:129-131, config 5
+EDGE_VALIDATION_SIGMA = 0.02   # its noise, Angstrom
+EDGE_RAGGED = 8191             # a ragged last tile of K1/K4 and block of K2/K3
+EDGE_STEPS = 10
+EDGE_BUDGET_S = 60.0           # the phase fails past it
+EDGE_KERNELS = ("forward", "cv_forces", "backward", "train")
+# what phase 18 launches a model: K4 on three batches, two layouts and two
+# components; K1 twice under no_grad and once under autograd; K2 once; K3
+# in two layouts with and without ref_x, then once a training step
+EDGE_LAUNCHES = {"cv_forces": 12, "forward": 3, "backward": 1,
+                 "train": 4 + EDGE_STEPS}
+
+
+def edge_model_ops(spec, dims, kind):
+    """A lower bound on the f32 operations a frame of K1 (``forward``), K4
+    (``cv_forces``), K2 (``backward``) or K3 (``train``) does on a model:
+    the head's multiply-adds, once for its forward, once more for the
+    inputs' cotangents where gx is formed and once more for the weights'
+    gradients (K2, K3); every feature's forward and, where gx is formed,
+    its adjoint (:data:`OPS`). The alignment is not counted."""
+    weights = sum(a * b for a, b in zip(dims, dims[1:]))
+    grad = kind in ("cv_forces", "backward")
+    passes = 1 + grad + (kind in ("backward", "train"))
+    n_pairs = sum(p for _, p in spec.coord_slices)
+    return (2 * weights * passes
+            + spec.n_angles * (OPS["angle"] + grad * OPS["angle_bwd"])
+            + spec.n_bonds * (OPS["bond"] + grad * OPS["bond_bwd"])
+            + spec.n_dihedrals * (OPS["dihedral"]
+                                  + grad * OPS["dihedral_bwd"])
+            + n_pairs * (OPS["pair_head"] + OPS["pair_tail_bwd" if grad
+                                                else "pair_tail"]))
+
+
+def edge_models_phase(dev, card):
+    """Phase 18: K1-K4 at the edge of the unrolled envelope, on
+    ``chignolin_model()`` (``scripts/tpu_validation.py``'s config 5) and
+    ``envelope_corner_model()``, weights from seeded generators. The drive,
+    with every launch count set to 0 before it and held to
+    :data:`EDGE_LAUNCHES` after it: K4 through ``fused_cv_forces`` on
+    config 5's 2,048 frames (0.02 of noise), 8,191 frames (a ragged tile)
+    and one 65,536-frame batch made on the card, in the ``[l, n, 3]`` and
+    ``[3n, l]`` layouts, components None and 0; K1 through
+    ``fused_model_forward`` on the batch and on the 8,191 packed; K2 under
+    autograd on the 8,191 (gx, every weight and ``ref_x``); K3 through
+    ``fused_train_grads`` (``train_ref`` False and True, both layouts), then
+    ``make_fused_train_step`` for 10 Adam steps on the batch, labelled by a
+    teacher. Each output against its float64 plain version (the batch's K4
+    and K1 on 4,096 sampled rows) at phase 4's and phase 6's tolerances, a
+    lower loss after the 10 steps; then a second launch of each kernel to
+    the same bits. Then on the batch each kernel's CUDA-event time with its
+    wrapper beside its plain version's (in turns) and its time alone
+    (``torch.profiler``, :func:`traced`), its bound (the bytes of
+    ``unrolled_probe.frame_bytes`` over 3.35 TB/s, or
+    :func:`edge_model_ops` over 67 TFLOP/s), the warps a block and blocks
+    an SM of K1 and K4 and the frames a block of K2 and K3. Fails past
+    :data:`EDGE_BUDGET_S`. Returns ``{kernel: {model: its line}}``."""
+    from molann_tpu_torch.ops import fused as F
+    from molann_tpu_torch.probes.unrolled_probe import frame_bytes
+    from molann_tpu_torch.systems import (
+        chignolin_model,
+        envelope_corner_model,
+    )
+    from molann_tpu_torch.train import (
+        make_fused_train_step,
+        masked_optimizer,
+        trainable_mask,
+    )
+
+    t_phase = time.perf_counter()
+    retakes = dict(TRACE_RETAKES)
+    lib = F._library()
+    out = {k: {} for k in EDGE_KERNELS}
+    for seed, (name, build) in enumerate((
+            ("chignolin", chignolin_model),
+            ("envelope_corner", envelope_corner_model))):
+        def seeded(s):
+            return build(generator=torch.Generator().manual_seed(s),
+                         device=dev)[0]
+
+        model, u = build(generator=torch.Generator().manual_seed(seed),
+                         device=dev)
+        if F.model_select_mode(model) != "unrolled":
+            fail(f"phase 18: {name} is not routed to the unrolled kernels")
+        parts = F._extract_model(model)
+        spec, align_idx, ref_x, params, act = parts
+        n, d = u.atoms.n_atoms, params[-1][0].shape[0]
+        dims = (spec.out_dim, *(w.shape[0] for w, _ in params))
+        x_val = noisy_frames(u, EDGE_VALIDATION_FRAMES, 31,
+                             EDGE_VALIDATION_SIGMA, dev)
+        x_rag = noisy_frames(u, EDGE_RAGGED, 32, 0.05, dev)
+        gen = torch.Generator(device=dev).manual_seed(33)
+        pos = torch.as_tensor(u.atoms.positions, dtype=torch.float32,
+                              device=dev)
+        x_big = pos + 0.05 * torch.randn(BATCH, n, 3, generator=gen,
+                                         device=dev)
+        xt_big = x_big.reshape(BATCH, 3 * n).T.contiguous()
+        gy = torch.randn(EDGE_RAGGED, d, generator=gen, device=dev)
+        with torch.no_grad():
+            labels = F.fused_model_forward(seeded(seed + 10), x_big)
+        yt_big = labels.T.contiguous()
+        batches = {"2048": x_val, "8191": x_rag, "65536": x_big}
+        student = seeded(seed + 20)
+        opt = masked_optimizer(functools.partial(torch.optim.Adam, lr=1e-3),
+                               trainable_mask(student))(student)
+        step = make_fused_train_step(transposed_input=True)
+        torch.cuda.synchronize()
+
+        # the drive
+        reset_counts()
+        k4 = {}
+        for label, xs in batches.items():
+            xts = xs.reshape(xs.shape[0], 3 * n).T.contiguous()
+            for comp in (None, 0):
+                k4[label, "[l, n, 3]", comp] = F.fused_cv_forces(
+                    model, xs, component=comp)
+                y, g = F.fused_cv_forces(model, xts, component=comp,
+                                         transposed_input=True)
+                k4[label, "[3n, l]", comp] = (y.T, g.T.reshape(-1, n, 3))
+        with torch.no_grad():
+            y1_big = F.fused_model_forward(model, x_big)
+            y1_rag = F.fused_model_forward(
+                model, x_rag.reshape(EDGE_RAGGED, 3 * n))
+        ref_x.requires_grad_(True)
+        xg = x_rag.clone().requires_grad_(True)
+        y2 = F.fused_model_forward(model, xg)
+        got2 = torch.autograd.grad(y2, [xg, ref_x, *flat(params)], gy)
+        ref_x.requires_grad_(False)
+        k3 = {}
+        for train_ref in (False, True):
+            k3[train_ref, "[l, n, 3]"] = F.fused_train_grads(
+                model, x_rag, gy, train_ref=train_ref)
+            k3[train_ref, "[3n, l]"] = F.fused_train_grads(
+                model, x_rag.reshape(EDGE_RAGGED, 3 * n).T.contiguous(),
+                gy.T.contiguous(), transposed_input=True, train_ref=train_ref)
+        losses = []
+        for _ in range(EDGE_STEPS):
+            student, opt, loss = step(student, opt, (xt_big, yt_big))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launched = dict(F.KERNEL_LAUNCHES)
+        if launched != counts(**EDGE_LAUNCHES):
+            fail(f"phase 18, {name}: launch counts {launched}")
+
+        # against float64 plain versions
+        p64 = f64(parts)
+        errs = dict.fromkeys(EDGE_KERNELS, 0.0)
+        rows = torch.as_tensor(np.sort(np.random.default_rng(34).choice(
+            BATCH, SAMPLE_ROWS, replace=False)), device=dev)
+        for label, xs in batches.items():
+            sample = rows if label == "65536" else slice(None)
+            for comp in (None, 0):
+                y_r, g_r = F.cv_forces_plain(*p64, xs[sample].double(), comp)
+                for layout in ("[l, n, 3]", "[3n, l]"):
+                    y, g = k4[label, layout, comp]
+                    what = f"phase 18, {name}, K4 on {label} {layout} " \
+                           f"frames, component={comp}"
+                    ev = float((y[sample] - y_r).abs().max())
+                    if not ev <= VAL_TOL:
+                        fail(f"{what}: values {ev}")
+                    errs["cv_forces"] = max(errs["cv_forces"], ev, worst(
+                        [g[sample]], [g_r], what))
+        for y, xs in ((y1_big[rows], x_big[rows]), (y1_rag, x_rag),
+                      (y2.detach(), x_rag)):
+            with torch.no_grad():
+                y_r = F.forward_plain(*p64, xs.double())
+            e = float((y - y_r).abs().max())
+            if not e <= VAL_TOL:
+                fail(f"phase 18, {name}, K1 on {xs.shape[0]} frames: {e}")
+            errs["forward"] = max(errs["forward"], e)
+        gx_r, gp_r, gref_r = F.backward_plain(*p64, x_rag.double(),
+                                              gy.double())
+        errs["backward"] = worst(got2, [gx_r, gref_r, *flat(gp_r)],
+                                 f"phase 18, {name}, K2")
+        for (train_ref, layout), (loss, grads) in k3.items():
+            loss_r, gp_r, gref_r = F.train_grads_plain(
+                *p64, x_rag.double(), gy.double(), train_ref)
+            what = f"phase 18, {name}, K3 {layout}, train_ref={train_ref}"
+            el = abs(float(loss) - float(loss_r))
+            if not el <= LOSS_RTOL * abs(float(loss_r)):
+                fail(f"{what}: loss {float(loss)} vs {float(loss_r)}")
+            errs["train"] = max(errs["train"], el, worst(
+                list(grads.values()), [*flat(gp_r), gref_r], what))
+        losses = [float(v) for v in losses]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"phase 18, {name}: {EDGE_STEPS} steps did not lower the "
+                 f"loss: {losses}")
+
+        # a second launch of each gives the same bits
+        y, g = F.fused_cv_forces(model, xt_big, transposed_input=True)
+        same = (torch.equal(y.T, k4["65536", "[3n, l]", None][0])
+                and torch.equal(g.T.reshape(-1, n, 3),
+                                k4["65536", "[3n, l]", None][1]))
+        with torch.no_grad():
+            same &= torch.equal(F.fused_model_forward(model, x_big), y1_big)
+        ref_x.requires_grad_(True)
+        xg = x_rag.clone().requires_grad_(True)
+        again = torch.autograd.grad(F.fused_model_forward(model, xg),
+                                    [xg, ref_x, *flat(params)], gy)
+        ref_x.requires_grad_(False)
+        same &= all(torch.equal(a, b) for a, b in zip(again, got2))
+        loss, grads = F.fused_train_grads(model, x_rag, gy, train_ref=True)
+        loss_0, grads_0 = k3[True, "[l, n, 3]"]
+        same &= torch.equal(loss, loss_0) and all(
+            torch.equal(grads[k], grads_0[k]) for k in grads)
+        if not same:
+            fail(f"phase 18, {name}: two launches of a kernel differ")
+
+        # times on the batch, bounds, grids and tiles
+        gyb = torch.randn(BATCH, d, generator=gen, device=dev)
+        xgb = x_big.clone().requires_grad_(True)
+        yk = F.fused_model_forward(model, xgb)
+        with torch.enable_grad():
+            xp = x_big.clone().requires_grad_(True)
+            pp = tuple((w.detach().requires_grad_(True),
+                        b.detach().requires_grad_(True)) for w, b in params)
+            yp = F.forward_plain(spec, align_idx, ref_x, pp, act, xp)
+
+        def no_grad(fn):
+            def call():
+                with torch.no_grad():
+                    return fn()
+            return call
+
+        calls = {
+            "cv_forces": (lambda: F.fused_cv_forces(model, x_big),
+                          lambda: F.cv_forces_plain(*parts, x_big),
+                          r"fused_unrolled_kernel<(true|1)", (False, True, d)),
+            "cv_forces [3n, l]": (
+                lambda: F.fused_cv_forces(model, xt_big,
+                                          transposed_input=True),
+                lambda: F.cv_forces_plain(*parts, x_big),
+                r"fused_unrolled_kernel<(true|1)", (True, True, d)),
+            "forward": (no_grad(lambda: F.fused_model_forward(model, x_big)),
+                        no_grad(lambda: F.forward_plain(*parts, x_big)),
+                        r"fused_unrolled_kernel<(false|0)", (False, False, d)),
+            "backward": (
+                lambda: torch.autograd.grad(yk, [xgb, *flat(params)], gyb,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(yp, [xp, *flat(pp)], gyb,
+                                            retain_graph=True),
+                r"fused_grads_kernel<(false|0)", (False, True, d)),
+            "train": (
+                lambda: F.fused_train_grads(model, xt_big, yt_big,
+                                            transposed_input=True),
+                lambda: F.train_grads_plain(*parts, x_big, labels),
+                r"fused_grads_kernel<(true|1)", (True, False, d)),
+        }
+        st = F._statics(spec, align_idx, act, params, dev)
+        tiles = {"forward": st.grid(lib, "forward", dev),
+                 "cv_forces": st.grid(lib, "cv_forces", dev),
+                 "backward": st.frames(lib, "backward", True),
+                 "train": st.frames(lib, "train", False)}
+        line = {"phase": 18, "model": name, "atoms": n,
+                "columns": spec.out_dim, "head": list(dims),
+                "pairs": sum(p for _, p in spec.coord_slices),
+                "frames_a_block_backward_without_gx": st.frames(
+                    lib, "backward_nogx", True),
+                "frames_a_block_train_with_ref": st.frames(lib, "train",
+                                                           True),
+                "loss": [losses[0], losses[-1]]}
+        for label, (kernel_fn, plain_fn, pattern, fb) in calls.items():
+            kind = label.split()[0]
+            ms, plain = alternate(plain_fn, kernel_fn, 3, 20)
+            alone, _ = profiled_ms(kernel_fn, pattern)
+            b_ms, b_by = bound(BATCH * frame_bytes(F, model, *fb),
+                               BATCH * edge_model_ops(spec, dims, kind))
+            row = {"ms": ms, "plain_ms": plain, "alone_ms": alone,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes_a_frame": frame_bytes(F, model, *fb)}
+            if label != kind:
+                out[kind][name]["[3n, l]"] = row
+                continue
+            if kind in ("forward", "cv_forces"):
+                warps, per_sm, _ = tiles[kind]
+                row.update(warps_a_block=warps, blocks_an_sm=per_sm)
+            else:
+                row["frames_a_block"] = tiles[kind]
+            out[kind][name] = {"launches": launched[kind],
+                               "max_abs_err": errs[kind], **row}
+            line[kind] = out[kind][name]
+        print(json.dumps({**line, "card": card}))
+        del yk, yp, xgb, xp
+    reset_counts()
+    wall = time.perf_counter() - t_phase
+    if wall > EDGE_BUDGET_S:
+        fail(f"phase 18 took {wall:.1f} s of its {EDGE_BUDGET_S} s budget")
+    print(f"edge of the unrolled envelope (phase 18): {wall:.2f} s of a "
+          f"{EDGE_BUDGET_S:.0f} s budget; profiler retakes "
+          + json.dumps({k: TRACE_RETAKES[k] - retakes[k]
+                        for k in TRACE_RETAKES}) + f"; card: {card}")
+    return out
+
+
 def examples_phase(dev, card):
     """Phase 16: the ten port examples on ``dev``. Returns ``{kernel:
     launches}`` of K4 and K6 over the phase."""
@@ -3728,22 +4047,64 @@ def examples_phase(dev, card):
     return launched, lines
 
 
+PHASE_CHILD_TIMEOUT_S = 600
+
+
+def phase_in_child(number):
+    """Phase ``number`` run as ``chip_smoke.py --phase N`` in a child process
+    (under :data:`PHASE_CHILD_TIMEOUT_S`), its output passed through; what
+    the phase returned comes back on the child's last line. Phases 16 and
+    18 run so: the ``torch.profiler`` traces of the earlier phases leave a
+    process's launches slower (``python -m
+    molann_tpu_torch.probes.edge_mm_probe residue``) and its later traces
+    short of their closing spins (``PERF.md`` §6, PR 18), and their budgets
+    measure their own work."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase", str(number)],
+        capture_output=True, text=True, timeout=PHASE_CHILD_TIMEOUT_S)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        fail(f"phase {number} in its own process exited {proc.returncode}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    if last.get("phase") != number or not last.get("passed"):
+        fail(f"phase {number} in its own process ended with {last}")
+    return last["returned"]
+
+
+def warm_up(dev):
+    """What a full run's earlier phases leave warm in its process, done
+    before phase 16 alone starts its clock: TorchScript's first scripted
+    module and its first calls, and an eager training step (autograd,
+    Adam) on the card."""
+    lin = torch.nn.Linear(4, 2).to(dev)
+    x = torch.randn(8, 4, device=dev)
+    scripted = torch.jit.script(lin)
+    for _ in range(3):
+        scripted(x)
+    opt = torch.optim.Adam(lin.parameters())
+    lin(x).square().mean().backward()
+    opt.step()
+    torch.cuda.synchronize()
+
+
 def options(argv):
-    """``{"phase": None or 9 or 17, "repeat": n, "k9_readings": None or
+    """``{"phase": None or 9, 16, 17 or 18, "repeat": n, "k9_readings": None or
     (rounds, path)}`` from the command line (see the module's docstring's
     end)."""
     opts = {"phase": None, "repeat": 1, "k9_readings": None}
     args = list(argv)
     while args:
         a = args.pop(0)
-        if a == "--phase" and args and args[0] in ("9", "17"):
+        if a == "--phase" and args and args[0] in ("9", "16", "17", "18"):
             opts["phase"] = int(args.pop(0))
         elif a == "--repeat" and args and args[0].isdigit():
             opts["repeat"] = int(args.pop(0))
         elif a == "--k9-readings" and len(args) >= 2 and args[0].isdigit():
             opts["k9_readings"] = (int(args.pop(0)), args.pop(0))
         else:
-            fail(f"unknown arguments {argv}: use no argument, --phase 9|17 "
+            fail(f"unknown arguments {argv}: use no argument, --phase "
+                 f"9|16|17|18 "
                  f"[--repeat N] or --k9-readings ROUNDS OUT")
     return opts
 
@@ -3782,13 +4143,19 @@ def main():
           f"{kernel_resources(_build.BUILD_INFO['log'])}")
 
     if opts["phase"] is not None:
-        phase = {9: edge_phase, 17: walkthrough_phase}[opts["phase"]]
+        phase = {9: edge_phase, 16: examples_phase, 17: walkthrough_phase,
+                 18: edge_models_phase}[opts["phase"]]
+        if opts["phase"] == 16:
+            warm_up(dev)
         for run in range(1, opts["repeat"] + 1):
             t0 = time.perf_counter()
-            phase(dev, card)
+            got = phase(dev, card)
             print(json.dumps({"phase": opts["phase"], "run": run,
                               "passed": True,
-                              "s": time.perf_counter() - t0, "card": card}))
+                              "s": time.perf_counter() - t0, "card": card,
+                              "profiler_retakes": TRACE_RETAKES,
+                              "returned": got[0] if opts["phase"] == 16
+                              else got}))
         return
 
     # 3. goldens through the forward kernel
@@ -4164,10 +4531,15 @@ def main():
         engine = engine_phase(dev, card, tmp)
         # 15. data parallelism and multi-device serving
         mesh_launches = mesh_phase(dev, card, tmp)
-    # 16. the ten workflow examples
-    example_launches, _ = examples_phase(dev, card)
+    # 16. the ten workflow examples, in a process of their own
+    example_launches = phase_in_child(16)
     # 17. the walkthrough
     walkthrough_launches = walkthrough_phase(dev, card)
+    # 18. K1-K4 at the edge of the unrolled envelope, in a process of its own
+    edge_models = phase_in_child(18)
+    print(json.dumps({"profiler_retakes": TRACE_RETAKES,
+                      "off_spins_traced_over_timed": TRACE_RATIOS,
+                      "card": card}))
 
     def alanine_bound(kind):
         # as timed above: K1, K4 and K2 on [l, n, 3], K3 on [3n, l]
@@ -4226,6 +4598,8 @@ def main():
     ]
     for k in kernels:  # phase 17: what the walkthrough's blocks launched
         k["walkthrough_launches"] = walkthrough_launches[k["name"]]
+        if k["name"] in edge_models:  # phase 18: K1-K4 on the edge models
+            k["edge_models"] = edge_models[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@
     python -m molann_tpu_torch.probes.edge_mm_probe alternatives [T]
     python -m molann_tpu_torch.probes.edge_mm_probe mma_rate
     python -m molann_tpu_torch.probes.edge_mm_probe readings [ROUNDS] [OUT]
+    python -m molann_tpu_torch.probes.edge_mm_probe residue [TRACES]
 
 The blocked TPU kernels compute every feature's edge vectors as a product
 with a 0/±1 matrix, ``D [552, 304] @ x [304, T]`` per tile for
@@ -47,12 +48,14 @@ tree's choices; ``mma_rate`` the cycles an ``mma.sync`` takes with nothing
 else to do. ``readings`` takes every body's warm reading ``ROUNDS`` times
 in the order of a probe run and keeps each trace's kernel events one by
 one, with a spin timed by CUDA events at each end of the trace (written
-to ``OUT``, a JSON file).
+to ``OUT``, a JSON file). ``residue [TRACES]`` times a loop of small
+kernels before and after that many profiler traces in one process.
 """
 
 import ctypes
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -359,6 +362,105 @@ CLOCK_SLACK = 0.10
 # clock (None: the trace lost its spin)
 RETAKES = {"clock": 0, "dropped": 0}
 CLOCK_RATIOS = []
+# short spins that open a trace of :func:`clocked_trace`: a trace that
+# loses launches loses its first ones (2 to 10 of 20 launches of 40-90 us
+# after chip_smoke.py's phases 1-8), so one that still holds an opening
+# spin lost none of the calls' launches; about 70 us each
+OPENING_SPINS = 16
+OPENING_SPIN_CYCLES = 1 << 17
+
+
+def _spin_events():
+    """A spin of :data:`SPIN_CYCLES` cycles queued on the card between two
+    CUDA events: ``(start, end)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    return start, end
+
+
+def _one_trace(fn, calls, opening, retakes, ratios):
+    """``(launches, whole)`` of one trace of ``calls`` calls of fn that
+    closes (and with ``opening`` opens with :data:`OPENING_SPINS` short
+    spins) with a spin timed by CUDA events: :func:`kernel_events` with
+    the spins left out, and whether an opening spin was caught (a trace
+    loses its first launches, so while one of them is caught no call lost
+    a launch; without ``opening``, None). None where the closing spin is
+    missing or more than :data:`CLOCK_SLACK` off its events, counted in
+    ``retakes["clock"]``, its ratio appended to ``ratios``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(OPENING_SPINS if opening else 0):
+            torch.cuda._sleep(OPENING_SPIN_CYCLES)
+        for _ in range(calls):
+            fn()
+        start, end = _spin_events()
+        torch.cuda.synchronize()
+    launches = kernel_events(prof)
+    spins = [k for k, e in enumerate(launches) if "spin_kernel" in e[0]]
+    ratio = (launches[spins[-1]][2] / (start.elapsed_time(end) * 1e3)
+             if spins else None)
+    if ratio is None or abs(ratio - 1) > CLOCK_SLACK:
+        retakes["clock"] += 1
+        ratios.append(ratio)
+        return None
+    whole = len(spins) > 1 and spins[0] == 0 if opening else None
+    return [e for e in launches if "spin_kernel" not in e[0]], whole
+
+
+def clocked_trace(fn, calls=1, attempts=5, retakes=None, ratios=None,
+                  retake_start=False):
+    """``[(name, start_us, duration_us)]`` of every device kernel of
+    ``calls`` calls of fn, one entry a launch, from a ``torch.profiler``
+    trace whose clock is right: it opens with :data:`OPENING_SPINS` short
+    spins and closes with a spin timed by CUDA events too, and is taken
+    again where its closing spin is missing or more than
+    :data:`CLOCK_SLACK` off its events (:func:`device_ms` says why),
+    ``attempts`` traces at most, then it raises. A trace that lost every
+    opening spin lost the calls' first launches and is counted in
+    ``retakes["start_lost"]``; with ``retake_start`` it is taken again
+    within the same attempts, the last such trace kept where none caught
+    its start. The off spins' ratios are appended to ``ratios``."""
+    retakes = {"clock": 0, "start_lost": 0} if retakes is None else retakes
+    ratios = [] if ratios is None else ratios
+    torch.cuda.synchronize()
+    kept = None
+    for _ in range(attempts):
+        got = _one_trace(fn, calls, True, retakes, ratios)
+        if got is None:
+            continue
+        kept, caught_start = got
+        if caught_start:
+            return kept
+        retakes["start_lost"] += 1
+        if not retake_start:
+            return kept
+    if kept is not None:
+        return kept
+    raise RuntimeError(f"torch.profiler gave no trace with its clock right "
+                       f"in {attempts} attempts ({retakes})")
+
+
+def _by_name(launches, pattern):
+    """``{name: [duration_us]}`` of the launches whose name matches the
+    regular expression ``pattern`` (every launch without one)."""
+    out = {}
+    for name, _, d in launches:
+        if pattern is None or re.search(pattern, name):
+            out.setdefault(name, []).append(d)
+    return out
+
+
+def per_call_ms(launches, calls, pattern=None):
+    """ms a call of the kernels whose name matches ``pattern`` among
+    ``launches`` of ``calls`` calls: each kernel's mean over its launches
+    the trace caught, times its launches a call, summed (a trace that lost
+    some launches still reads each kernel's time)."""
+    return sum(statistics.fmean(d) * max(1, round(len(d) / calls))
+               for d in _by_name(launches, pattern).values()) / 1e3
 
 
 def device_ms(fn, calls=PROFILED_CALLS, pattern=None, attempts=5):
@@ -381,38 +483,18 @@ def device_ms(fn, calls=PROFILED_CALLS, pattern=None, attempts=5):
     or that caught fewer than half of a kernel's launches, is taken again
     (counted in :data:`RETAKES`), ``attempts`` traces at most, then it
     raises."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            start.record()
-            torch.cuda._sleep(SPIN_CYCLES)
-            end.record()
-            torch.cuda.synchronize()
-        launches = kernel_events(prof)
-        spins = [d for name, _, d in launches if "spin_kernel" in name]
-        spin_us = start.elapsed_time(end) * 1e3
-        ratio = spins[0] / spin_us if len(spins) == 1 else None
-        if ratio is None or abs(ratio - 1) > CLOCK_SLACK:
-            RETAKES["clock"] += 1
-            CLOCK_RATIOS.append(ratio)
+        got = _one_trace(fn, calls, False, RETAKES, CLOCK_RATIOS)
+        if got is None:
             continue
-        by_name = {}
-        for name, _, d in launches:
-            if "spin_kernel" not in name and (pattern is None
-                                              or pattern in name):
-                by_name.setdefault(name, []).append(d)
+        launches, _ = got
+        by_name = _by_name(launches, pattern)
         if not by_name or any(len(d) < calls / 2 for d in by_name.values()):
             RETAKES["dropped"] += 1
             continue
-        return sum(statistics.fmean(d) * max(1, round(len(d) / calls))
-                   for d in by_name.values()) / 1e3
+        return per_call_ms(launches, calls, pattern)
     raise RuntimeError(f"torch.profiler gave no trace with its clock right "
                        f"and the kernels matching {pattern!r} caught in "
                        f"{attempts} attempts ({RETAKES})")
@@ -1137,9 +1219,40 @@ def readings(T=512, rounds=24):
             "summary": summary}
 
 
+def residue(traces=300, steps=3000):
+    """Whether ``torch.profiler`` traces slow a process's later launches:
+    the host's microseconds a step of a loop of five small elementwise
+    kernels (three timings), before and after ``traces`` traces of
+    :func:`clocked_trace` in this process. ``chip_smoke.py`` runs phase 16
+    in a process of its own by it."""
+    dev = torch.device("cuda")
+
+    def loop():
+        x = torch.randn(64, 66, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            x = (x * 1.0001).sin_().add_(0.1).cos_() * 0.5 + x * 0.5
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e6
+
+    before = [loop() for _ in range(3)]
+    x = torch.randn(4096, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(traces):
+        clocked_trace(lambda: [x.sum() for _ in range(20)])
+    seconds = time.perf_counter() - t0
+    return {"card": card(), "torch": torch.__version__, "traces": traces,
+            "traces_s": seconds, "us_a_step_before": before,
+            "us_a_step_after": [loop() for _ in range(3)]}
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("edge_mm_probe: no CUDA card")
+    if argv and argv[0] == "residue":
+        print(json.dumps(residue(int(argv[1]) if len(argv) > 1 else 300)))
+        return
     if argv and argv[0] == "mma_rate":
         print(json.dumps(mma_rate()))
         return

@@ -6,7 +6,11 @@
   its backbone feature set and model (:108-184), the scaling system of the
   blocked kernels;
 - a periodic Lennard-Jones-like fluid with two all-pairs coordination
-  shells and its model (:187-275), the condensed-phase system.
+  shells and its model (:187-275), the condensed-phase system;
+- two peptide models at the edge of the unrolled kernels' envelope:
+  ``scripts/tpu_validation.py``'s config 5 (:func:`chignolin_model`) and
+  the largest model both packages still serve unrolled
+  (:func:`envelope_corner_model`).
 
 The functions that return a model are entry points: they put the model on the card unless
 ``device="cpu"`` is passed, and raise where no CUDA device is present.
@@ -39,6 +43,8 @@ __all__ = [
     "synthetic_peptide",
     "peptide_backbone_features",
     "peptide_model",
+    "chignolin_model",
+    "envelope_corner_model",
     "lj_fluid",
     "lj_fluid_model",
 ]
@@ -205,6 +211,47 @@ def peptide_model(n_residues: int = 10, hidden_dims=(32, 2), method="qcp", *,
                               activation, generator=generator, device=device)
     return MolANN(pp, nn), u
 
+
+def chignolin_model(*, generator=None, activation="tanh", device=None):
+    """``scripts/tpu_validation.py``'s config 5 (:119-128): a 10-residue
+    :func:`synthetic_peptide` (50 atoms) aligned on its CA atoms, a CA
+    position feature plus :func:`peptide_backbone_features` (85 columns),
+    MLP ``85 → 32 → 2``. Inside the unrolled envelope. Returns ``(model,
+    universe)``, the model on ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
+    u = synthetic_peptide(10)
+    ca = u.select_atoms("name CA")
+    feats = [Feature("pos", "position", ca), *peptide_backbone_features(u)]
+    pp = PreprocessingANN(AlignmentLayer(ca, u.atoms, device=device),
+                          FeatureLayer(feats, u.atoms))
+    nn = create_sequential_nn([pp.output_dimension(), 32, 2], activation,
+                              generator=generator, device=device)
+    return MolANN(pp, nn), u
+
+
+def envelope_corner_model(*, generator=None, activation="tanh", device=None):
+    """The largest model the unrolled kernels take in both packages: a
+    12-residue :func:`synthetic_peptide` (60 atoms) aligned on its 12 CA
+    atoms; their positions (36 columns), the backbone φ/ψ dihedrals and
+    CA-CA bonds (55) and one coordination number (``r0=6``) over the CA
+    atoms and the N atoms of residues 1 and 2 (91 pairs, 1 column): 92
+    columns; MLP ``92 → 64 → 64 → 64 → 2``, four layers of the kernels'
+    widest. Returns ``(model, universe)``, the model on ``device`` (the card
+    when ``None``)."""
+    device = resolve_device(device)
+    u = synthetic_peptide(12)
+    ca = u.select_atoms("name CA")
+    feats = [Feature("pos", "position", ca),
+             *(f for f in peptide_backbone_features(u)
+               if f.type_name != "angle"),
+             Feature("contacts", "coordination",
+                     u.select_atoms("name CA or (name N and resid 1 2)"),
+                     r0=6.0)]
+    pp = PreprocessingANN(AlignmentLayer(ca, u.atoms, device=device),
+                          FeatureLayer(feats, u.atoms))
+    nn = create_sequential_nn([pp.output_dimension(), 64, 64, 64, 2],
+                              activation, generator=generator, device=device)
+    return MolANN(pp, nn), u
 
 def lj_fluid(n_per_side: int = 5, spacing: float = 1.7, jitter: float = 0.05,
              seed: int = 0):

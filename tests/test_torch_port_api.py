@@ -97,6 +97,10 @@ EXTRA = {
         "blocked_backward_plain", "blocked_cv_forces_plain",
         "blocked_forward_plain", "blocked_train_grads_plain",
         "chunk_matrix", "gradient_jump_slack")},
+    **{("molann_tpu_torch.systems", n): (
+        "the models at the unrolled kernels' edge: scripts/tpu_validation.py's "
+        "config 5, built there inline, and the envelope's corner")
+       for n in ("chignolin_model", "envelope_corner_model")},
 }
 
 # qualified name of a public callable whose signature differs
@@ -165,6 +169,9 @@ OWN_MODULES = {
     "molann_tpu_torch.utils.gen_docs": (
         "the JAX package's scripts/gen_docs.py, which sits outside that "
         "package, as a module of the port"),
+    "molann_tpu_torch.utils.build_docs_site": (
+        "the JAX package's scripts/build_docs_site.py, which sits outside "
+        "that package, as a module of the port"),
     **{f"molann_tpu_torch.examples{sub}": (
         "the JAX package's examples/*.py, which sit outside that package, "
         "as modules of the port") for sub in (

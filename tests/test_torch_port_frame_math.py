@@ -30,7 +30,11 @@ import torch
 
 from molann_tpu_torch.models.ann import ACTIVATIONS, MolANN, PreprocessingANN
 from molann_tpu_torch.ops import fused as F
-from molann_tpu_torch.systems import alanine_model
+from molann_tpu_torch.systems import (
+    alanine_model,
+    chignolin_model,
+    envelope_corner_model,
+)
 
 CSRC = Path(F.__file__).resolve().parent.parent / "csrc"
 VAL_ATOL = 1e-5
@@ -331,6 +335,28 @@ def test_model_variants(host_lib, case):
     _check(*_run(host_lib, model, _frames(u, seed=1), None))
 
 
+# The models at the edge of the unrolled envelope: tpu_validation's config
+# 5 (50 atoms, 85 columns, [85, 32, 2]) and its corner (60 atoms, 92
+# columns, 91 coordination pairs, [92, 64, 64, 64, 2]).
+EDGE_MODELS = {"chignolin": chignolin_model,
+               "envelope_corner": envelope_corner_model}
+
+
+def _edge(name, seed):
+    return EDGE_MODELS[name](generator=torch.Generator().manual_seed(seed),
+                             device="cpu")
+
+
+@pytest.mark.parametrize("component", [None, 0])
+@pytest.mark.parametrize("name", sorted(EDGE_MODELS))
+def test_edge_models_forward_and_adjoint(host_lib, name, component):
+    """The forward and cv+forces kernels' scalar paths on the models at the
+    envelope's edge, whose frames keep two to four times alanine's state."""
+    model, u = _edge(name, 3)
+    assert F.model_select_mode(model) == "unrolled"
+    _check(*_run(host_lib, model, _frames(u, seed=6), component))
+
+
 def test_feature_layer_only(host_lib):
     model, u = alanine_model(device="cpu")
     flayer = model.preprocessing_layer.feature_layer
@@ -391,6 +417,8 @@ def _grad_models():
         return MolANN(pp, model.ann_layers), u
 
     return {
+        "chignolin": lambda: _edge("chignolin", 15),
+        "envelope_corner": lambda: _edge("envelope_corner", 16),
         "tanh": lambda: seeded(3),
         "uncentred_ref": uncentred,
         "relu": lambda: seeded(5, activation="relu"),
@@ -451,7 +479,8 @@ def test_vjp_parameter_and_ref_grads(host_lib, name, want_gx):
 
 @pytest.mark.parametrize("train_ref", [False, True])
 @pytest.mark.parametrize("name", ["tanh", "uncentred_ref", "relu",
-                                  "no_alignment", "gelu", "swish"])
+                                  "no_alignment", "gelu", "swish",
+                                  "chignolin", "envelope_corner"])
 def test_train_loss_and_grads(host_lib, name, train_ref):
     """The train kernel's per-frame math (MSE cotangent, then the VJP with
     no gx): the loss and its gradients against the plain version."""
@@ -534,7 +563,8 @@ def _features_only():
 
 @pytest.mark.parametrize("frames", [1, 4, 32, 64])
 @pytest.mark.parametrize("name", ["tanh", "gelu", "no_alignment",
-                                  "features_only"])
+                                  "features_only", "chignolin",
+                                  "envelope_corner"])
 def test_block_walk_backward(host_lib, name, frames):
     """The backward kernel's block steps over a grid of blocks with a ragged
     last one (37 frames): gx, the parameter block products and the ref_x
@@ -673,6 +703,24 @@ def test_tile_choice(host_lib):
     assert frames(edge, (0, 0, 0), (1, 1, 0), (2, 1, 1), (2, 1, 0)) == [
         32, 32, 32, 32]
 
+    # tpu_validation's config 5 and the envelope's corner, which mode="auto"
+    # routes to these kernels: a frame keeps 207 / 213 floats of config 5
+    # (K1 / K4) and 393 / 409 at the corner, and every kind has a tile
+    def pitches(model):
+        args, keep = F.model_args(*F._extract_model(model), "cpu", "cv_forces")
+        got = [host_lib.host_pitch(ctypes.addressof(args), forces)
+               for forces in (0, 1)]
+        del keep
+        return got
+
+    config5, _ = _edge("chignolin", 0)
+    corner, _ = _edge("envelope_corner", 0)
+    assert pitches(config5) == [207, 213]
+    assert frames(config5, *every) == [32, 32, 32, 64, 64, 64]
+    assert pitches(corner) == [393, 409]
+    assert frames(corner, *every) == [32, 32, 32, 32, 32, 32]
+    assert 32 * 409 * 4 <= 227 * 1024  # a K4 warp of the corner fits a block
+
 
 def _tiles(host_lib, model, x, component, in_t, out_t, forces=True):
     """One host walk of K4 (or K1) on ``x [l, n, 3]`` in the given layouts:
@@ -700,7 +748,8 @@ def _tiles(host_lib, model, x, component, in_t, out_t, forces=True):
 @pytest.mark.parametrize("layout", ["[l, 3n]", "[3n, l]", "[l, 3n] -> t"])
 @pytest.mark.parametrize("l", [1, 37, 96])
 @pytest.mark.parametrize("name", ["tanh", "gelu", "no_alignment",
-                                  "features_only", "deep"])
+                                  "features_only", "deep", "chignolin",
+                                  "envelope_corner"])
 def test_warp_tiles(host_lib, name, l, layout):
     """K4's and K1's warp steps over several tiles of 32 frames with a
     ragged last one, on both input layouts and transposed outputs: values

@@ -84,3 +84,65 @@ def test_edge_bounds_cold_keeps_x_warm_leaves_it_out(variant):
     # x's 39.8 MB are the whole difference where bytes bound both
     if warm >= ops:
         assert (b.ms - b.warm_ms) * 1e-3 * rate == pytest.approx(4 * k * n)
+
+
+@pytest.mark.parametrize("retake_start", [False, True])
+def test_clocked_trace_retakes_off_clocks_and_counts_lost_starts(
+        monkeypatch, retake_start):
+    """``edge_mm_probe.clocked_trace`` on scripted traces: one whose
+    closing spin reads half its events is taken again; one that lost every
+    opening spin is counted, kept, or (``retake_start``) taken again, the
+    last such one kept where none caught its start; the spins never reach
+    the caller."""
+    import contextlib
+
+    import torch
+
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    spin = "at::cuda::spin_kernel"
+
+    class Event:
+        def elapsed_time(self, other):
+            return 1.0  # the closing spin: 1 ms by CUDA events
+
+    def trace(closing_us, opening):
+        return ([(spin, i, 70.0) for i in range(opening)]
+                + [("k", 100 + i, 5.0) for i in range(3)]
+                + [(spin, 200, closing_us)])
+
+    script = [trace(500.0, 16), trace(1000.0, 0), trace(1010.0, 0),
+              trace(990.0, 4)]
+    taken = []
+    monkeypatch.setattr(EP, "kernel_events",
+                        lambda prof: taken.append(1) or script[len(taken) - 1])
+    monkeypatch.setattr(EP, "_spin_events", lambda: (Event(), Event()))
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda **kw: contextlib.nullcontext())
+    retakes, ratios = {"clock": 0, "start_lost": 0}, []
+    got = EP.clocked_trace(lambda: None, calls=2, attempts=3, retakes=retakes,
+                           ratios=ratios, retake_start=retake_start)
+    assert ratios == [0.5] and retakes["clock"] == 1
+    assert got == [("k", 100 + i, 5.0) for i in range(3)]
+    assert retakes["start_lost"] == (2 if retake_start else 1)
+    assert len(taken) == (3 if retake_start else 2)
+    taken.clear()
+    script[:] = [trace(2000.0, 16)] * 3
+    with pytest.raises(RuntimeError, match="clock right"):
+        EP.clocked_trace(lambda: None, attempts=3)
+
+
+def test_per_call_ms_reads_each_kernel_from_the_launches_caught():
+    """A kernel's time a call is its mean over the launches a trace caught
+    times its launches a call: two calls, one kernel caught twice and one
+    launched twice a call but caught three times, one lost once."""
+    from molann_tpu_torch.probes import edge_mm_probe as EP
+
+    launches = [("a", 0, 4.0), ("a", 1, 6.0), ("b<1>", 2, 1.0),
+                ("b<1>", 3, 1.0), ("b<1>", 4, 4.0), ("c", 5, 3.0)]
+    assert EP.per_call_ms(launches, 2, "a") == pytest.approx(5e-3)
+    assert EP.per_call_ms(launches, 2, r"b<(1|true)>") == pytest.approx(
+        4e-3)
+    assert EP.per_call_ms(launches, 2) == pytest.approx(12e-3)
